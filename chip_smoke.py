@@ -8,13 +8,15 @@ sm_90a) and nvcc.  It builds the port's kernels from the checkout's
 sources, checks each against its plain PyTorch version on the card at the
 `full` preset's widths, then serves the `full` preset end to end (export_npz
 -> WaveNet.from_npz -> WaveNetServer -> HTTP on localhost) and shows that
-the served requests went through the kernel.  Any failed check raises and
-the exit code is non-zero; without a CUDA device it exits 2 and prints no
-result.  The last two lines of stdout are the kernel table and the device
-summary, both JSON.
+the served requests went through the kernel, then trains `full` and serves
+the trained checkpoint.  Any failed check raises and the exit code is
+non-zero; without a CUDA device it exits 2 and prints no result.  The last
+three lines of stdout are the kernel table (JSON), the card's name and
+power limit, and the device summary (JSON).
 
 Phases (one line of numbers each):
-  0. device (nvidia-smi name, power limit) and kernel build time;
+  0. device (nvidia-smi name, power limit) and kernel build time (one nvcc
+     per source, all started together);
   1. RNG: the device counter-hash bits equal the plain version's exactly;
   2. decode kernel vs plain at full widths, B=4, 512 steps, T=0 and T=1:
      teacher-forced token flips <= 0.5% of steps, rings allclose
@@ -23,7 +25,22 @@ Phases (one line of numbers each):
   3. served slice: 4 concurrent 0.25 s requests (one streamed) plus one
      primed request over HTTP; valid 16-bit PCM of the asked length; a
      replayed seed gives bit-identical audio; the served audio's first
-     samples equal the plain version's; the kernel's launch count grew.
+     samples equal the plain version's; the kernel's launch count grew;
+  4. train_stack kernels vs plain at `full` widths and depth, T=8192
+     (5 layer groups), at B=2 and at the training shape B=8: embedded
+     tokens in, a fixed random cotangent on the skip sum; skip
+     max|d|/max|skip| <= 1e-2, loss rel <= 2e-3, every gradient
+     max|d|/max|g| <= 2e-2 (the reference suite's bands), two kernel runs
+     bit-identical; kernel and plain ms of the whole stack's forward and
+     backward at both shapes (the table reports B=8);
+  5. trained and served: python -m wavenet_tpu_torch.train's main() on
+     `full` (synthetic data, B=8, window 8192) for 6 steps with a
+     checkpoint at step 3; the train_stack counters are read right after
+     that run (every device kernel the wrappers launched, checked against
+     the count the layer groups give); a resume from step 3 whose losses
+     at steps 4-6 and final params equal the uninterrupted run's bit for
+     bit; WaveNet.from_checkpoint then decodes 0.05 s through the decode
+     kernel, whose counter grows too.
 """
 
 from __future__ import annotations
@@ -31,6 +48,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -44,6 +62,11 @@ FLIP_LIMIT = 0.005               # teacher-forced flips per step
 RING_TOL = 3e-2                  # atol = rtol on the bf16 rings
 SERVE_SECONDS, PRIME_SECONDS = 0.25, 0.05
 REF_SAMPLES = 128                # served audio checked against plain
+TS_B, TS_T, TS_TRAIN_B = 2, 8192, 8   # phase 4 shapes
+SKIP_TOL, LOSS_TOL, GRAD_TOL = 1e-2, 2e-3, 2e-2
+TRAIN_STEPS, RESUME_AT, DECODE_SECONDS = 6, 3, 0.05
+# published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def nvidia_smi() -> str:
@@ -133,7 +156,25 @@ def phase_kernel(pwide, wn, cfg, w, dev, card: str) -> dict:
               f"{first_div} rings_max_abs_err={err} chunked_equal=True "
               f"kernel_ms_per_step={t_kernel} plain_ms_per_step={t_plain} "
               f"card={card!r}", flush=True)
-    return {"max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
+            **decode_bound(cfg, w)}
+
+
+def decode_bound(cfg, w) -> dict:
+    """Least time per decode step of the phase-2 launch (B rows, STEPS
+    steps): its MACs (per row-step: L layers of 4R^2 + R(R+S), plus the
+    S^2 + SQ head) at the bf16 peak, or its bytes (weights once, rings in
+    and out, tokens out) at the memory rate, whichever is larger."""
+    L, R, S, Q = (cfg.num_layers, cfg.residual_channels, cfg.skip_channels,
+                  cfg.quantization_channels)
+    flops = 2 * (L * (4 * R * R + R * (R + S)) + S * S + S * Q) * B * STEPS
+    rings = sum(cfg.dilations) * B * R * 2
+    nbytes = (sum(v.numel() * v.element_size() for v in w.values())
+              + 2 * rings + B * STEPS * 4)
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3 / STEPS,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
 
 
 def _post(url: str, body: dict):
@@ -247,6 +288,222 @@ def phase_serve(pwide, cfg, dev, card: str) -> int:
         engine.close()
 
 
+def _stack_fwd(ts, params, cfg, groups, x, fwd):
+    """The fused stack's forward, group by group, through `fwd` (the
+    kernel wrapper or the plain version): (skip, [(dils, ops, xs)])."""
+    import torch
+    skip = torch.zeros(*x.shape[:2], cfg.skip_channels, device=x.device)
+    saved = []
+    for lo, hi in groups:
+        dils = tuple(cfg.dilations[lo:hi])
+        ops = ts.prep_weights(*(params[k][lo:hi] for k in ts.GROUP_KEYS))
+        skip, x, xs = fwd(x, skip, ops, dils)
+        saved.append((dils, ops, xs))
+    return skip, saved
+
+
+def _stack_bwd(saved, dskip, bwd):
+    """The backward through `bwd`: [(name, gradient)], dx last."""
+    import torch
+    dx = torch.zeros(*dskip.shape[:2], saved[0][2].shape[-1],
+                     device=dskip.device)
+    grads = []
+    for gi, (dils, ops, xs) in reversed(list(enumerate(saved))):
+        dx, *gw = bwd(xs, dskip, dx, ops, dils)
+        grads += [(f"g{gi}.{n}", g) for n, g in zip(
+            ("dwz", "db", "dwrs", "dbres", "dbskip"), gw)]
+    return grads + [("dx", dx)]
+
+
+def _stack(ts, params, cfg, groups, x, ct, fwd, bwd):
+    """(skip, loss = mean(skip * ct), grads, saved) through fwd and bwd."""
+    skip, saved = _stack_fwd(ts, params, cfg, groups, x, fwd)
+    return (skip, (skip * ct).mean(), _stack_bwd(saved, ct / ct.numel(), bwd),
+            saved)
+
+
+def stack_bound(cfg, groups, B: int, T: int) -> dict:
+    """Least time of the whole stack's forward and backward at [B, T]: the
+    forward's products (bf16 operands) at the bf16 peak; the backward's
+    recompute of z at the bf16 peak plus its four f32 products (dh, dz
+    @ Wz^T, dWz, dWrs) at the f32 peak; against the bytes each must move
+    (input and output activations, the bf16 layer-input stash, weights)."""
+    L, R, S = cfg.num_layers, cfg.residual_channels, cfg.skip_channels
+    M = B * T
+    wbytes = L * (4 * R * R + R * (R + S)) * 2
+    stash = (L + len(groups)) * M * R * 2
+    fwd_ops = 2 * M * L * (4 * R * R + R * (R + S)) / PEAK_BF16
+    fwd_bytes = (4 * M * R + 4 * M * S + stash + wbytes) / PEAK_BYTES
+    bwd_ops = (2 * M * L * 4 * R * R / PEAK_BF16
+               + 2 * M * L * (2 * R * (R + S) + 8 * R * R) / PEAK_F32)
+    bwd_bytes = (stash + 4 * M * S + 4 * M * R + 3 * wbytes) / PEAK_BYTES
+    out = {}
+    for name, t_ops, t_bytes in (("fwd", fwd_ops, fwd_bytes),
+                                 ("bwd", bwd_ops, bwd_bytes)):
+        out[name] = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "library_ms": None}
+    return out
+
+
+def phase_train_stack(ts, wn, cfg, params, dev, card: str) -> dict:
+    """Kernels vs plain over the whole `full` stack; returns the table's
+    numbers for train_stack_fwd and train_stack_bwd."""
+    import numpy as np
+    import torch
+    TT = ts.pick_tile(cfg, TS_T)
+    groups = ts.group_plan(cfg, TT)
+    check(len(groups) == 5, f"expected 5 layer groups, got {groups}")
+    rs = np.random.RandomState(4)
+
+    def inputs(B):
+        toks = torch.from_numpy(rs.randint(
+            0, cfg.quantization_channels, (B, TS_T)).astype(np.int32)).to(dev)
+        x = wn.embed_tokens(params, cfg, toks, wn._shifted_tokens(toks))
+        ct = torch.from_numpy(rs.randn(B, TS_T, cfg.skip_channels).astype(
+            np.float32)).to(dev)
+        return x.contiguous(), ct
+
+    def compare(B):
+        """Kernel vs plain at [B, TS_T] (and two kernel runs), checked
+        against the bands; returns the inputs, both runs and the errors."""
+        x, ct = inputs(B)
+        k = _stack(ts, params, cfg, groups, x, ct, ts.group_fwd, ts.group_bwd)
+        k2 = _stack(ts, params, cfg, groups, x, ct, ts.group_fwd,
+                    ts.group_bwd)
+        p = _stack(ts, params, cfg, groups, x, ct, ts.group_fwd_reference,
+                   ts.group_bwd_reference)
+        torch.cuda.synchronize()
+        skip_err = float((k[0] - p[0]).abs().max())
+        skip_rel = skip_err / float(p[0].abs().max())
+        loss_rel = abs(float(k[1]) - float(p[1])) / abs(float(p[1]))
+        grad_rel, grad_err = {}, 0.0
+        for (name, gk), (_, gp) in zip(k[2], p[2]):
+            e = float((gk - gp).abs().max())
+            grad_err = max(grad_err, e)
+            grad_rel[name] = e / max(float(gp.abs().max()), 1e-30)
+        same = (torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])
+                and all(torch.equal(a, b) for (_, a), (_, b)
+                        in zip(k[2], k2[2])))
+        del k2
+        print(f"phase 4 train_stack: B={B} T={TS_T} groups={groups} "
+              f"skip_rel={skip_rel} skip_max_abs_err={skip_err} "
+              f"loss_kernel={float(k[1])} loss_plain={float(p[1])} "
+              f"loss_rel={loss_rel} worst_grad={max(grad_rel.values())} "
+              f"({max(grad_rel, key=grad_rel.get)}) grad_max_abs_err="
+              f"{grad_err} kernel_runs_bit_identical={same}", flush=True)
+        check(skip_rel <= SKIP_TOL, f"B={B}: skip differs: {skip_rel}")
+        check(loss_rel <= LOSS_TOL, f"B={B}: loss differs: {loss_rel}")
+        for name, r in grad_rel.items():
+            check(r <= GRAD_TOL, f"B={B}: gradient {name} differs: {r}")
+        check(same, f"B={B}: two kernel runs differ")
+        return x, ct, k, p, skip_err, grad_err
+
+    with torch.no_grad():
+        times = {}
+        for B in (TS_B, TS_TRAIN_B):
+            x, ct, k, p, skip_err, grad_err = compare(B)
+            dsk = ct / ct.numel()
+            fwd_k = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
+                                               ts.group_fwd), 3)
+            fwd_p = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
+                                               ts.group_fwd_reference), 3)
+            bwd_k = cuda_ms(lambda: _stack_bwd(k[3], dsk, ts.group_bwd), 3)
+            bwd_p = cuda_ms(lambda: _stack_bwd(p[3], dsk,
+                                               ts.group_bwd_reference), 3)
+            times[B] = (fwd_k, fwd_p, bwd_k, bwd_p, skip_err, grad_err)
+            del k, p
+            print(f"phase 4 train_stack times B={B} T={TS_T}: "
+                  f"fwd_kernel_ms={fwd_k} fwd_plain_ms={fwd_p} "
+                  f"bwd_kernel_ms={bwd_k} bwd_plain_ms={bwd_p} "
+                  f"card={card!r}", flush=True)
+    bound = stack_bound(cfg, groups, TS_TRAIN_B, TS_T)
+    fk, fp, bk, bp, skip_err, grad_err = times[TS_TRAIN_B]
+    return {"fwd": {"max_abs_err": skip_err, "ms": fk, "plain_ms": fp,
+                    **bound["fwd"]},
+            "bwd": {"max_abs_err": grad_err, "ms": bk, "plain_ms": bp,
+                    **bound["bwd"]}}
+
+
+def _losses(path: str) -> dict:
+    with open(path) as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f)}
+
+
+def phase_train(ts, pwide, dev, card: str) -> dict:
+    """Train `full` through the CLI's main(), resume, and serve the
+    checkpoint; returns the launch counts of the three kernels."""
+    import math
+    import torch
+    from wavenet_tpu_torch import train
+    from wavenet_tpu_torch.config import full
+    from wavenet_tpu_torch.models.api import WaveNet
+    common = ["--preset", "full", "--synthetic", "--device", "cuda",
+              "--batch-size", str(TS_TRAIN_B), "--override",
+              f"train_window={TS_T}", "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in (ts.fwd_launches, ts.bwd_launches):
+            c.reset()                            # the training path starts here
+        ma = train.main(common + [
+            "--steps", str(TRAIN_STEPS), "--ckpt", a, "--ckpt-every",
+            str(RESUME_AT), "--metrics-file", os.path.join(tmp, "a.jsonl")])
+        torch.cuda.synchronize()
+        fwd_n, bwd_n = ts.fwd_launches.value, ts.bwd_launches.value
+        # per step and layer group: Lg + 1 forward kernels, 10 Lg + 2
+        # backward kernels (train_stack.cu)
+        cfg = full()
+        ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
+        L = cfg.num_layers
+        want = (TRAIN_STEPS * (L + ng), TRAIN_STEPS * (10 * L + 2 * ng))
+        check((fwd_n, bwd_n) == want, "training launched (fwd, bwd) = "
+              f"{(fwd_n, bwd_n)} train_stack kernels, expected {want}")
+        os.makedirs(b)
+        for f in ("params.json", f"ckpt_{RESUME_AT:08d}.pt"):
+            shutil.copy(os.path.join(a, f), b)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        train.main(common + [
+            "--steps", str(TRAIN_STEPS - RESUME_AT), "--ckpt", b, "--resume",
+            "--metrics-file", os.path.join(tmp, "b.jsonl")])
+        la = _losses(os.path.join(tmp, "a.jsonl"))
+        lb = _losses(os.path.join(tmp, "b.jsonl"))
+        check(sorted(la) == list(range(1, TRAIN_STEPS + 1))
+              and all(math.isfinite(v) for v in la.values()),
+              f"losses of the uninterrupted run: {la}")
+        check(sorted(lb) == list(range(RESUME_AT + 1, TRAIN_STEPS + 1))
+              and all(lb[s] == la[s] for s in lb),
+              f"resumed losses {lb} differ from {la}")
+        last = f"ckpt_{TRAIN_STEPS:08d}.pt"
+        pa = torch.load(os.path.join(a, last), weights_only=True)["params"]
+        pb = torch.load(os.path.join(b, last), weights_only=True)["params"]
+        check(all(torch.equal(pa[k], pb[k]) for k in pa),
+              "resumed params differ from the uninterrupted run's")
+        check(ts.fwd_launches.value > fwd_n and ts.bwd_launches.value > bwd_n,
+              "the resumed run did not launch the train_stack kernels")
+
+        pwide.launches.reset()                   # the serving path starts here
+        model = WaveNet.from_checkpoint(a, device=dev)
+        toks = model.generate(seconds=DECODE_SECONDS, seed=1)
+        torch.cuda.synchronize()
+        dec_n = pwide.launches.value
+        n = int(DECODE_SECONDS * model.cfg.sample_rate)
+        check(tuple(toks.shape) == (1, n) and int(toks.min()) >= 0
+              and int(toks.max()) < model.cfg.quantization_channels,
+              "bad decode of the trained model")
+        check(dec_n > 0, "the trained model's decode did not launch the "
+              "kernel")
+    print(f"phase 5 trained and served: steps={TRAIN_STEPS} "
+          f"losses={[la[s] for s in sorted(la)]} resumed_from={RESUME_AT} "
+          f"resume_bit_exact=True ms_per_step={1e3 / ma['steps_per_sec']} "
+          f"audio_seconds_per_sec={ma['audio_seconds_per_sec']} "
+          f"peak_device_memory_gb={peak_gb} "
+          f"train_stack_fwd_launches={fwd_n} train_stack_bwd_launches="
+          f"{bwd_n} decode_launches={dec_n} card={card!r}", flush=True)
+    return {"train_stack_fwd": fwd_n, "train_stack_bwd": bwd_n,
+            "decode_wide": dec_n}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -257,7 +514,9 @@ def main() -> int:
         from wavenet_tpu_torch.config import full
         from wavenet_tpu_torch.models import wavenet as wn
         from wavenet_tpu_torch.ops import rng
+        from wavenet_tpu_torch.ops.cuda import build
         from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
+        from wavenet_tpu_torch.ops.cuda import train_stack as ts
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -266,7 +525,9 @@ def main() -> int:
     card = nvidia_smi()
     dev = torch.device("cuda", 0)
     t = time.monotonic()
+    build.load_all(["decode_wide", "train_stack"])
     pwide.library()
+    ts.library()
     print(f"phase 0 device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernel build_s={time.monotonic() - t}",
           flush=True)
@@ -277,16 +538,29 @@ def main() -> int:
     w = pwide.flatten_params(params, cfg)
     numbers = phase_kernel(pwide, wn, cfg, w, dev, card)
     launches = phase_serve(pwide, cfg, dev, card)
+    stack = phase_train_stack(ts, wn, cfg, params, dev, card)
+    trained = phase_train(ts, pwide, dev, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "decode_wide", "route": "cuda",
-        "source": "wavenet_tpu_torch/csrc/decode_wide.cu",
-        "replaces": "wavenet_tpu/ops/pallas/decode_wide.py:170",
-        "launches": launches, **numbers}]}))
+    src = "wavenet_tpu_torch/csrc/"
+    pallas = "wavenet_tpu/ops/pallas/"
+    print(json.dumps({"kernels": [
+        {"name": "decode_wide", "route": "cuda",
+         "source": src + "decode_wide.cu",
+         "replaces": pallas + "decode_wide.py:170",
+         "launches": launches, **numbers},
+        {"name": "train_stack_fwd", "route": "cuda",
+         "source": src + "train_stack.cu",
+         "replaces": pallas + "train_stack.py:324",
+         "launches": trained["train_stack_fwd"], **stack["fwd"]},
+        {"name": "train_stack_bwd", "route": "cuda",
+         "source": src + "train_stack.cu",
+         "replaces": pallas + "train_stack.py:426",
+         "launches": trained["train_stack_bwd"], **stack["bwd"]}]}))
     print(card)
+    # the run used one card, device 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -43,7 +43,7 @@ def _setup(kw):
     jc = jconfig.WaveNetConfig(**kw)
     tc = tconfig.WaveNetConfig(**kw)
     jp = jwn.init_params(jc, jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return jc, tc, jp, tp
 
 
@@ -65,7 +65,7 @@ def test_decode_step_logits_match_jax(preset):
     jc, tc, jp, tp = _setup(kw)
     B, N = 3, 64
     toks = np.random.RandomState(0).randint(0, 256, (B, N)).astype(np.int32)
-    js, ts = jwn.decode_init(jc, B), twn.decode_init(tc, B)
+    js, ts = jwn.decode_init(jc, B), twn.decode_init(tc, B, "cpu")
     step = jax.jit(lambda p, s, t: jwn.decode_step(p, jc, s, t))
     for t in range(N):
         js, jl = step(jp, js, jnp.asarray(toks[:, t]))
@@ -146,7 +146,8 @@ def test_port_chunked_equals_one_shot(wide):
     _, tc, _, tp = wide
     w = twide.flatten_params(tp, tc)
     B, N = 2, 90
-    rings, carry, s, _, _ = twide.setup_decode(tc, B, N, seeds=11)
+    rings, carry, s, _, _ = twide.setup_decode(tc, B, N, seeds=11,
+                                              device="cpu")
     one, r1, c1 = twide.decode_chunk(w, tc, rings, carry, 0, s, N, 1.0)
     r, c, parts, t0 = rings, carry, [], 0
     for n in (17, 50, 23):
@@ -160,11 +161,13 @@ def test_port_chunked_equals_one_shot(wide):
 
     prime = torch.from_numpy(np.random.RandomState(5).randint(
         0, 256, (B, 7)).astype(np.int32))
-    want = generate_auto(w, tc, 40, batch=B, prime_tokens=prime, seeds=3)
+    want = generate_auto(w, tc, 40, batch=B, prime_tokens=prime, seeds=3,
+                         device="cpu")
     got = torch.cat(list(generate_stream(w, tc, 40, chunk_samples=9,
                                          batch=B, prime_tokens=prime,
-                                         seeds=3)), 1)
+                                         seeds=3, device="cpu")), 1)
     assert got.shape == (B, 40) and torch.equal(got, want)
     # the facade-free plain generator agrees with the whole-loop one
     assert torch.equal(twn.generate(tp, tc, 40, batch=B, prime_tokens=prime,
-                                    seeds=trng.as_row_seeds(3, B)), want)
+                                    seeds=trng.as_row_seeds(3, B),
+                                    device="cpu"), want)

@@ -103,7 +103,7 @@ def test_jax_export_npz_loads_in_port(tmp_path):
     jm = JWaveNet(_wide_cfg(jconfig)).init(jax.random.PRNGKey(0))
     path = str(tmp_path / "m.npz")
     jm.export_npz(path)
-    tm = WaveNet.from_npz(path)
+    tm = WaveNet.from_npz(path, device="cpu")
     assert tm.cfg == _wide_cfg(tconfig)
     want = jax.tree.map(np.asarray, jm.params)
     got = params_to_numpy(tm.params)
@@ -125,8 +125,8 @@ def test_init_params_shapes_match_reference():
     """The port's seeded init draws its own values but must give exactly
     the reference's shapes and dtypes, and Glorot limits per tensor."""
     tc, jc = _wide_cfg(tconfig), _wide_cfg(jconfig)
-    got = params_to_numpy(WaveNet(tc).init(torch.Generator().manual_seed(3))
-                          .params)
+    got = params_to_numpy(
+        WaveNet(tc).init(torch.Generator().manual_seed(3), "cpu").params)
     want = jax.tree.map(np.asarray, jwn.init_params(jc, jax.random.PRNGKey(0)))
     assert {k: (v.shape, v.dtype) for k, v in got.items()} == \
         {k: (v.shape, v.dtype) for k, v in want.items()}
@@ -135,11 +135,11 @@ def test_init_params_shapes_match_reference():
     for k in ("b", "b_res", "b_skip", "head_b1", "head_b2"):
         assert not got[k].any()
     # the same generator seed gives the same weights
-    again = params_to_numpy(WaveNet(tc).init(torch.Generator().manual_seed(3))
-                            .params)
+    again = params_to_numpy(
+        WaveNet(tc).init(torch.Generator().manual_seed(3), "cpu").params)
     for k in got:
         np.testing.assert_array_equal(got[k], again[k])
-    assert params_from_numpy(got)["w_cur"].dtype == torch.float32
+    assert params_from_numpy(got, "cpu")["w_cur"].dtype == torch.float32
 
 
 def test_unported_features_raise_not_implemented():

@@ -41,6 +41,9 @@ bad = sorted(m for m in sys.modules
              or m == "wavenet_tpu" or m.startswith("wavenet_tpu."))
 assert not bad, bad
 assert "wavenet_tpu_torch.serve" in names and len(names) >= 15, names
+for n in ("train", "training.trainer", "training.checkpoint",
+          "ops.cuda.train_stack", "audio.dataset"):
+    assert "wavenet_tpu_torch." + n in names, n
 print(len(names))
 """
     r = _run(code)
@@ -82,7 +85,7 @@ class _OnCuda:
 
 def _cuda_args(cfg, batch=2):
     from wavenet_tpu_torch.models import wavenet as wn
-    params = wn.init_params(cfg, torch.Generator().manual_seed(0))
+    params = wn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     w = twide.DecodeWeights({k: _OnCuda(v) for k, v in
                              twide.flatten_params(params, cfg).items()})
     _, sum_d = wn.ring_offsets(cfg)
@@ -131,4 +134,5 @@ def test_bad_operands_are_refused_before_launch():
     with pytest.raises(ValueError, match="device"):
         twide.decode_chunk(w, cfg, rings.to("meta"), carry, 0, seeds, 8, 1.0)
     with pytest.raises(ValueError, match="prime token ids"):
-        twide.setup_decode(cfg, 2, 8, torch.tensor([[3, 256], [0, 1]]))
+        twide.setup_decode(cfg, 2, 8, torch.tensor([[3, 256], [0, 1]]),
+                           device="cpu")

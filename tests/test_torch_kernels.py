@@ -6,9 +6,12 @@ they run with:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
-Both sides sum every dot product exactly (f64) and round once, so the
-kernel must equal the plain version bit for bit.  chip_smoke.py repeats
-these checks at the `full` preset's widths.
+Decode: both sides sum every dot product exactly (f64) and round once, so
+the kernel must equal the plain version bit for bit.  Training stack: both
+sides sum bf16-valued products in f32 in different orders, so they agree
+within the reference suite's bands (test_pallas_train.py:96-103), and two
+kernel runs agree bit for bit.  chip_smoke.py repeats these checks at the
+`full` preset's widths.
 """
 
 import pytest
@@ -18,6 +21,7 @@ from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops import rng
 from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
+from wavenet_tpu_torch.ops.cuda import train_stack as ts
 
 pytestmark = pytest.mark.gpu
 
@@ -77,3 +81,116 @@ def test_decode_kernel_chunked_equals_one_shot(dev, small):
     before = pwide.launches.value
     pwide.decode_chunk(w, cfg, rings, carry, 0, s, 3, 1.0)
     assert pwide.launches.value == before + 1
+
+
+@pytest.mark.parametrize("R,S,B,T,dmax", [(128, 256, 2, 256, 16),
+                                          (64, 96, 3, 200, 64),
+                                          (32, 16, 2, 128, 8),
+                                          (16, 16, 2, 64, 8)])
+def test_train_stack_kernels_match_plain(dev, R, S, B, T, dmax):
+    """One layer group forward and backward: kernel vs plain, and two
+    kernel runs bit for bit (ragged row tiles in the second case, the
+    `tiny` preset's widths in the third, a contraction shorter than one
+    staged slice of W in the last)."""
+    cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
+                                residual_channels=R, skip_channels=S)
+    g = torch.Generator().manual_seed(3)
+    p = wn.init_params(cfg, g, dev)
+    dils = cfg.dilations
+    Lg = len(dils)
+    ops = ts.prep_weights(*(p[k] for k in ts.GROUP_KEYS))
+    rnd = lambda *shape, sc: (torch.randn(*shape, generator=g) * sc).to(dev)
+    x = rnd(B, T, R, sc=0.5).to(torch.bfloat16).float()
+    skip, dskip, dxo = rnd(B, T, S, sc=0.1), rnd(B, T, S, sc=0.01), \
+        rnd(B, T, R, sc=0.01)
+    before = (ts.fwd_launches.value, ts.bwd_launches.value)
+    kf = ts.group_fwd(x, skip, ops, dils)
+    pf = ts.group_fwd_reference(x, skip, ops, dils)
+    kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils)
+    pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils)
+    # device kernels: the carry init and one per layer; per layer the row
+    # pass, the shift pass, two weight gradients and three column sums at
+    # two launches each, plus the skip-bias sum
+    assert (ts.fwd_launches.value, ts.bwd_launches.value) == (
+        before[0] + Lg + 1, before[1] + 10 * Lg + 2)
+    torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
+    for a, b in zip(kb, pb):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-2 * scale
+    kf2 = ts.group_fwd(x, skip, ops, dils)
+    kb2 = ts.group_bwd(kf2[2], dskip, dxo, ops, dils)
+    assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))
+
+
+def _rel(a, b):
+    """(max |a - b| / max |b|, |a - b| / |b|) of two gradients."""
+    d = (a - b).float()
+    return (float(d.abs().max()) / max(float(b.abs().max()), 1e-30),
+            float(d.norm()) / max(float(b.norm()), 1e-30))
+
+
+def test_fused_loss_gradients_on_the_card(dev, monkeypatch):
+    """The autograd path through the kernels (embed -> fused stack over
+    three layer groups -> head -> cross-entropy) on the card.
+
+    1. Under a fixed random cotangent on the skip sum (a linear objective),
+       the gradients of every stack parameter and both embedding tables
+       against the CPU, where the stack runs its plain versions.
+    2. The training loss itself: every gradient with the backward kernels
+       against the same forward kernels followed by the plain backward on
+       the card (group_bwd swapped for group_bwd_reference).
+    Case 2 shares the forward, because two forwards that sum in another
+    order differ in a few bf16 roundings of h, and the head's ReLUs turn
+    those into whole flipped entries of the cross-entropy's skip
+    cotangent: between the plain versions on the CPU and on the card that
+    moves the cross-entropy gradients by several per cent (printed here as
+    `plain card vs plain cpu`; run with -s)."""
+    cfg = tconfig.WaveNetConfig(num_blocks=2, max_dilation=32,
+                                residual_channels=128, skip_channels=128,
+                                train_window=256)
+    budget = max(ts._group_sizes(cfg, 256, cfg.dilations[l:l + 4])[1]
+                 for l in range(len(cfg.dilations) - 3))
+    monkeypatch.setattr(ts, "VMEM_BUDGET", budget)
+    assert len(ts.group_plan(cfg, ts.pick_tile(cfg, 256))) == 3
+    p0 = wn.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, 256, (2, 257), generator=g)
+    ct = torch.randn(2, 256, cfg.skip_channels, generator=g)
+    keys = sorted(p0)
+    stack_keys = list(ts.GROUP_KEYS) + ["embed_cur", "embed_prev"]
+
+    def run(d):
+        p = {k: v.detach().to(d).requires_grad_(True)
+             for k, v in p0.items()}
+        loss, _ = wn.loss_fn(p, cfg, toks.to(d), use_fused=True)
+        ce = torch.autograd.grad(loss, [p[k] for k in keys])
+        inputs = toks[:, :-1].to(d)
+        x = wn.embed_tokens(p, cfg, inputs, wn._shifted_tokens(inputs))
+        skip = ts.forward_skip_fused(p, cfg, x)
+        lin = torch.autograd.grad((skip * ct.to(d)).mean(),
+                                  [p[k] for k in stack_keys])
+        return (float(loss.detach()), [g.cpu() for g in ce],
+                [g.cpu() for g in lin])
+
+    lk, cek, link = run(dev)
+    lc, cec, linc = run(torch.device("cpu"))
+    assert abs(lk - lc) <= 2e-3 * abs(lc)
+    for k, a, b in zip(stack_keys, link, linc):
+        assert _rel(a, b)[0] <= 2e-2, k
+
+    with monkeypatch.context() as m:
+        m.setattr(ts, "group_bwd", ts.group_bwd_reference)
+        lp, cep, _ = run(dev)                 # kernel forward, plain backward
+        m.setattr(ts, "group_fwd", ts.group_fwd_reference)
+        _, ceq, _ = run(dev)                  # the plain versions on the card
+    assert lp == lk
+    for k, a, b in zip(keys, cek, cep):
+        assert _rel(a, b)[0] <= 2e-2, k
+    for name, a, b in (("kernel bwd vs plain bwd, card", cek, cep),
+                       ("kernel vs plain, card", cek, ceq),
+                       ("plain card vs plain cpu", ceq, cec)):
+        rel = {k: _rel(x, y) for k, x, y in zip(keys, a, b)}
+        kmax = max(rel, key=lambda k: rel[k][0])
+        kl2 = max(rel, key=lambda k: rel[k][1])
+        print(f"cross-entropy gradients, {name}: worst max-rel "
+              f"{rel[kmax][0]} ({kmax}), worst l2-rel {rel[kl2][1]} ({kl2})")

@@ -62,7 +62,7 @@ def test_port_server_matches_jax_server(npz, monkeypatch):
             dict(num_samples=70, seed=8, prime=prime)]
     with JWaveNetServer(JWaveNet.from_npz(npz), **ENGINE) as js:
         want = _serve(js, reqs)
-    with WaveNetServer(WaveNet.from_npz(npz), **ENGINE) as ts:
+    with WaveNetServer(WaveNet.from_npz(npz, device="cpu"), **ENGINE) as ts:
         got = _serve(ts, reqs)
         assert ts.stats["requests"] == 4 and ts.stats["samples_out"] == 388
     for r, a, b in zip(reqs, want, got):
@@ -73,7 +73,7 @@ def test_port_server_matches_jax_server(npz, monkeypatch):
 
 
 def test_port_cobatched_reply_equals_singleton_replay(npz):
-    model = WaveNet.from_npz(npz)
+    model = WaveNet.from_npz(npz, device="cpu")
     reqs = [dict(num_samples=100, seed=1), dict(num_samples=80, seed=2),
             dict(num_samples=120, seed=3)]
     with WaveNetServer(model, **ENGINE) as s:
@@ -101,7 +101,7 @@ def _post(url, body):
 
 
 def test_port_http_endpoints(npz):
-    model = WaveNet.from_npz(npz)
+    model = WaveNet.from_npz(npz, device="cpu")
     engine = WaveNetServer(model, **ENGINE)
     server = make_server(engine, port=0)
     url = f"http://127.0.0.1:{server.server_address[1]}"

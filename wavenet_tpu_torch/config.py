@@ -3,8 +3,8 @@
 A copy of wavenet_tpu/config.py: the same dataclasses, presets and JSON, so
 a config written by either package loads in the other and `to_json()` is
 byte-identical for every preset (tests/test_torch_foundations.py).  Fields
-that steer JAX-only machinery (remat, fused_stack, decode_unroll, the mesh
-axis sizes) are kept so the JSON round-trips; the port ignores them.
+that steer JAX-only machinery (decode_unroll, pipeline_microbatch) are kept
+so the JSON round-trips; the port ignores them.
 """
 
 from __future__ import annotations
@@ -77,8 +77,10 @@ class WaveNetConfig:
     # --- numerics ---
     compute_dtype: str = "bfloat16"    # activations/matmul inputs
     param_dtype: str = "float32"       # master weights
-    # remat, fused_stack and decode_unroll steer the JAX package's training
-    # and scan decoder; the port keeps them only so configs round-trip
+    # training: remat recomputes each scan layer in the backward
+    # (torch.utils.checkpoint); fused_stack routes the step through the
+    # fused layer-group stack when train_stack.supported(cfg, T).
+    # decode_unroll steers the JAX package's scan decoder only.
     remat: bool = False
     fused_stack: bool = True
     decode_unroll: int = 1

@@ -24,7 +24,7 @@ from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
 def generate_auto(params, cfg: WaveNetConfig, num_samples: int,
                   batch: int = 1, prime_tokens: Optional[torch.Tensor] = None,
                   temperature: float = 1.0, seeds=0,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """[batch, num_samples] int32 tokens in one whole-loop decode launch.
     params: model params or flatten_params' DecodeWeights on `device`;
     seeds: an int (per-row seeds derived from it) or [batch] per-row
@@ -39,7 +39,7 @@ def generate_stream(params, cfg: WaveNetConfig, num_samples: int,
                     chunk_samples: int = 16000, batch: int = 1,
                     prime_tokens: Optional[torch.Tensor] = None,
                     temperature: float = 1.0, seeds=0,
-                    device="cpu") -> Iterator[torch.Tensor]:
+                    device="cuda") -> Iterator[torch.Tensor]:
     """Streaming generation: yields [batch, <= chunk_samples] int32 token
     chunks (on `device`).  Rings and the token carry pass from one launch
     to the next and the RNG is keyed by the global step, so the chunks

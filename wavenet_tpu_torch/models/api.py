@@ -2,7 +2,8 @@
 
 The params are registered on the module under the reference's key names
 and shapes (embed_cur, w_cur [L, R, 2, R], b [L, 2, R], ...), frozen
-(requires_grad=False: this slice only decodes), so
+(requires_grad=False: the facade decodes and scores; training runs on the
+Trainer's own params, training/trainer.py), so
 `state_dict()` keys match the JAX package's export_npz keys and
 `model.to(device)` moves the whole model.  The kernel-layout weights
 (ops/cuda/decode_wide.flatten_params) are built once per device and
@@ -47,7 +48,7 @@ class WaveNet(nn.Module):
     # ---- lifecycle ----
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device="cpu") -> "WaveNet":
+             device="cuda") -> "WaveNet":
         """Random weights from `generator` (default: seeded by cfg.seed)."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.cfg.seed)
@@ -74,7 +75,7 @@ class WaveNet(nn.Module):
         np.savez(path, **flat)
 
     @classmethod
-    def from_npz(cls, path: str, device="cpu") -> "WaveNet":
+    def from_npz(cls, path: str, device="cuda") -> "WaveNet":
         """Load an export_npz file written by either package."""
         from wavenet_tpu_torch.utils.pytree_io import (params_from_numpy,
                                                        unflatten_tree)
@@ -83,6 +84,62 @@ class WaveNet(nn.Module):
             params = unflatten_tree({k: z[k] for k in z.files
                                      if k != "__config__"})
         return cls(cfg, params_from_numpy(params, device))
+
+    @classmethod
+    def from_checkpoint(cls, directory: str, step: Optional[int] = None,
+                        use_ema: bool = True, device="cuda") -> "WaveNet":
+        """Load a model trained by the port's Trainer.  When the run kept
+        Polyak-averaged weights (cfg.ema_decay) they are used by default;
+        use_ema=False gives the raw training weights.  A directory of the
+        JAX package's orbax checkpoints is refused (export_npz carries
+        those weights over)."""
+        from wavenet_tpu_torch.training.checkpoint import CheckpointManager
+        cfg = CheckpointManager.load_config(directory)
+        raw, _ = CheckpointManager(directory, cfg).restore(step, device)
+        ema = raw.get("ema")
+        use = ema if (use_ema and cfg.ema_decay is not None
+                      and ema is not None) else raw["params"]
+        return cls(cfg, use)
+
+    def save(self, directory: str, step: int = 0) -> None:
+        """Write these params as a loadable checkpoint (config JSON beside
+        it) without a Trainer, with a freshly initialized optimizer state:
+        resuming training from it starts the optimizer cold."""
+        from wavenet_tpu_torch.audio.dataset import IteratorState
+        from wavenet_tpu_torch.training.checkpoint import CheckpointManager
+        from wavenet_tpu_torch.training.trainer import make_optimizer
+        params = {k: v.detach() for k, v in self.params.items()}
+        if not params:
+            raise ValueError("no params; call init() or load a checkpoint")
+        state = {"params": params,
+                 "opt_state": make_optimizer(self.cfg).init(params),
+                 "ema": None}
+        CheckpointManager(directory, self.cfg).save(
+            step, state, IteratorState(seed=self.cfg.seed, step=0))
+
+    # ---- model surface ----
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).to(torch.int32)
+
+    def logits(self, tokens) -> torch.Tensor:
+        """[B, T] tokens -> [B, T, Q] f32 logits (the scan forward)."""
+        return wn.forward_logits(self.params, self.cfg, self._tokens(tokens))
+
+    def loss(self, tokens):
+        """(loss, aux) of a [B, W+1] token window (the scan forward)."""
+        return wn.loss_fn(self.params, self.cfg, self._tokens(tokens))
+
+    def score(self, waveform=None, tokens=None) -> torch.Tensor:
+        """Per-utterance teacher-forced bits/sample ([B]; lower is better)
+        of float waveforms [B, T] (mu-law encoded here) or tokens [B, T]."""
+        from wavenet_tpu_torch.audio import mulaw
+        if (waveform is None) == (tokens is None):
+            raise ValueError("pass exactly one of waveform= / tokens=")
+        if tokens is None:
+            tokens = mulaw.encode_np(np.asarray(waveform, np.float32),
+                                     self.cfg.quantization_channels)
+        return wn.score_fn(self.params, self.cfg, self._tokens(tokens))
 
     # ---- decode ----
 

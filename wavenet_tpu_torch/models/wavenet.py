@@ -28,20 +28,27 @@ kernel (which also accumulates in f64) and this plain version agree bit
 for bit, and a row's result cannot depend on how many rows share a call
 (the serving replay contract).
 
-Only the decode half of the reference is here (kernel_size 2, no mel or
-speaker conditioning); forward_logits, loss_fn and score_fn come with the
-training slice (ROADMAP queue 1 item 2).  The whole-loop CUDA kernel
-(ops/cuda/decode_wide.py) computes the same decode_step loop on the card.
+Kernel_size 2 only, no mel or speaker conditioning (ROADMAP queue 1 items
+6, 7).  Two halves:
+  * training: forward_logits (the scan recipe: the residual rounded to bf16
+    after every layer, autograd through it), forward_logits_fused (the
+    fused layer-group recipe of ops/cuda/train_stack.py: f32 carry within
+    a group, f32 cotangents), loss_fn and score_fn;
+  * decode: decode_step and its drivers; the whole-loop CUDA kernel
+    (ops/cuda/decode_wide.py) computes the same loop on the card.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from wavenet_tpu_torch.config import WaveNetConfig
 from wavenet_tpu_torch.ops import rng
+from wavenet_tpu_torch.ops.shift import shift_right
 
 Params = Dict[str, torch.Tensor]
 
@@ -74,7 +81,7 @@ def check_supported(cfg: WaveNetConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: WaveNetConfig, generator: torch.Generator,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """Random params with the reference's shapes and distributions: embed
     tables N(0, 0.05^2), stacked Glorot-uniform weights (fan-in from the
     input axis, fan-out from the last), zero biases.  Drawn from
@@ -138,9 +145,30 @@ def embed_tokens(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
                  prev_tokens: torch.Tensor) -> torch.Tensor:
     """E_cur[tokens] + E_prev[prev_tokens], summed in f32 and rounded once
     to bf16 -> residual stream [.., R] (f32 holding bf16 values)."""
-    x = (params["embed_cur"].float()[tokens.long()]
-         + params["embed_prev"].float()[prev_tokens.long()])
+    x = (_Gather.apply(params["embed_cur"].float(), tokens.long())
+         + _Gather.apply(params["embed_prev"].float(), prev_tokens.long()))
     return _bf(x)
+
+
+class _Gather(torch.autograd.Function):
+    """table[idx] whose backward is a one-hot product, not a scatter-add:
+    on the card the scatter-add of torch's indexing backward sums with
+    float atomics (its order changes from run to run), while the product
+    onehot(idx)^T @ grad has a fixed order, so two training runs give the
+    same bits without switching torch to deterministic algorithms."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(idx.reshape(-1), ctx.num_rows)
+        g = grad.reshape(-1, grad.shape[-1])
+        return onehot.to(g.dtype).T @ g, None
 
 
 def head_logits(params: Params, cfg: WaveNetConfig,
@@ -149,6 +177,113 @@ def head_logits(params: Params, cfg: WaveNetConfig,
     h = torch.relu(skip)
     h = torch.relu(_dot(h, params["head_w1"]) + params["head_b1"].float())
     return _dot(h, params["head_w2"]) + params["head_b2"].float()
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward and loss (training)
+# ---------------------------------------------------------------------------
+
+def _shifted_tokens(tokens: torch.Tensor) -> torch.Tensor:
+    """prev_tokens[t] = tokens[t-1], with a leading zero-token."""
+    return torch.cat([torch.zeros_like(tokens[:, :1]), tokens[:, :-1]], dim=1)
+
+
+def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
+                w_skip, b_skip):
+    """One gated residual layer over a whole sequence, the scan recipe:
+    z = (x @ W_cur + x[t-d] @ W_prev) + b in f32, h = bf16(tanh * sigmoid),
+    skip = (skip + h @ W_skip) + b_skip, and the residual rounded once:
+    x' = bf16((x + h @ W_res) + b_res).  x: [B, T, R] f32 holding bf16
+    values; w_cur, w_prev: [R, 2, R]; b: [2, R]."""
+    R = x.shape[-1]
+    x_prev = shift_right(x, d, left_ctx)
+    z = ((_dot(x, w_cur.reshape(R, 2 * R)) + _dot(x_prev,
+                                                   w_prev.reshape(R, 2 * R)))
+         + b.reshape(2 * R).float())
+    h = _bf(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]))
+    skip = (skip + _dot(h, w_skip)) + b_skip.float()
+    x = _bf((x + _dot(h, w_res)) + b_res.float())
+    return x, skip
+
+
+def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
+                   prev_tokens: Optional[torch.Tensor] = None,
+                   valid_mask=None, halo_fn=None) -> torch.Tensor:
+    """[B, T] int tokens -> [B, T, Q] f32 logits (logits[t] predicts t+1),
+    the reference's scan path: layer by layer, the residual rounded to bf16
+    after every layer; autograd differentiates it (cotangents through the
+    bf16 roundings are rounded as JAX's transposes round them).  With
+    cfg.remat each layer is recomputed in the backward
+    (torch.utils.checkpoint), as jax.checkpoint does."""
+    if valid_mask is not None or halo_fn is not None:
+        raise NotImplementedError(
+            "valid_mask and halo inputs of forward_logits are not ported yet "
+            "(ROADMAP queue 1 items 3 and 11)")
+    check_supported(cfg)
+    B, T = tokens.shape
+    prev = _shifted_tokens(tokens) if prev_tokens is None else prev_tokens
+    x = embed_tokens(params, cfg, tokens, prev)
+    skip = torch.zeros(B, T, cfg.skip_channels, device=x.device)
+    zeros_ctx = x.new_zeros(B, cfg.max_dilation, cfg.residual_channels)
+    for l, d in enumerate(cfg.dilations):
+        lp = [params[k][l] for k in ("w_cur", "w_prev", "b", "w_res",
+                                     "b_res", "w_skip", "b_skip")]
+        if cfg.remat and torch.is_grad_enabled():
+            x, skip = checkpoint(_layer_step, x, skip, zeros_ctx, d, *lp,
+                                 use_reentrant=False)
+        else:
+            x, skip = _layer_step(x, skip, zeros_ctx, d, *lp)
+    return head_logits(params, cfg, skip)
+
+
+def forward_logits_fused(params: Params, cfg: WaveNetConfig,
+                         tokens: torch.Tensor, tile=None) -> torch.Tensor:
+    """forward_logits through the fused layer-group stack
+    (ops/cuda/train_stack.py: the CUDA kernels for tensors on the card,
+    their plain versions on the CPU); callers check
+    train_stack.supported(cfg, T)."""
+    from wavenet_tpu_torch.ops.cuda import train_stack
+    check_supported(cfg)
+    x = embed_tokens(params, cfg, tokens, _shifted_tokens(tokens))
+    skip = train_stack.forward_skip_fused(params, cfg, x, tile=tile)
+    return head_logits(params, cfg, skip)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def loss_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
+            use_fused: bool = False, tile=None):
+    """Next-sample softmax cross-entropy over a [B, W+1] token window:
+    inputs tokens[:, :-1], targets tokens[:, 1:].  Returns (loss, aux) with
+    aux = {loss, bits_per_sample, accuracy} (0-d tensors)."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if use_fused:
+        logits = forward_logits_fused(params, cfg, inputs, tile=tile)
+    else:
+        logits = forward_logits(params, cfg, inputs)
+    loss = _nll(logits, targets).mean()
+    aux = {
+        "loss": loss,
+        "bits_per_sample": loss / math.log(2.0),
+        "accuracy": (torch.argmax(logits, dim=-1) == targets.long()
+                     ).float().mean(),
+    }
+    return loss, aux
+
+
+def score_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
+             use_fused: bool = False) -> torch.Tensor:
+    """Per-utterance teacher-forced score: the mean next-sample negative
+    log-likelihood in bits per sample, [B], of tokens [B, T+1]."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if use_fused:
+        logits = forward_logits_fused(params, cfg, inputs)
+    else:
+        logits = forward_logits(params, cfg, inputs)
+    return _nll(logits, targets).mean(dim=-1) / math.log(2.0)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +314,7 @@ def ring_offsets(cfg: WaveNetConfig) -> Tuple[Tuple[int, ...], int]:
     return tuple(offs), acc
 
 
-def decode_init(cfg: WaveNetConfig, batch: int, device="cpu") -> DecodeState:
+def decode_init(cfg: WaveNetConfig, batch: int, device) -> DecodeState:
     _, sum_d = ring_offsets(cfg)
     return DecodeState(
         queues=torch.zeros(sum_d, batch, cfg.residual_channels,
@@ -236,7 +371,7 @@ def sample_tokens(logits: torch.Tensor, t: int, seeds: torch.Tensor,
 
 
 def decode_prime(params: Params, cfg: WaveNetConfig, batch: int,
-                 prime_tokens: Optional[torch.Tensor], device="cpu"):
+                 prime_tokens: Optional[torch.Tensor], device):
     """Decode state ready to free-run: teacher-force all but the last
     priming token (the last one seeds sampling), or seed with the mid-scale
     silence token Q // 2.  Returns (state, first token [B])."""
@@ -268,7 +403,7 @@ def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
 
 def generate(params: Params, cfg: WaveNetConfig, num_samples: int,
              batch: int = 1, prime_tokens: Optional[torch.Tensor] = None,
-             temperature: float = 1.0, seeds=0, device="cpu") -> torch.Tensor:
+             temperature: float = 1.0, seeds=0, device="cuda") -> torch.Tensor:
     """Plain autoregressive sampling of [batch, num_samples] int32 tokens
     (decode_prime + one decode_sample_chunk).  seeds: an int (per-row seeds
     derived from it) or [batch] per-row counter-RNG seeds."""

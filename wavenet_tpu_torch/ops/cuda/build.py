@@ -44,9 +44,9 @@ class LaunchCounter:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -56,6 +56,20 @@ class LaunchCounter:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+def check_tensor(name: str, x, shape, dtype, device) -> None:
+    """Refuse an operand a kernel does not take: wrong device, dtype or
+    shape, or not contiguous (checked before any pointer is passed)."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def nvcc_path() -> str:
@@ -78,30 +92,66 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str, so: Path) -> None:
+def _start_build(name: str, so: Path):
+    """Start nvcc on csrc/<name>.cu; returns (process, temp output path)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a process-unique temp path and rename into place, so two
     # processes racing a first build never load a half-written library
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp
+
+
+def _finish_build(name: str, so: Path, proc, tmp: Path) -> None:
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc timed out building {name}.cu")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name}.cu:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed building {name}.cu:\n{out}\n{err}")
     os.replace(tmp, so)
+
+
+def _stale(so: Path) -> bool:
+    newest_src = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    return not so.exists() or so.stat().st_mtime < newest_src
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """The ctypes handles of csrc/<name>.cu for every name; the libraries
+    that need a build compile in parallel (one nvcc each, all started
+    together), so a caller that needs several libraries at once, such as
+    chip_smoke.py within its time limit, waits only for the slowest."""
+    with _lock:
+        pending, failure = [], None
+        for name in names:
+            if name in _libs:
+                continue
+            so = _library_path(name)
+            if not _stale(so):
+                _libs[name] = ctypes.CDLL(str(so))
+                continue
+            try:
+                pending.append((name, so, *_start_build(name, so)))
+            except RuntimeError as e:            # no nvcc
+                failure = failure or e
+        for name, so, proc, tmp in pending:      # wait for every nvcc
+            try:
+                _finish_build(name, so, proc, tmp)
+                _libs[name] = ctypes.CDLL(str(so))
+            except RuntimeError as e:
+                failure = failure or e
+        if failure is not None:
+            raise failure
+        return {name: _libs[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, built first if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        so = _library_path(name)
-        newest_src = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
-        if not so.exists() or so.stat().st_mtime < newest_src:
-            _build(name, so)
-        lib = ctypes.CDLL(str(so))
-        _libs[name] = lib
-        return lib
+    return load_all([name])[name]

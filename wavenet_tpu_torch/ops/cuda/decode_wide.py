@@ -99,18 +99,6 @@ def decode_chunk_reference(w: DecodeWeights, cfg: WaveNetConfig,
     return out, state.queues, carry
 
 
-def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def tile_rows(batch: int, num_sms: int) -> int:
     """Batch rows per thread block (1, 2, 4 or 8): one row per block while
     the blocks fit the card's SMs, so small batches spread over SMs (one
@@ -196,9 +184,9 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
     B = tokens_init.shape[0]
     dev = rings.device
     i32, bf, f32 = torch.int32, torch.bfloat16, torch.float32
-    _check("rings", rings, (sum_d, B, R), bf, dev)
-    _check("tokens_init", tokens_init, (B, 2), i32, dev)
-    _check("seeds", seeds, (B,), i32, dev)
+    build.check_tensor("rings", rings, (sum_d, B, R), bf, dev)
+    build.check_tensor("tokens_init", tokens_init, (B, 2), i32, dev)
+    build.check_tensor("seeds", seeds, (B,), i32, dev)
     shapes = {"embed_cur": ((Q, R), f32), "embed_prev": ((Q, R), f32),
               "w_cur": ((L, R, 2 * R), bf), "w_prev": ((L, R, 2 * R), bf),
               "b": ((L, 2 * R), f32), "w_res": ((L, R, R), bf),
@@ -207,11 +195,11 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
               "head_b1": ((S,), f32), "head_w2": ((S, Q), bf),
               "head_b2": ((Q,), f32), "dils": ((L,), i32)}
     for k, (shape, dtype) in shapes.items():
-        _check(k, w[k], shape, dtype, dev)
+        build.check_tensor(k, w[k], shape, dtype, dev)
     num_forced = 0
     if forced is not None:
         num_forced = forced.shape[1]
-        _check("forced", forced, (B, num_forced), i32, dev)
+        build.check_tensor("forced", forced, (B, num_forced), i32, dev)
     lib = library()
     bt = tile_rows(B, torch.cuda.get_device_properties(dev)
                    .multi_processor_count)
@@ -250,7 +238,7 @@ def counter_bits(seeds: torch.Tensor, t: int, num_classes: int):
     if seeds.device.type != "cuda":
         raise ValueError(f"counter_bits: unsupported device {seeds.device}")
     B = seeds.shape[0]
-    _check("seeds", seeds, (B,), torch.int32, seeds.device)
+    build.check_tensor("seeds", seeds, (B,), torch.int32, seeds.device)
     lib = library()
     out = torch.empty(B, num_classes, dtype=torch.int32, device=seeds.device)
     with torch.cuda.device(seeds.device):
@@ -264,7 +252,7 @@ def counter_bits(seeds: torch.Tensor, t: int, num_classes: int):
 
 def setup_decode(cfg: WaveNetConfig, batch: int, num_samples: int,
                  prime_tokens: Optional[torch.Tensor] = None, seeds=0,
-                 device="cpu"):
+                 device="cuda"):
     """Decode set-up: zero rings [sum_d, B, R] bf16, the carry [B, 2]
     (first token: the prime's first, else Q // 2; prev 0), per-row seeds.
     Returns (rings, carry, seeds, P, total_steps)."""
@@ -293,7 +281,7 @@ def setup_decode(cfg: WaveNetConfig, batch: int, num_samples: int,
 def generate_wide(params, cfg: WaveNetConfig, num_samples: int,
                   batch: int = 1, prime_tokens: Optional[torch.Tensor] = None,
                   temperature: float = 1.0, seeds=0,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """[batch, num_samples] int32 tokens from one decode_chunk launch
     (priming included: the first max(P - 1, 0) outputs are dropped)."""
     w = flatten_params(params, cfg)

@@ -1,16 +1,19 @@
 """Serving CLI — run an exported model as an HTTP synthesis service.
 
 The port's counterpart of the repository's serve.py, for `.npz` weights
-written by WaveNet.export_npz (either package):
+written by WaveNet.export_npz (either package) or a checkpoint directory
+written by the port's trainer (EMA weights when the run kept them):
 
   python -m wavenet_tpu_torch.serve --npz model.npz --device cuda --port 8000
+  python -m wavenet_tpu_torch.serve --ckpt runs/full --device cuda
   curl -X POST localhost:8000/synthesize \
        -d '{"seconds": 2.0, "seed": 7}' -o out.wav
   curl -X POST localhost:8000/synthesize \
        -d '{"seconds": 10.0, "stream": true}' --output raw.pcm   # int16 PCM
   curl localhost:8000/info
 
-Orbax checkpoints (--ckpt) come with the training slice.
+A directory of the JAX package's orbax checkpoints is refused with a message
+that points to export_npz.
 """
 
 from __future__ import annotations
@@ -21,8 +24,11 @@ import argparse
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--npz", required=True,
-                   help="export_npz single-file weights")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--npz", help="export_npz single-file weights")
+    src.add_argument("--ckpt", help="checkpoint directory of the port's "
+                                    "trainer (latest step, EMA weights when "
+                                    "the run kept them)")
     p.add_argument("--device", default="cuda",
                    help="torch device to decode on (cuda runs the kernel)")
     p.add_argument("--host", default="127.0.0.1")
@@ -49,7 +55,10 @@ def main(argv=None) -> int:
     from wavenet_tpu_torch.serving import WaveNetServer
     from wavenet_tpu_torch.serving.http import make_server
 
-    model = WaveNet.from_npz(args.npz, device=args.device)
+    if args.ckpt:
+        model = WaveNet.from_checkpoint(args.ckpt, device=args.device)
+    else:
+        model = WaveNet.from_npz(args.npz, device=args.device)
     engine = WaveNetServer(model, max_batch=args.max_batch,
                            max_wait_ms=args.max_wait_ms,
                            chunk_seconds=args.chunk_seconds,
@@ -58,7 +67,8 @@ def main(argv=None) -> int:
         engine.warmup(seconds=args.warmup_seconds, verbose=True)
     server = make_server(engine, host=args.host, port=args.port)
     host, port = server.server_address[:2]
-    print(f"serving {args.npz} on http://{host}:{port} ({args.device}, "
+    print(f"serving {args.ckpt or args.npz} on http://{host}:{port} "
+          f"({args.device}, "
           f"max_batch={args.max_batch}, chunk={args.chunk_seconds}s)",
           flush=True)
     try:

@@ -34,7 +34,7 @@ def unflatten_tree(flat: dict) -> dict:
     return tree
 
 
-def params_from_numpy(tree: dict, device="cpu") -> dict:
+def params_from_numpy(tree: dict, device="cuda") -> dict:
     """Nested dict of numpy arrays (e.g. JAX params via np.asarray) ->
     the same nested dict of tensors on `device`, shapes and dtypes kept."""
     return {k: (params_from_numpy(v, device) if isinstance(v, dict)
