@@ -144,7 +144,8 @@ def test_init_params_shapes_match_reference():
 
 def test_unported_features_raise_not_implemented():
     for kw in ({"global_classes": 4}, {"kernel_size": 3},
-               {"causal_channels": 64}, {"mel": tconfig.MelConfig()}):
+               {"causal_channels": 64},
+               {"global_classes": 4, "mel": tconfig.MelConfig()}):
         cfg = tconfig.WaveNetConfig(residual_channels=128, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             WaveNet(cfg)

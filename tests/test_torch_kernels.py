@@ -194,3 +194,90 @@ def test_fused_loss_gradients_on_the_card(dev, monkeypatch):
         kl2 = max(rel, key=lambda k: rel[k][1])
         print(f"cross-entropy gradients, {name}: worst max-rel "
               f"{rel[kmax][0]} ({kmax}), worst l2-rel {rel[kl2][1]} ({kl2})")
+
+
+def _mel_cfg(num_mels):
+    mel = (tconfig.MelConfig() if num_mels == 80 else
+           tconfig.MelConfig(num_mels=num_mels, hop_length=16, win_length=64,
+                             fmax=4000.0, upsample_factors=(4, 4)))
+    return tconfig.WaveNetConfig(num_blocks=2, max_dilation=16,
+                                 residual_channels=128, skip_channels=256,
+                                 mel=mel)
+
+
+@pytest.mark.parametrize("num_mels", [80, 8])
+@pytest.mark.parametrize("temp", [0.0, 1.0])
+def test_decode_kernel_mel_equals_plain(dev, num_mels, temp):
+    """The mel variant: tokens, rings and carry bit for bit against the
+    plain version (exact sums of bf16(y) @ bf16(V_cond) on both sides),
+    for 1-row and multi-row blocks, primed and free-running; y sliced per
+    chunk gives the one-shot result."""
+    cfg = _mel_cfg(num_mels)
+    g = torch.Generator().manual_seed(6)
+    w = pwide.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    for batch in (1, 3):
+        prime = torch.randint(0, 256, (batch, 5), dtype=torch.int32,
+                              generator=g).to(dev)
+        y = (torch.randn(batch, 64, num_mels, generator=g) * 3).to(dev)
+        for forced in (None, prime):
+            rings, carry, s, _, _ = pwide.setup_decode(cfg, batch, 64,
+                                                       forced, seeds=4,
+                                                       device=dev)
+            k = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 64, temp,
+                                   forced, y=y)
+            p = pwide.decode_chunk_reference(w, cfg, rings, carry, 0, s, 64,
+                                             temp, forced, y=y)
+            for a, b in zip(k, p):
+                assert torch.equal(a, b)
+        before = (pwide.mel_launches.value, pwide.launches.value)
+        r, c, toks, t0 = rings, carry, [], 0
+        for n in (7, 57):
+            tk, r, c = pwide.decode_chunk(w, cfg, r, c, t0, s, n, temp,
+                                          y=y[:, t0:t0 + n])
+            toks.append(tk)
+            t0 += n
+        one = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 64, temp, y=y)
+        assert (pwide.mel_launches.value, pwide.launches.value) == (
+            before[0] + 3, before[1])
+        assert torch.equal(torch.cat(toks, 1), one[0])
+        assert torch.equal(r, one[1]) and torch.equal(c, one[2])
+
+
+@pytest.mark.parametrize("R,S,nm,B,T,dmax", [(128, 256, 80, 2, 256, 16),
+                                             (64, 96, 8, 3, 200, 64),
+                                             (32, 16, 16, 2, 64, 8)])
+def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
+    """The mel variants of one layer group's forward and backward: kernel
+    vs plain within the reference suite's bands (dv_cond and dy
+    included), two kernel runs bit for bit, and 12 backward launches per
+    layer."""
+    cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
+                                residual_channels=R, skip_channels=S)
+    g = torch.Generator().manual_seed(7)
+    p = wn.init_params(cfg, g, dev)
+    dils = cfg.dilations
+    Lg = len(dils)
+    rnd = lambda *shape, sc: (torch.randn(*shape, generator=g) * sc).to(dev)
+    vc = rnd(Lg, nm, 2, R, sc=0.1)
+    ops = ts.prep_weights(*(p[k] for k in ts.GROUP_KEYS), vc)
+    x = rnd(B, T, R, sc=0.5).to(torch.bfloat16).float()
+    y = rnd(B, T, nm, sc=2.0).to(torch.bfloat16)
+    skip, dskip, dxo = rnd(B, T, S, sc=0.1), rnd(B, T, S, sc=0.01), \
+        rnd(B, T, R, sc=0.01)
+    counts = lambda: (ts.fwd_mel_launches.value, ts.bwd_mel_launches.value,
+                      ts.fwd_launches.value, ts.bwd_launches.value)
+    before = counts()
+    kf = ts.group_fwd(x, skip, ops, dils, y)
+    pf = ts.group_fwd_reference(x, skip, ops, dils, y)
+    kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils, y)
+    pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils, y)
+    assert counts() == (before[0] + Lg + 1, before[1] + 12 * Lg + 2,
+                        before[2], before[3])
+    assert len(kb) == len(pb) == 8
+    torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
+    for a, b in zip(kb, pb):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-2 * scale
+    kf2 = ts.group_fwd(x, skip, ops, dils, y)
+    kb2 = ts.group_bwd(kf2[2], dskip, dxo, ops, dils, y)
+    assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))

@@ -261,7 +261,7 @@ def test_trainer_route_follows_the_reference():
 
 @pytest.mark.parametrize("case", ["data_parallel", "model_parallel",
                                   "seq_parallel", "valid_mask", "halo",
-                                  "mel_dataset"])
+                                  "speaker_dataset"])
 def test_features_left_out_raise(case):
     from wavenet_tpu_torch.models import wavenet as twn
     if case.endswith("parallel"):
@@ -270,8 +270,8 @@ def test_features_left_out_raise(case):
                                         clip_seconds=0.05)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.Trainer(tc, ds, device="cpu")
-    elif case == "mel_dataset":
-        tc = tconfig.conditional()
+    elif case == "speaker_dataset":
+        tc = tconfig.conditional().replace(global_classes=4)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tds.AudioDataset([np.zeros(9000, np.float32)], tc)
     else:
@@ -282,3 +282,25 @@ def test_features_left_out_raise(case):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             twn.forward_logits(p, tc, torch.zeros(1, 8, dtype=torch.int32),
                                **kw)
+
+
+def test_step_profile_on_the_cpu():
+    """The step profiler runs the trainer under torch.profiler; on the CPU
+    there are no device events, so the device numbers are null, and the
+    kernel families are told apart by name."""
+    from wavenet_tpu_torch.utils import profiling
+    tc = tconfig.tiny().replace(batch_size=1, train_window=128)
+    ds = tds.AudioDataset.synthetic(tc, num_clips=2, clip_seconds=0.05)
+    tr = ttrainer.Trainer(tc, ds, device="cpu")
+    assert tr.use_fused
+    out = profiling.step_breakdown(tr, steps=1)
+    assert out["wall_ms_per_step"] > 0
+    assert out["device_busy_ms_per_step"] is None
+    assert out["device_idle_share"] is None
+    assert out["device_ms_per_step_by_family"] is None
+    assert [profiling.family(n) for n in (
+        "void (anonymous namespace)::wgrad_kernel<2>(...)",
+        "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n", "volta_dgemm_64x64_nn",
+        "Memcpy HtoD (Pageable -> Device)", "void at::native::reduce")] == [
+        "train_stack", "gemm_f32", "gemm_f64", "copies", "other"]
+    assert profiling._busy_ms([(0, 10), (5, 20), (30, 40)]) == 0.03

@@ -1,13 +1,16 @@
 """Training data: wav clips -> mu-law tokens -> deterministic random-crop
 batches (numpy only).
 
-A copy of wavenet_tpu/audio/dataset.py for unconditional models: a batch is
-a pure function of (cfg.seed, state.seed, state.step) through
-np.random.default_rng, so the port's batches are bit-identical to the
-reference's and resume after a checkpoint is exact.  Windows are gathered
-by the numpy loop, the reference's own reference implementation; its
-native C++ gatherer (bit-identical) is not ported yet (ROADMAP queue 1
-item 8), nor are mel features and speaker ids (item 6).
+A copy of wavenet_tpu/audio/dataset.py for unconditional and
+mel-conditioned models: a batch is a pure function of (cfg.seed,
+state.seed, state.step) through np.random.default_rng, so the port's
+batches ({"tokens"}, plus "mel" for a mel model) are bit-identical to the
+reference's and resume after a checkpoint is exact.  With mel, each clip's
+log-mel frames are computed once at load (audio/mel.py) and a crop starts
+on a hop boundary, so frame f lines up with sample f * hop.  Windows are
+gathered by the numpy loop, the reference's own reference implementation;
+its native C++ gatherer (bit-identical) is not ported yet (ROADMAP queue 1
+item 8), nor are speaker ids (item 6).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from wavenet_tpu_torch.audio import mel as mel_lib
 from wavenet_tpu_torch.audio import mulaw
 from wavenet_tpu_torch.audio.io import list_wavs, read_wav
 from wavenet_tpu_torch.config import WaveNetConfig
@@ -37,9 +41,9 @@ class AudioDataset:
     training window (+1 for the target offset) are dropped at load."""
 
     def __init__(self, clips: Sequence[np.ndarray], cfg: WaveNetConfig):
-        if cfg.mel is not None or cfg.global_classes is not None:
+        if cfg.global_classes is not None:
             raise NotImplementedError(
-                "mel and speaker conditioned datasets are not ported yet "
+                "speaker conditioned datasets are not ported yet "
                 "(ROADMAP queue 1 item 6)")
         self.cfg = cfg
         window = cfg.train_window + 1
@@ -49,6 +53,10 @@ class AudioDataset:
                 f"no clip is >= train_window+1 = {window} samples")
         self.tokens = [mulaw.encode_np(c, cfg.quantization_channels)
                        for c in kept]
+        self.mels = None
+        if cfg.mel is not None:
+            self.mels = [mel_lib.log_mel(c, cfg.sample_rate, cfg.mel)
+                         for c in kept]
 
     @classmethod
     def from_dir(cls, root: str, cfg: WaveNetConfig) -> "AudioDataset":
@@ -79,15 +87,27 @@ class AudioDataset:
     def sample_batch(self, state: IteratorState
                      ) -> Tuple[Dict[str, np.ndarray], IteratorState]:
         """Pure function of `state`: {"tokens": [B, W+1] int32} random crops
-        and the advanced iterator state."""
+        (plus "mel": [B, W // hop, M] float32 frames for a mel model) and
+        the advanced iterator state."""
         cfg = self.cfg
         B = cfg.batch_size
         W = cfg.train_window
         rng = np.random.default_rng((cfg.seed, state.seed, state.step))
+        hop = cfg.mel.hop_length if cfg.mel is not None else 1
         toks = np.empty((B, W + 1), np.int32)
+        mels = None
+        if self.mels is not None:
+            mels = np.empty((B, W // hop, cfg.mel.num_mels), np.float32)
         for i in range(B):
             ci = int(rng.integers(0, len(self.tokens)))
             max_start = len(self.tokens[ci]) - (W + 1)
             s = int(rng.integers(0, max_start + 1))
+            if mels is not None:
+                # a hop-aligned start: frame s // hop is sample s exactly
+                s = (s // hop) * hop
+                mels[i] = self.mels[ci][s // hop:s // hop + W // hop]
             toks[i] = self.tokens[ci][s:s + W + 1]
-        return {"tokens": toks}, state.next()
+        batch = {"tokens": toks}
+        if mels is not None:
+            batch["mel"] = mels
+        return batch, state.next()

@@ -222,8 +222,7 @@ def conditional() -> WaveNetConfig:
 
 def full_vocoder() -> WaveNetConfig:
     """Flagship-quality vocoder: the `full` stack + mel conditioning (the
-    realistic TTS product).  Mel conditioning is not served by the port
-    yet; the preset is here so configs round-trip."""
+    realistic TTS product)."""
     return WaveNetConfig(
         num_blocks=4, max_dilation=512,
         residual_channels=128, skip_channels=256,

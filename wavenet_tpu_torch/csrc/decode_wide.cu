@@ -1,14 +1,18 @@
 // Whole-loop autoregressive WaveNet decode on Hopper (sm_90a).
 //
 // Replaces wavenet_tpu/ops/pallas/decode_wide.py::_decode_kernel, the TPU's
-// whole-loop decoder for wide models (R >= 128, the `full` preset), in its
-// unconditional form (no mel, no speaker).  One launch runs num_steps decode
+// whole-loop decoder for wide models (R >= 128, the `full` and
+// `full_vocoder` presets), unconditional or mel-conditioned (its has_cond
+// form; no speaker conditioning).  One launch runs num_steps decode
 // steps; per step and batch row: f32 embed of (token, prev) -> L gated
 // dilated layers with compact ring reads/writes -> ReLU/1x1/ReLU/1x1 head ->
 // counter-RNG Gumbel-max sample (argmax when greedy) -> the forced-prime
 // override, after the kernel's own argmax has been recorded.  Rings
 // [sum_d, B, R] bf16 live in device memory in the JAX layout; the carry
-// [B, 2] = (next token, its predecessor) continues a later launch.
+// [B, 2] = (next token, its predecessor) continues a later launch.  A
+// mel-conditioned launch also reads y [B, num_steps, M] bf16 (this launch's
+// steps only, contiguous: a chunked caller passes its chunk's slice) and
+// V_cond [L, M, 2R] bf16, and adds y_t @ V_cond[l] into every layer's gate.
 //
 // What bounds it on the card: each step is a serial chain of L layers, and
 // each layer is dependent matrix-vector phases (z, gate, skip+res) whose
@@ -21,8 +25,12 @@
 // the whole loop runs in one launch (no per-step dispatch), activations,
 // skip sum and logits stay in shared memory, small batches get one row per
 // block (one SM each), a weight loaded once serves every row of a tile (up
-// to 8), and sampling is a warp-per-row reduction.  Splitting each layer
-// across SMs (clusters / DSMEM), wider loads, wgmma and TMA are later work.
+// to 8), and sampling is a warp-per-row reduction.  The mel term's 2R dot
+// products (K = M) are split in two halves of K over the threads that run
+// the 4R dot products of x and old (K = R), so each thread's share of the
+// z phase grows by about M / 2 products, not by a second round of threads.
+// Splitting each layer across SMs (clusters / DSMEM), wider loads, wgmma
+// and TMA are later work.
 //
 // Per-row arithmetic does not depend on the tile size or on the co-batched
 // rows: every dot product is the exact f64 sum of that row's bf16 x bf16
@@ -34,8 +42,11 @@
 //
 // Numerics recipe (wavenet_tpu/ops/pallas/decode_wide.py:206-255):
 //   x = bf16(E_cur[tok] + E_prev[prev])                  (f32 tables)
-//   z = (x @ W_cur + old @ W_prev) + b                   (f32; each dot the
-//                                                         exact sum, rounded)
+//   z = ((x @ W_cur + old @ W_prev) + b) + y_t @ V_cond  (f32; each dot the
+//                                                         exact sum, rounded
+//                                                         once; y_t and V_cond
+//                                                         bf16; the last term
+//                                                         only with mel)
 //   h = bf16(tanh(z_f) * sigmoid(z_g))
 //   skip = (skip + h @ W_skip) + b_skip                  (f32)
 //   ring[off_l + (t0+t) mod d_l] <- x  (after the read of `old` there)
@@ -72,11 +83,13 @@ struct DecodeArgs {
   const __nv_bfloat16* hw2;      // [S, Q]
   const float* hb2;              // [Q]
   const int32_t* dils;           // [L]
+  const __nv_bfloat16* y;        // [B, num_steps, M] or null (no mel)
+  const __nv_bfloat16* vcond;    // [L, M, 2R] or null
   const __nv_bfloat16* rings_in; // [sum_d, B, R]
   __nv_bfloat16* rings_out;      // [sum_d, B, R]
   int32_t* tokens_out;           // [B, num_steps]
   int32_t* carry_out;            // [B, 2]
-  int L, R, S, Q, sum_d, B, num_steps, t0, num_forced, greedy;
+  int L, R, S, Q, M, sum_d, B, num_steps, t0, num_forced, greedy;
   float inv_temp;
 };
 
@@ -115,7 +128,8 @@ __device__ __forceinline__ void load_rows(const double* p, double v[BT]) {
 // The phase is bound by latency (L2 loads, then a chain of dependent f64
 // FMAs), so the weight loads are double-buffered in batches of kHalf (the
 // next batch is in flight while the current one is summed) and a row uses
-// up to 4 independent accumulators.  K must be a multiple of 2 * kHalf.
+// up to 4 independent accumulators.  A range whose length is not a multiple
+// of kHalf ends with single loads.
 constexpr int kHalf = 16;
 
 template <int BT, int NA>
@@ -139,10 +153,11 @@ __device__ __forceinline__ void load_batch(__nv_bfloat16 (&wk)[kHalf],
   for (int j = 0; j < kHalf; ++j) wk[j] = w[(size_t)(k0 + j) * N];
 }
 
+// sum[r] = sum over k in [kb, ke) of inT[k][r] * W[k][o], exact in f64.
 template <int BT>
-__device__ __forceinline__ void dot_col(const __nv_bfloat16* __restrict__ W,
-                                        int K, int N, int o,
-                                        const double* inT, float out[BT]) {
+__device__ __forceinline__ void dot_part(const __nv_bfloat16* __restrict__ W,
+                                         int kb, int ke, int N, int o,
+                                         const double* inT, double sum[BT]) {
   constexpr int NA = BT >= 4 ? 1 : 4 / BT;   // accumulators per row
   double acc[NA][BT];
 #pragma unroll
@@ -150,25 +165,55 @@ __device__ __forceinline__ void dot_col(const __nv_bfloat16* __restrict__ W,
 #pragma unroll
     for (int r = 0; r < BT; ++r) acc[a][r] = 0.0;
   const __nv_bfloat16* w = W + o;
-  __nv_bfloat16 wa[kHalf], wb[kHalf];
-  load_batch(wa, w, 0, N);
-  for (int k0 = 0; k0 < K; k0 += 2 * kHalf) {
-    load_batch(wb, w, k0 + kHalf, N);
-    fma_batch<BT, NA>(acc, wa, inT, k0);
-    if (k0 + 2 * kHalf < K) load_batch(wa, w, k0 + 2 * kHalf, N);
-    fma_batch<BT, NA>(acc, wb, inT, k0 + kHalf);
+  int k = kb;
+  if (ke - k >= kHalf) {
+    __nv_bfloat16 wa[kHalf], wb[kHalf];
+    load_batch(wa, w, k, N);
+    while (ke - k >= 2 * kHalf) {
+      load_batch(wb, w, k + kHalf, N);
+      fma_batch<BT, NA>(acc, wa, inT, k);
+      if (ke - k >= 3 * kHalf) load_batch(wa, w, k + 2 * kHalf, N);
+      fma_batch<BT, NA>(acc, wb, inT, k + kHalf);
+      k += 2 * kHalf;
+    }
+    if (ke - k >= kHalf) {
+      fma_batch<BT, NA>(acc, wa, inT, k);
+      k += kHalf;
+    }
+  }
+  for (; k < ke; ++k) {
+    const double wj = (double)__bfloat162float(w[(size_t)k * N]);
+#pragma unroll
+    for (int r = 0; r < BT; ++r) acc[0][r] = fma(inT[k * BT + r], wj, acc[0][r]);
   }
 #pragma unroll
   for (int r = 0; r < BT; ++r) {
-    double sum = acc[0][r];
+    double t = acc[0][r];
 #pragma unroll
-    for (int a = 1; a < NA; ++a) sum += acc[a][r];
-    out[r] = __double2float_rn(sum);
+    for (int a = 1; a < NA; ++a) t += acc[a][r];
+    sum[r] = t;
   }
 }
 
-size_t smem_bytes(int bt, int L, int R, int S, int Q) {
-  return sizeof(double) * (size_t)bt * (3 * R + 2 * S)
+template <int BT>
+__device__ __forceinline__ void dot_col(const __nv_bfloat16* __restrict__ W,
+                                        int K, int N, int o,
+                                        const double* inT, float out[BT]) {
+  double sum[BT];
+  dot_part<BT>(W, 0, K, N, o, inT, sum);
+#pragma unroll
+  for (int r = 0; r < BT; ++r) out[r] = __double2float_rn(sum[r]);
+}
+
+// Split point of the mel dot products' K range: the first half, rounded up
+// to whole weight batches.
+__host__ __device__ inline int mel_split(int M) {
+  const int h = (M / 2 + kHalf - 1) / kHalf * kHalf;
+  return h < M ? h : M;
+}
+
+size_t smem_bytes(int bt, int L, int R, int S, int Q, int M) {
+  return sizeof(double) * (size_t)bt * (3 * R + 2 * S + (M ? M + 4 * R : 0))
        + sizeof(float) * ((size_t)bt * (4 * R + S + Q) + 3 * bt + 2 * L);
 }
 
@@ -176,7 +221,7 @@ template <int BT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 decode_wide_kernel(const DecodeArgs a) {
   extern __shared__ __align__(16) double smem[];
-  const int R = a.R, S = a.S, Q = a.Q, L = a.L, B = a.B;
+  const int R = a.R, S = a.S, Q = a.Q, L = a.L, B = a.B, M = a.M;
   const int b0 = blockIdx.x * BT;
   const int nrows = min(BT, B - b0);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -187,7 +232,10 @@ decode_wide_kernel(const DecodeArgs a) {
   double* hT = oldT + R * BT;        // [R][BT] gated output
   double* sT = hT + R * BT;          // [S][BT] bf16(relu(skip))
   double* s1T = sT + S * BT;         // [S][BT] head hidden
-  float* zxT = reinterpret_cast<float*>(s1T + S * BT);  // [2R][BT] x @ W_cur
+  double* yT = s1T + S * BT;         // [M][BT] mel features y_t (with mel)
+  double* zcT = yT + M * BT;         // [2][2R][BT] halves of y_t @ V_cond
+  float* zxT = reinterpret_cast<float*>(zcT + (M ? 4 * R * BT : 0));
+                                     // [2R][BT] x @ W_cur
   float* zoT = zxT + 2 * R * BT;     // [2R][BT] old @ W_prev
   float* skipT = zoT + 2 * R * BT;   // [S][BT] f32 skip sum
   float* scoreT = skipT + S * BT;    // [Q][BT] sampling scores
@@ -238,6 +286,13 @@ decode_wide_kernel(const DecodeArgs a) {
                     + a.eprev[(size_t)prev[r] * R + c];
       xT[c * BT + r] = bf16_round(e);      // exact in f64
     }
+    for (int i = tid; i < BT * M; i += nt) {
+      const int r = i / M, m = i % M;
+      yT[m * BT + r] = r < nrows
+          ? (double)__bfloat162float(
+                a.y[((size_t)(b0 + r) * a.num_steps + t) * M + m])
+          : 0.0;
+    }
     for (int i = tid; i < BT * S; i += nt) skipT[i] = 0.0f;
     __syncthreads();
 
@@ -258,7 +313,10 @@ decode_wide_kernel(const DecodeArgs a) {
 
       const __nv_bfloat16* wc = a.wcur + (size_t)l * R * 2 * R;
       const __nv_bfloat16* wp = a.wprev + (size_t)l * R * 2 * R;
-      // the two dot products of z run side by side on separate threads
+      const __nv_bfloat16* vc = a.vcond + (size_t)l * M * 2 * R;
+      const int mh = mel_split(M);
+      // the two dot products of z run side by side on separate threads,
+      // and with mel each thread also sums one half of a y_t @ V_cond dot
       for (int o = tid; o < 4 * R; o += nt) {
         float p[BT];
         const bool cur = o < 2 * R;
@@ -267,14 +325,25 @@ decode_wide_kernel(const DecodeArgs a) {
         float* dst = (cur ? zxT : zoT) + col * BT;
 #pragma unroll
         for (int r = 0; r < BT; ++r) dst[r] = p[r];
+        if (M) {
+          double q[BT];
+          dot_part<BT>(vc, cur ? 0 : mh, cur ? mh : M, 2 * R, col, yT, q);
+          double* zdst = zcT + (cur ? 0 : 2 * R * BT) + col * BT;
+#pragma unroll
+          for (int r = 0; r < BT; ++r) zdst[r] = q[r];
+        }
       }
       __syncthreads();
 
       const float* bl = a.b + (size_t)l * 2 * R;
       for (int i = tid; i < BT * R; i += nt) {
         const int c = i / BT, ig = (R + c) * BT + i % BT;   // gate half
-        const float zf = (zxT[i] + zoT[i]) + bl[c];
-        const float zg = (zxT[ig] + zoT[ig]) + bl[R + c];
+        float zf = (zxT[i] + zoT[i]) + bl[c];
+        float zg = (zxT[ig] + zoT[ig]) + bl[R + c];
+        if (M) {              // the two exact halves add exactly in f64
+          zf += __double2float_rn(zcT[i] + zcT[2 * R * BT + i]);
+          zg += __double2float_rn(zcT[ig] + zcT[2 * R * BT + ig]);
+        }
         hT[i] = bf16_round(tanhf(zf) * sigmoidf(zg));
       }
       __syncthreads();
@@ -367,7 +436,7 @@ decode_wide_kernel(const DecodeArgs a) {
 
 template <int BT>
 int launch(const DecodeArgs& a, int threads, cudaStream_t stream) {
-  const size_t smem = smem_bytes(BT, a.L, a.R, a.S, a.Q);
+  const size_t smem = smem_bytes(BT, a.L, a.R, a.S, a.Q, a.M);
   cudaError_t e = cudaFuncSetAttribute(
       decode_wide_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -389,26 +458,30 @@ extern "C" {
 
 // Launch the whole-loop decode on `stream`; returns a cudaError_t code
 // (0 on success).  bt in {1, 2, 4, 8} rows per block; threads <= 512.
+// y [B, num_steps, M] and vcond [L, M, 2R] (bf16) with M > 0 for a
+// mel-conditioned model; null and M = 0 otherwise.
 int wn_decode_wide(const int32_t* seeds, const int32_t* tokens_init,
                    const int32_t* forced, const float* ecur,
                    const float* eprev, const void* wcur, const void* wprev,
                    const float* b, const void* wres, const float* bres,
                    const void* wskip, const float* bskip, const void* hw1,
                    const float* hb1, const void* hw2, const float* hb2,
-                   const int32_t* dils, const void* rings_in, void* rings_out,
+                   const int32_t* dils, const void* y, const void* vcond,
+                   const void* rings_in, void* rings_out,
                    int32_t* tokens_out, int32_t* carry_out, int L, int R,
-                   int S, int Q, int sum_d, int B, int num_steps, int t0,
-                   int num_forced, int greedy, float inv_temp, int bt,
+                   int S, int Q, int M, int sum_d, int B, int num_steps,
+                   int t0, int num_forced, int greedy, float inv_temp, int bt,
                    int threads, void* stream) {
   typedef const __nv_bfloat16* W;
   DecodeArgs a{seeds, tokens_init, forced, ecur, eprev,
                (W)wcur, (W)wprev, b, (W)wres, bres, (W)wskip, bskip,
-               (W)hw1, hb1, (W)hw2, hb2, dils,
+               (W)hw1, hb1, (W)hw2, hb2, dils, (W)y, (W)vcond,
                (W)rings_in, (__nv_bfloat16*)rings_out, tokens_out, carry_out,
-               L, R, S, Q, sum_d, B, num_steps, t0, num_forced, greedy,
+               L, R, S, Q, M, sum_d, B, num_steps, t0, num_forced, greedy,
                inv_temp};
   if (threads < 32 * bt || threads > kMaxThreads || R % (2 * kHalf) != 0 ||
-      S % (2 * kHalf) != 0)
+      S % (2 * kHalf) != 0 || M < 0 || (M > 0) != (y != nullptr) ||
+      (M > 0) != (vcond != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bt) {
@@ -421,8 +494,8 @@ int wn_decode_wide(const int32_t* seeds, const int32_t* tokens_init,
 }
 
 // Shared memory bytes one block of wn_decode_wide needs.
-size_t wn_decode_wide_smem(int bt, int L, int R, int S, int Q) {
-  return smem_bytes(bt, L, R, S, Q);
+size_t wn_decode_wide_smem(int bt, int L, int R, int S, int Q, int M) {
+  return smem_bytes(bt, L, R, S, Q, M);
 }
 
 // The counter-RNG hash bits (as int32) for a [B, Q] grid at step t, so a

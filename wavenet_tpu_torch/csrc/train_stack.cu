@@ -2,22 +2,25 @@
 // forward and backward.
 //
 // Replaces wavenet_tpu/ops/pallas/train_stack.py::_fwd_kernel and
-// ::_bwd_kernel in their unconditional form (no mel, no speaker): the same
-// per-group contract and numerics, a different schedule.
+// ::_bwd_kernel, unconditional and mel-conditioned (their has_cond form;
+// no speaker conditioning): the same per-group contract and numerics, a
+// different schedule.
 //
-//   forward  (x_in, skip_in) -> (skip_out, x_out), per layer l of the group:
+//   forward  (x_in, skip_in[, y]) -> (skip_out, x_out), per layer l:
 //     xcat = [bf16(x) | bf16(x)[t - d]]                (zero for t < d)
 //     z    = xcat @ Wz + b                              (f32 accumulate)
+//     z    = z + y @ V_cond[l]                          (with mel; y bf16)
 //     h    = bf16(tanh(z_f) * sigmoid(z_g))
 //     o    = h @ [W_res | W_skip]
 //     x    = (x + o_res) + b_res                        (f32 carry)
 //     skip = (skip + o_skip) + b_skip
 //   x_out = bf16(x) once, at the end of the group (held in f32).
-//   backward (dskip, dx_out) -> (dx_in, dWz, db, dWrs, db_res), layers in
-//   reverse, every cotangent in f32:
+//   backward (dskip, dx_out) -> (dx_in, dWz, db, dWrs, db_res[, dV_cond,
+//   dy]), layers in reverse, every cotangent in f32:
 //     dcat = [dx | dskip]; dh = dcat @ Wrs^T; dz = [dh*sg*(1-tf^2) | dh*tf*sg*(1-sg)]
 //     dboth = dz @ Wz^T; dx = (dx + dboth_cur) + dboth_prev[t + d]
 //     dWz += xcat^T dz; db += sum dz; dWrs += h^T dcat; db_res += sum dx
+//     with mel: dV_cond[l] = y^T dz; dy += dz @ V_cond[l]^T
 //
 // What bounds it on this card: arithmetic.  At `full` (L = 40, R = 128,
 // S = 256, B = 8, T = 8192) the forward is ~0.6 TFLOP and the backward
@@ -36,6 +39,12 @@
 //     instead of recomputing the group.
 //   * The transposed causal shift (dx[t] += dprev[t + d]) reads rows that
 //     another block writes, so it is its own elementwise pass.
+//   * The mel term is one more block product in each layer kernel: the
+//     tile's y rows are staged in the shared buffer that xcat leaves free
+//     after z, so shared memory does not grow.  dy is summed over the
+//     group's layers in reverse order by a read-modify-write in the layer
+//     kernel's epilogue: one block owns a row per launch, so there are no
+//     atomics and the order is fixed.
 //   * Weight gradients are reductions over all B*T rows.  They run as
 //     fixed-order split-K: each block sums its share of rows into a private
 //     partial, and a second pass adds the partials in split order.  No
@@ -171,6 +180,32 @@ __device__ __forceinline__ void compute_z(const float* a_s, float* z_s,
   __syncthreads();
 }
 
+// z += y @ V_cond (after the bias, the reference's order): the tile's y
+// rows [64][nm] are staged in a_s, which compute_z leaves free.  nm is a
+// multiple of 4 and at most 2R.
+__device__ __forceinline__ void add_cond(float* a_s, float* z_s, float* W_s,
+                                         const bf16* __restrict__ y,
+                                         const bf16* __restrict__ vc, int m0,
+                                         int M, int nm, int R) {
+  const int R2 = 2 * R, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int e = threadIdx.x; e < kTM * nm; e += kThreads) {
+    const int r = e / nm, m = m0 + r;
+    a_s[e] = m < M ? __bfloat162float(y[(size_t)m * nm + e % nm]) : 0.f;
+  }
+  float acc[4][8];
+  for (int n0 = 0; n0 < R2; n0 += kNP) {
+    gemm_pass<false>(a_s, nm, nm, vc, R2, R2, n0, W_s, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + tx + 16 * j;
+        if (n < R2) z_s[(ty * 4 + i) * R2 + n] += acc[i][j];
+      }
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // forward: one layer over all B*T rows
 // ---------------------------------------------------------------------------
@@ -181,11 +216,12 @@ fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
                  const float* skip_in, float* skip_out,
                  const bf16* __restrict__ wz, const float* __restrict__ b,
                  const bf16* __restrict__ wrs, const float* __restrict__ bres,
-                 const float* __restrict__ bskip, int M, int T, int R, int S,
-                 int d) {
+                 const float* __restrict__ bskip, const bf16* __restrict__ y,
+                 const bf16* __restrict__ vc, int M, int T, int R, int S,
+                 int nm, int d) {
   extern __shared__ float smem[];
   const int R2 = 2 * R, NO = R + S;
-  float* a_s = smem;                  // xcat [64][2R], then h [64][R]
+  float* a_s = smem;                  // xcat [64][2R], y [64][nm], h [64][R]
   float* z_s = a_s + kTM * R2;        // z [64][2R]
   float* W_s = z_s + kTM * R2;        // [kKC][kNP]
   const int m0 = blockIdx.x * kTM;
@@ -193,6 +229,7 @@ fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
 
   load_xcat(a_s, xs_in, m0, M, T, R, d);
   compute_z(a_s, z_s, W_s, wz, b, R);
+  if (nm) add_cond(a_s, z_s, W_s, y, vc, m0, M, nm, R);
   for (int e = tid; e < kTM * R; e += kThreads) {
     const int r = e / R, c = e % R;
     a_s[e] = round_bf16(tanhf(z_s[r * R2 + c]) * sigmoidf(z_s[r * R2 + R + c]));
@@ -239,6 +276,7 @@ __global__ void init_carry_kernel(const float* __restrict__ x_in,
 // Recompute z and h from the stored layer input, then dh, dz and
 // dboth = dz @ Wz^T.  Writes h (bf16) and dz for the weight gradients,
 // dx_out = dx_in + dboth_cur, and dprev = dboth_prev for the shift pass.
+// With mel (nm > 0) also dy = dz @ V_cond^T, added to dy unless dy_first.
 __global__ void __launch_bounds__(kThreads)
 bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  const float* __restrict__ dx_in,
@@ -246,11 +284,13 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  float* __restrict__ dprev, float* __restrict__ dz_g,
                  bf16* __restrict__ h_g, const bf16* __restrict__ wz,
                  const float* __restrict__ b, const bf16* __restrict__ wrs,
-                 int M, int T, int R, int S, int d) {
+                 const bf16* __restrict__ y, const bf16* __restrict__ vc,
+                 float* __restrict__ dy, int dy_first, int M, int T, int R,
+                 int S, int nm, int d) {
   extern __shared__ float smem[];
   const int R2 = 2 * R, NO = R + S;
   const int la = R2 > NO ? R2 : NO;
-  float* a_s = smem;                  // xcat [64][2R], then dcat [64][R+S]
+  float* a_s = smem;                  // xcat, y, then dcat [64][R+S]
   float* z_s = a_s + kTM * la;        // z, then (tanh, sigmoid), then dz
   float* W_s = z_s + kTM * R2;
   const int m0 = blockIdx.x * kTM;
@@ -258,6 +298,7 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
 
   load_xcat(a_s, xs_in, m0, M, T, R, d);
   compute_z(a_s, z_s, W_s, wz, b, R);
+  if (nm) add_cond(a_s, z_s, W_s, y, vc, m0, M, nm, R);
   for (int e = tid; e < kTM * R; e += kThreads) {
     const int r = e / R, c = e % R, m = m0 + r;
     const float tf = tanhf(z_s[r * R2 + c]);
@@ -315,6 +356,21 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
       }
     }
   }
+  for (int n0 = 0; n0 < nm; n0 += kNP) {
+    gemm_pass<true>(z_s, R2, R2, vc, R2, nm, n0, W_s, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ty * 4 + i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + tx + 16 * j;
+        if (n >= nm) continue;
+        const size_t o = (size_t)m * nm + n;
+        dy[o] = dy_first ? acc[i][j] : dy[o] + acc[i][j];
+      }
+    }
+  }
 }
 
 // The transposed causal shift: dx[t] += dprev[t + d] within each sequence.
@@ -330,16 +386,18 @@ __global__ void shift_add_kernel(float* __restrict__ dx,
 // Weight-gradient partials: part[s][i][j] = sum over the rows m of split s
 // of P(m, i) * Q(m, j).  kMode 0: P = xcat (2R), Q = dz (2R) -> dWz.
 // kMode 1: P = h (R), Q = [dx | dskip] (R + S) -> dWrs.
+// kMode 2: P = y (nm), Q = dz (2R) -> dV_cond.
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const bf16* __restrict__ xs, const float* __restrict__ dz,
              const bf16* __restrict__ h, const float* __restrict__ dx,
-             const float* __restrict__ dskip, int M, int T, int R, int S,
-             int d, int rows_per_split, float* __restrict__ part) {
+             const float* __restrict__ dskip, const bf16* __restrict__ y,
+             int M, int T, int R, int S, int nm, int d, int rows_per_split,
+             float* __restrict__ part) {
   __shared__ __align__(16) float P_s[kWM * 64];
   __shared__ __align__(16) float Q_s[kWM * kNP];
-  const int NP = kMode == 0 ? 2 * R : R;
-  const int NQ = kMode == 0 ? 2 * R : R + S;
+  const int NP = kMode == 0 ? 2 * R : kMode == 1 ? R : nm;
+  const int NQ = kMode == 1 ? R + S : 2 * R;
   const int i0 = blockIdx.x * 64, j0 = blockIdx.y * kNP;
   const int s = blockIdx.z;
   const int mb = s * rows_per_split;
@@ -358,14 +416,15 @@ wgrad_kernel(const bf16* __restrict__ xs, const float* __restrict__ dz,
       float v = 0.f;
       if (m < me && i < NP)
         v = kMode == 0 ? xcat_at(xs, m, i, T, R, d)
-                       : __bfloat162float(h[(size_t)m * R + i]);
+            : kMode == 1 ? __bfloat162float(h[(size_t)m * R + i])
+                         : __bfloat162float(y[(size_t)m * nm + i]);
       P_s[e] = v;
     }
     for (int e = tid; e < kWM * kNP; e += kThreads) {
       const int mm = e / kNP, jj = e % kNP, m = m0 + mm, j = j0 + jj;
       float v = 0.f;
       if (m < me && j < NQ) {
-        if (kMode == 0)
+        if (kMode != 1)
           v = dz[(size_t)m * NQ + j];
         else
           v = j < R ? dx[(size_t)m * R + j] : dskip[(size_t)m * S + (j - R)];
@@ -464,15 +523,20 @@ extern "C" {
 // Forward of one layer group.  dils: host array [Lg].  skip_out may equal
 // skip_in (then the skip sum is updated in place).  xs [Lg + 1, M, R] bf16
 // receives every layer's input (and the group output last); carry [M, R]
-// is f32 scratch.
+// is f32 scratch.  With mel, y [M, nm] and vc [Lg, nm, 2R] (bf16), nm a
+// multiple of 4 and at most 2R; else null and nm = 0.
 int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
                     float* x_out, bf16* xs, float* carry, const bf16* wz,
                     const float* b, const bf16* wrs, const float* bres,
-                    const float* bskip, const int* dils, int Lg, int M, int T,
-                    int R, int S, int* launched, void* stream) {
+                    const float* bskip, const bf16* y, const bf16* vc,
+                    const int* dils, int Lg, int M, int T, int R, int S,
+                    int nm, int* launched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
   const size_t smem = fwd_smem(R);
+  if (nm < 0 || nm % 4 || nm > 2 * R || (nm > 0) != (y != nullptr) ||
+      (nm > 0) != (vc != nullptr))
+    return (int)cudaErrorInvalidValue;
   int rc = (int)cudaFuncSetAttribute(
       fwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -485,7 +549,8 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
         xs + l * MR, carry, xs + (l + 1) * MR, l == Lg - 1 ? x_out : nullptr,
         l == 0 ? skip_in : skip_out, skip_out, wz + (size_t)l * R2 * R2,
         b + (size_t)l * R2, wrs + (size_t)l * R * (R + S), bres + (size_t)l * R,
-        bskip + (size_t)l * S, M, T, R, S, dils[l]);
+        bskip + (size_t)l * S, y, vc ? vc + (size_t)l * nm * R2 : nullptr, M,
+        T, R, S, nm, dils[l]);
     if ((rc = counted(launched))) return rc;
   }
   return 0;
@@ -494,20 +559,27 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
 // Backward of one layer group.  xs: the forward's stash; dskip [M, S] and
 // dx_ct [M, R]: cotangents of the group's skip and x outputs.  Writes
 // dx_in [M, R], dwz [Lg, 2R, 2R], db [Lg, 2R], dwrs [Lg, R, R + S],
-// dbres [Lg, R].  Scratch: dxa, dxb, dprev [M, R]; dz [M, 2R]; h [M, R]
-// bf16; part [nsplit * max(4R^2, R(R+S))]; bpart [nsplit * 2R].
+// dbres [Lg, R]; with mel (y [M, nm], vc [Lg, nm, 2R] bf16) also
+// dvc [Lg, nm, 2R] and dy [M, nm].  Scratch: dxa, dxb, dprev [M, R];
+// dz [M, 2R]; h [M, R] bf16; part [nsplit * max(4R^2, R(R+S), 2R nm)];
+// bpart [nsplit * 2R].
 int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
                     const bf16* wz, const float* b, const bf16* wrs,
-                    const int* dils, int Lg, int M, int T, int R, int S,
-                    float* dx_in, float* dwz, float* db, float* dwrs,
-                    float* dbres, float* dxa, float* dxb, float* dprev,
-                    float* dz, bf16* h, float* part, float* bpart,
-                    int rows_per_split, int* launched, void* stream) {
+                    const bf16* y, const bf16* vc, const int* dils, int Lg,
+                    int M, int T, int R, int S, int nm, float* dx_in,
+                    float* dwz, float* db, float* dwrs, float* dbres,
+                    float* dvc, float* dy, float* dxa, float* dxb,
+                    float* dprev, float* dz, bf16* h, float* part,
+                    float* bpart, int rows_per_split, int* launched,
+                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
   const int R2 = 2 * R, NO = R + S;
   const int nsplit = (M + rows_per_split - 1) / rows_per_split;
   const size_t smem = bwd_smem(R, S);
+  if (nm < 0 || nm % 4 || nm > (R2 > NO ? R2 : NO) ||
+      (nm > 0) != (y && vc && dvc && dy))
+    return (int)cudaErrorInvalidValue;
   int rc = (int)cudaFuncSetAttribute(
       bwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -516,17 +588,19 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
   for (int k = 0, l = Lg - 1; l >= 0; --l, ++k) {
     const int d = dils[l];
     float* dout = l == 0 ? dx_in : (k % 2 ? dxb : dxa);
+    const bf16* vcl = vc ? vc + (size_t)l * nm * R2 : nullptr;
     bwd_layer_kernel<<<blocks_for(M, kTM), kThreads, smem, st>>>(
         xs + l * MR, din, dskip, dout, dprev, dz, h, wz + (size_t)l * R2 * R2,
-        b + (size_t)l * R2, wrs + (size_t)l * R * NO, M, T, R, S, d);
+        b + (size_t)l * R2, wrs + (size_t)l * R * NO, y, vcl, dy, k == 0, M,
+        T, R, S, nm, d);
     if ((rc = counted(launched))) return rc;
     shift_add_kernel<<<blocks_for(MR, 256), 256, 0, st>>>(dout, dprev, M, T,
                                                           R, d);
     if ((rc = counted(launched))) return rc;
 
     wgrad_kernel<0><<<dim3(blocks_for(R2, 64), blocks_for(R2, kNP), nsplit),
-                      kThreads, 0, st>>>(xs + l * MR, dz, h, din, dskip, M, T,
-                                         R, S, d, rows_per_split, part);
+                      kThreads, 0, st>>>(xs + l * MR, dz, h, din, dskip, y, M,
+                                         T, R, S, nm, d, rows_per_split, part);
     if ((rc = counted(launched))) return rc;
     const size_t nz = (size_t)R2 * R2;
     reduce_splits_kernel<<<blocks_for(nz, 256), 256, 0, st>>>(
@@ -534,13 +608,25 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
     if ((rc = counted(launched))) return rc;
 
     wgrad_kernel<1><<<dim3(blocks_for(R, 64), blocks_for(NO, kNP), nsplit),
-                      kThreads, 0, st>>>(xs + l * MR, dz, h, din, dskip, M, T,
-                                         R, S, d, rows_per_split, part);
+                      kThreads, 0, st>>>(xs + l * MR, dz, h, din, dskip, y, M,
+                                         T, R, S, nm, d, rows_per_split, part);
     if ((rc = counted(launched))) return rc;
     const size_t nrs = (size_t)R * NO;
     reduce_splits_kernel<<<blocks_for(nrs, 256), 256, 0, st>>>(
         part, nsplit, nrs, dwrs + l * nrs);
     if ((rc = counted(launched))) return rc;
+
+    if (nm) {
+      wgrad_kernel<2><<<dim3(blocks_for(nm, 64), blocks_for(R2, kNP), nsplit),
+                        kThreads, 0, st>>>(xs + l * MR, dz, h, din, dskip, y,
+                                           M, T, R, S, nm, d, rows_per_split,
+                                           part);
+      if ((rc = counted(launched))) return rc;
+      const size_t nv = (size_t)nm * R2;
+      reduce_splits_kernel<<<blocks_for(nv, 256), 256, 0, st>>>(
+          part, nsplit, nv, dvc + l * nv);
+      if ((rc = counted(launched))) return rc;
+    }
 
     if ((rc = colsum(dz, M, R2, rows_per_split, nsplit, bpart,
                      db + (size_t)l * R2, st, launched)))

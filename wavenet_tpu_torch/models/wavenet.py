@@ -7,11 +7,14 @@ Plain functions on a params dict with the JAX package's key names and shapes
   b: [L, 2, R]                         w_res: [L, R, R]   b_res: [L, R]
   w_skip: [L, R, S]   b_skip: [L, S]   head_w1 [S, S], head_b1 [S],
                                        head_w2 [S, Q], head_b2 [Q]
+  with mel: v_cond [L, M, 2, R] and upsampler {w0, b0, w1, b1, ...}
+  (models/conditioning.py), a nested dict as in the reference
 
 Numerics recipe, the reference's (arXiv:1609.03499 eq.2 with bf16 matmul
 inputs and f32 accumulation):
   * embed taps are looked up in f32, added in f32, rounded to bf16 once;
-  * z = x @ W_cur + old @ W_prev + b in f32; h = bf16(tanh(z_f) * sigmoid(z_g));
+  * z = x @ W_cur + old @ W_prev + b in f32, then + y @ V_cond with mel;
+    h = bf16(tanh(z_f) * sigmoid(z_g));
   * the skip sum accumulates in f32; the residual is rounded once:
     x' = bf16(f32(x) + h @ W_res + b_res).
 torch's bf16 @ bf16 returns bf16, so every product here rounds its operands
@@ -28,14 +31,18 @@ kernel (which also accumulates in f64) and this plain version agree bit
 for bit, and a row's result cannot depend on how many rows share a call
 (the serving replay contract).
 
-Kernel_size 2 only, no mel or speaker conditioning (ROADMAP queue 1 items
-6, 7).  Two halves:
+Kernel_size 2 only, no speaker conditioning (ROADMAP queue 1 items 6, 7).
+Two halves:
   * training: forward_logits (the scan recipe: the residual rounded to bf16
     after every layer, autograd through it), forward_logits_fused (the
     fused layer-group recipe of ops/cuda/train_stack.py: f32 carry within
     a group, f32 cotangents), loss_fn and score_fn;
   * decode: decode_step and its drivers; the whole-loop CUDA kernel
     (ops/cuda/decode_wide.py) computes the same loop on the card.
+With mel, every layer's gate adds y @ V_cond[l] after the bias, y the
+upsampled features: in training from the mel frames (`mel`) or given
+upsampled (`upsampled_cond`), in decode as per-step contributions cond_t
+(conditioning.project_cond).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from wavenet_tpu_torch.config import WaveNetConfig
+from wavenet_tpu_torch.models import conditioning
 from wavenet_tpu_torch.ops import rng
 from wavenet_tpu_torch.ops.shift import shift_right
 
@@ -60,9 +68,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 def check_supported(cfg: WaveNetConfig) -> None:
     """Raise NotImplementedError for features this slice of the port does
     not serve yet, naming the ROADMAP item that brings them."""
-    if cfg.mel is not None:
-        raise NotImplementedError(
-            "mel conditioning is not ported yet (ROADMAP queue 1 item 6)")
     if cfg.global_classes is not None:
         raise NotImplementedError(
             "speaker (global) conditioning is not ported yet "
@@ -117,7 +122,12 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
         "head_w2": glorot(S, Q),
         "head_b2": torch.zeros(Q),
     }
-    return {k: v.to(device) for k, v in params.items()}
+    if cfg.mel is not None:
+        params["v_cond"] = glorot(L, cfg.mel.num_mels, 2, R)
+        params["upsampler"] = conditioning.init_upsampler_params(
+            cfg.mel, generator, device)
+    return {k: v if isinstance(v, dict) else v.to(device)
+            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +199,10 @@ def _shifted_tokens(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
-                w_skip, b_skip):
+                w_skip, b_skip, y=None, v_cond=None):
     """One gated residual layer over a whole sequence, the scan recipe:
-    z = (x @ W_cur + x[t-d] @ W_prev) + b in f32, h = bf16(tanh * sigmoid),
+    z = (x @ W_cur + x[t-d] @ W_prev) + b in f32, then + y @ V_cond when y
+    (the upsampled mel features [B, T, M]) is given, h = bf16(tanh * sigmoid),
     skip = (skip + h @ W_skip) + b_skip, and the residual rounded once:
     x' = bf16((x + h @ W_res) + b_res).  x: [B, T, R] f32 holding bf16
     values; w_cur, w_prev: [R, 2, R]; b: [2, R]."""
@@ -200,21 +211,42 @@ def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
     z = ((_dot(x, w_cur.reshape(R, 2 * R)) + _dot(x_prev,
                                                    w_prev.reshape(R, 2 * R)))
          + b.reshape(2 * R).float())
+    if y is not None:
+        z = z + _dot(y, v_cond.reshape(y.shape[-1], 2 * R))
     h = _bf(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]))
     skip = (skip + _dot(h, w_skip)) + b_skip.float()
     x = _bf((x + _dot(h, w_res)) + b_res.float())
     return x, skip
 
 
+def _mel_features(params: Params, cfg: WaveNetConfig, T: int, mel,
+                  upsampled_cond=None) -> Optional[torch.Tensor]:
+    """The upsampled features [B, T, M] of a mel model (from `mel` frames,
+    or given as `upsampled_cond`), None for an unconditional one."""
+    if cfg.mel is None:
+        return None
+    if upsampled_cond is not None:
+        if mel is not None:
+            raise ValueError("pass either mel= (frames) or upsampled_cond=")
+        return upsampled_cond
+    if mel is None:
+        raise ValueError("cfg.mel set but no mel features passed")
+    return conditioning.upsample_mel(params["upsampler"], cfg.mel, mel, T)
+
+
 def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
+                   mel: Optional[torch.Tensor] = None,
                    prev_tokens: Optional[torch.Tensor] = None,
-                   valid_mask=None, halo_fn=None) -> torch.Tensor:
+                   valid_mask=None, halo_fn=None,
+                   upsampled_cond: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """[B, T] int tokens -> [B, T, Q] f32 logits (logits[t] predicts t+1),
     the reference's scan path: layer by layer, the residual rounded to bf16
     after every layer; autograd differentiates it (cotangents through the
     bf16 roundings are rounded as JAX's transposes round them).  With
     cfg.remat each layer is recomputed in the backward
-    (torch.utils.checkpoint), as jax.checkpoint does."""
+    (torch.utils.checkpoint), as jax.checkpoint does.  mel: [B, F, M]
+    frames (F * hop >= T) of a mel model, or upsampled_cond [B, T, M]."""
     if valid_mask is not None or halo_fn is not None:
         raise NotImplementedError(
             "valid_mask and halo inputs of forward_logits are not ported yet "
@@ -223,11 +255,14 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     prev = _shifted_tokens(tokens) if prev_tokens is None else prev_tokens
     x = embed_tokens(params, cfg, tokens, prev)
+    y = _mel_features(params, cfg, T, mel, upsampled_cond)
     skip = torch.zeros(B, T, cfg.skip_channels, device=x.device)
     zeros_ctx = x.new_zeros(B, cfg.max_dilation, cfg.residual_channels)
     for l, d in enumerate(cfg.dilations):
         lp = [params[k][l] for k in ("w_cur", "w_prev", "b", "w_res",
                                      "b_res", "w_skip", "b_skip")]
+        if y is not None:
+            lp += [y, params["v_cond"][l]]
         if cfg.remat and torch.is_grad_enabled():
             x, skip = checkpoint(_layer_step, x, skip, zeros_ctx, d, *lp,
                                  use_reentrant=False)
@@ -237,15 +272,19 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
 
 
 def forward_logits_fused(params: Params, cfg: WaveNetConfig,
-                         tokens: torch.Tensor, tile=None) -> torch.Tensor:
+                         tokens: torch.Tensor, tile=None,
+                         mel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """forward_logits through the fused layer-group stack
     (ops/cuda/train_stack.py: the CUDA kernels for tensors on the card,
     their plain versions on the CPU); callers check
-    train_stack.supported(cfg, T)."""
+    train_stack.supported(cfg, T).  With mel the upsampler runs here in
+    plain PyTorch (its params train through autograd) and y @ V_cond runs
+    inside the stack's kernels."""
     from wavenet_tpu_torch.ops.cuda import train_stack
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens, _shifted_tokens(tokens))
-    skip = train_stack.forward_skip_fused(params, cfg, x, tile=tile)
+    y = _mel_features(params, cfg, tokens.shape[1], mel)
+    skip = train_stack.forward_skip_fused(params, cfg, x, tile=tile, y=y)
     return head_logits(params, cfg, skip)
 
 
@@ -255,15 +294,18 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
-            use_fused: bool = False, tile=None):
+            mel: Optional[torch.Tensor] = None, use_fused: bool = False,
+            tile=None):
     """Next-sample softmax cross-entropy over a [B, W+1] token window:
-    inputs tokens[:, :-1], targets tokens[:, 1:].  Returns (loss, aux) with
+    inputs tokens[:, :-1], targets tokens[:, 1:]; mel: [B, F, M] frames
+    covering the W inputs (mel models).  Returns (loss, aux) with
     aux = {loss, bits_per_sample, accuracy} (0-d tensors)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if use_fused:
-        logits = forward_logits_fused(params, cfg, inputs, tile=tile)
+        logits = forward_logits_fused(params, cfg, inputs, tile=tile,
+                                      mel=mel)
     else:
-        logits = forward_logits(params, cfg, inputs)
+        logits = forward_logits(params, cfg, inputs, mel=mel)
     loss = _nll(logits, targets).mean()
     aux = {
         "loss": loss,
@@ -275,14 +317,16 @@ def loss_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
 
 
 def score_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
+             mel: Optional[torch.Tensor] = None,
              use_fused: bool = False) -> torch.Tensor:
     """Per-utterance teacher-forced score: the mean next-sample negative
-    log-likelihood in bits per sample, [B], of tokens [B, T+1]."""
+    log-likelihood in bits per sample, [B], of tokens [B, T+1] (mel: the
+    frames of a mel model)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if use_fused:
-        logits = forward_logits_fused(params, cfg, inputs)
+        logits = forward_logits_fused(params, cfg, inputs, mel=mel)
     else:
-        logits = forward_logits(params, cfg, inputs)
+        logits = forward_logits(params, cfg, inputs, mel=mel)
     return _nll(logits, targets).mean(dim=-1) / math.log(2.0)
 
 
@@ -324,9 +368,12 @@ def decode_init(cfg: WaveNetConfig, batch: int, device) -> DecodeState:
 
 
 def decode_step(params: Params, cfg: WaveNetConfig, state: DecodeState,
-                token: torch.Tensor) -> Tuple[DecodeState, torch.Tensor]:
+                token: torch.Tensor, cond_t: Optional[torch.Tensor] = None
+                ) -> Tuple[DecodeState, torch.Tensor]:
     """Advance one sample: consume `token` ([B] int32), return the updated
-    state and the logits [B, Q] f32 for the next sample.
+    state and the logits [B, Q] f32 for the next sample.  cond_t: [B, L, 2R]
+    f32 gate contributions of this step (conditioning.project_cond), added
+    after the bias: z = ((x @ W_cur + old @ W_prev) + b) + cond_t[:, l].
 
     Updates state.queues IN PLACE (one [B, R] row per layer) instead of
     copying the [sum_d, B, R] rings every step; callers that need the old
@@ -348,6 +395,8 @@ def decode_step(params: Params, cfg: WaveNetConfig, state: DecodeState,
         slot = offs[l] + state.t % d
         old = queues[slot].float()
         z = (_dot(x, w_cur[l]) + _dot(old, w_prev[l])) + b[l]   # [B, 2R]
+        if cond_t is not None:
+            z = z + cond_t[:, l]
         h = _bf(torch.tanh(z[:, :R]) * torch.sigmoid(z[:, R:]))
         skip = (skip + _dot(h, params["w_skip"][l])) + b_skip[l]
         queues[slot] = x.to(torch.bfloat16)     # this layer's INPUT
@@ -370,32 +419,51 @@ def sample_tokens(logits: torch.Tensor, t: int, seeds: torch.Tensor,
                         dim=-1).to(torch.int32)
 
 
+def _cond_at(cond, t: int, cond_t0: int = 0):
+    return None if cond is None else cond[:, t - cond_t0]
+
+
 def decode_prime(params: Params, cfg: WaveNetConfig, batch: int,
-                 prime_tokens: Optional[torch.Tensor], device):
+                 prime_tokens: Optional[torch.Tensor], device,
+                 cond: Optional[torch.Tensor] = None, num_samples: int = 0):
     """Decode state ready to free-run: teacher-force all but the last
     priming token (the last one seeds sampling), or seed with the mid-scale
-    silence token Q // 2.  Returns (state, first token [B])."""
+    silence token Q // 2.  cond: [B, total, L, 2R] per-step gate
+    contributions (conditioning.prepare_decode_cond) covering the whole
+    timeline, max(P - 1, 0) + num_samples steps.  Returns (state, first
+    token [B])."""
     state = decode_init(cfg, batch, device)
+    P = 0 if prime_tokens is None else prime_tokens.shape[1]
+    total = max(P - 1, 0) + num_samples
+    if cond is not None and cond.shape[1] < total:
+        raise ValueError(f"cond covers {cond.shape[1]} steps < required "
+                         f"{total} (max(P-1, 0) + num_samples with P={P})")
     if prime_tokens is None:
         first = torch.full((batch,), cfg.quantization_channels // 2,
                            dtype=torch.int32, device=device)
         return state, first
     prime_tokens = prime_tokens.to(device=device, dtype=torch.int32)
-    for i in range(prime_tokens.shape[1] - 1):
-        state, _ = decode_step(params, cfg, state, prime_tokens[:, i])
+    for i in range(P - 1):
+        state, _ = decode_step(params, cfg, state, prime_tokens[:, i],
+                               cond_t=_cond_at(cond, state.t))
     return state, prime_tokens[:, -1]
 
 
 def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
                         state: DecodeState, first: torch.Tensor, n: int,
-                        seeds: torch.Tensor, temperature: float = 1.0):
+                        seeds: torch.Tensor, temperature: float = 1.0,
+                        cond: Optional[torch.Tensor] = None,
+                        cond_t0: int = 0):
     """`n` free-running sampling steps from `state`, consuming `first`.
     Noise is keyed by the state's global step, so chunking cannot change
-    the sample path.  Returns (state, next token [B], samples [B, n])."""
+    the sample path.  cond is indexed by the global step minus cond_t0 (a
+    chunked caller passes its chunk's slice).  Returns (state, next token
+    [B], samples [B, n])."""
     token, out = first, []
     for _ in range(n):
         t = state.t
-        state, logits = decode_step(params, cfg, state, token)
+        state, logits = decode_step(params, cfg, state, token,
+                                    cond_t=_cond_at(cond, t, cond_t0))
         token = sample_tokens(logits, t, seeds, temperature)
         out.append(token)
     return state, token, torch.stack(out, dim=1)
@@ -403,13 +471,19 @@ def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
 
 def generate(params: Params, cfg: WaveNetConfig, num_samples: int,
              batch: int = 1, prime_tokens: Optional[torch.Tensor] = None,
-             temperature: float = 1.0, seeds=0, device="cuda") -> torch.Tensor:
+             temperature: float = 1.0, seeds=0, device="cuda",
+             cond: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain autoregressive sampling of [batch, num_samples] int32 tokens
     (decode_prime + one decode_sample_chunk).  seeds: an int (per-row seeds
-    derived from it) or [batch] per-row counter-RNG seeds."""
+    derived from it) or [batch] per-row counter-RNG seeds; cond: the
+    per-step gate contributions of a mel model (see decode_prime)."""
     check_supported(cfg)
+    if (cond is None) != (cfg.mel is None):
+        raise ValueError("cond is required with cfg.mel, and only then")
     seeds = rng.as_row_seeds(seeds, batch, device)
-    state, first = decode_prime(params, cfg, batch, prime_tokens, device)
+    state, first = decode_prime(params, cfg, batch, prime_tokens, device,
+                                cond=cond, num_samples=num_samples)
     _, _, samples = decode_sample_chunk(params, cfg, state, first,
-                                        num_samples, seeds, temperature)
+                                        num_samples, seeds, temperature,
+                                        cond=cond)
     return samples

@@ -11,6 +11,9 @@ written by the port's trainer (EMA weights when the run kept them):
   curl -X POST localhost:8000/synthesize \
        -d '{"seconds": 10.0, "stream": true}' --output raw.pcm   # int16 PCM
   curl localhost:8000/info
+  # a mel-conditioned model (full_vocoder): log-mel frames, [frames, M]
+  curl -X POST localhost:8000/synthesize \
+       -d '{"seconds": 0.5, "seed": 7, "mel": [[...80 floats...], ...]}'
 
 A directory of the JAX package's orbax checkpoints is refused with a message
 that points to export_npz.

@@ -12,8 +12,11 @@ Endpoints:
        {"seconds": 1.0 | "num_samples": 16000, "seed": 0,
         "temperature": 1.0, "stream": false,
         "prime": [...] | "prime_b64": "<base64 little-endian f32>"}
-       prime: a float waveform in [-1, 1] to continue from.  "speaker" and
-       "mel" are answered with 400 (the port serves unconditional models).
+       prime: a float waveform in [-1, 1] to continue from.
+       mel: [frames, M] log-mel frames (nested lists, or "mel_b64" with
+       frames * M little-endian float32) for a mel-conditioned model;
+       required there, answered with 400 elsewhere, as is "speaker" (no
+       speaker-conditioned model is served yet).
        stream=false: complete 16-bit PCM WAV (Content-Type audio/wav).
        stream=true:  chunked raw int16 PCM (audio/L16; headers carry
        X-Sample-Rate / X-Num-Samples) — bytes flush as the model decodes,

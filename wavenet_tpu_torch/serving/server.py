@@ -12,13 +12,19 @@ receives its own waveform chunks as they are produced.
     re-submitting a request reproduces its audio bit-exactly whatever
     traffic it was batched with (WaveNet.stream(batch=1, seeds=[seed])
     replays it).  Padding rows use seed 0 and their output is dropped.
-  * Primed requests run on their own decode lane (a second worker thread)
-    as singletons, so a primed request never head-of-line-blocks the
-    batchable lane.
+  * Mel (vocoder) and primed requests run on their own decode lane (a
+    second worker thread), so neither head-of-line-blocks the batchable
+    lane.  Mel requests of one (length bucket, temperature) batch there:
+    each row's mel is upsampled alone at that row's own timeline length,
+    max(P - 1, 0) + num_samples, then zero-padded to the group's; padded
+    steps lie after the row's emitted prefix and decode is causal, so a
+    batched mel request equals its singleton replay bit for bit.  The
+    features stay on the model's device; only the mel frames cross from
+    the host.  Primed requests stay singletons.
   * Chunks flow through per-request unbounded queues: a lagging consumer
     costs memory for its own utterance and never stalls the decode loop.
 
-Mel-conditioned requests and mesh (multi-GPU) serving are not ported yet
+Speaker-conditioned models and mesh (multi-GPU) serving are not ported yet
 (ROADMAP queue 1 items 6 and 11); the port's WaveNet refuses such models.
 """
 
@@ -31,6 +37,7 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 
 def _bucket(n: int, quantum: int) -> int:
@@ -51,6 +58,7 @@ class _Request:
     num_samples: int
     seed: int
     temperature: float
+    mel: Optional[np.ndarray] = None           # [frames, M]
     prime: Optional[np.ndarray] = None
     chunks: "queue.Queue" = field(default_factory=queue.Queue)
     error: Optional[BaseException] = None
@@ -116,8 +124,9 @@ class WaveNetServer:
         self.stats = {"requests": 0, "batches": 0, "padded_rows": 0,
                       "samples_out": 0, "decode_seconds": 0.0}
         self._stats_lock = threading.Lock()
-        # two decode lanes: fixed-shape batchable traffic, and primed
-        # singletons — so neither head-of-line-blocks the other
+        # two decode lanes: unconditioned batchable traffic, and mel
+        # (batched) and primed (singleton) requests — so neither
+        # head-of-line-blocks the other
         self._inbox: "queue.Queue" = queue.Queue()
         self._inbox_single: "queue.Queue" = queue.Queue()
         # guards the closed-check + enqueue pair in submit() against a
@@ -148,8 +157,11 @@ class WaveNetServer:
 
         prime: optional [P] float waveform in [-1, 1] to continue from
         (mu-law encoded here; the emitted audio excludes the prime); primed
-        requests decode as singleton batches.  speaker= and mel= are
-        rejected: the port serves unconditional models only.
+        requests decode as singleton batches.  mel: [frames, M] (or
+        [1, frames, M]) log-mel frames of a mel model, covering the
+        request's timeline (priming steps included); checked here, so a
+        bad request cannot fail the rows batched with it.  speaker= is
+        rejected: the port serves no speaker-conditioned model yet.
         """
         if num_samples is None:
             if seconds is None:
@@ -160,23 +172,49 @@ class WaveNetServer:
         if speaker is not None:
             raise ValueError("model has no global conditioning; "
                              "speaker= is not an input")
-        if mel is not None:
-            raise ValueError("model is unconditional; mel= is not an input")
         if prime is not None:
             prime = np.asarray(prime, np.float32).reshape(-1)
             if prime.size == 0:
                 prime = None
+        if mel is not None:
+            mel = self._check_mel(mel, num_samples, prime)
+        elif self.cfg.mel is not None:
+            raise ValueError("a mel-conditioned model needs mel= frames")
         req = _Request(int(num_samples), int(seed), float(temperature),
-                       prime)
+                       mel, prime)
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError("server is closed")
             self._bump("requests")
-            if req.prime is not None:
-                self._inbox_single.put(req)      # singleton lane
+            if req.mel is not None or req.prime is not None:
+                self._inbox_single.put(req)      # conditioned lane
             else:
                 self._inbox.put(req)
         return ResponseStream(req, self.cfg.sample_rate)
+
+    def _check_mel(self, mel, num_samples: int, prime) -> np.ndarray:
+        """Validate a request's mel frames -> [frames, M] float32."""
+        if self.cfg.mel is None:
+            raise ValueError("model is unconditional; mel= is not an input")
+        m = np.asarray(mel, np.float32)
+        if m.ndim == 3 and m.shape[0] == 1:
+            m = m[0]
+        M = self.cfg.mel.num_mels
+        if m.ndim != 2 or m.shape[1] != M or m.shape[0] == 0:
+            raise ValueError(f"mel must be [frames, {M}] (or "
+                             f"[1, frames, {M}]); got shape "
+                             f"{np.asarray(mel).shape}")
+        if not np.isfinite(m).all():
+            raise ValueError("mel holds non-finite values")
+        cap = m.shape[0] * self.cfg.mel.hop_length
+        span = max(prime.size - 1, 0) if prime is not None else 0
+        if span + num_samples > cap:
+            raise ValueError(
+                f"num_samples={num_samples}"
+                + (f" (+{span} priming steps)" if span else "")
+                + f" exceeds the {cap} samples covered by {m.shape[0]} mel "
+                f"frames")
+        return m
 
     def synthesize(self, **kw) -> np.ndarray:
         """Blocking convenience: submit() + waveform()."""
@@ -185,11 +223,17 @@ class WaveNetServer:
     def warmup(self, seconds: float = 1.0, verbose: bool = False) -> None:
         """Push `seconds` of synthesis through every batch bucket (1, 2,
         4, ..., max_batch) on the calling thread, so the kernel library is
-        built and loaded before the first real request arrives."""
+        built and loaded before the first real request arrives.  On a mel
+        model the rows carry zero mel, as vocoder traffic does."""
         n = max(1, int(seconds * self.cfg.sample_rate))
+        mel = None
+        if self.cfg.mel is not None:
+            frames = -(-_bucket(n, self.length_quantum)
+                       // self.cfg.mel.hop_length)
+            mel = np.zeros((frames, self.cfg.mel.num_mels), np.float32)
         b = 1
         while True:
-            group = [_Request(n, i, 1.0) for i in range(b)]
+            group = [_Request(n, i, 1.0, mel) for i in range(b)]
             t0 = time.monotonic()
             self._decode_group(group)
             if verbose:
@@ -221,9 +265,9 @@ class WaveNetServer:
 
     def _collect(self, inbox):
         """Gather one microbatch group: the first request fixes the group
-        signature (length bucket, temperature); compatible requests
-        arriving within max_wait_s join.  Primed requests stay singletons
-        (the prime fixes a request-specific timeline)."""
+        signature (length bucket, temperature, mel or not); compatible
+        requests arriving within max_wait_s join.  Primed requests stay
+        singletons (the prime fixes a request-specific timeline)."""
         first = inbox.get()
         if first is _DONE:
             return None
@@ -233,7 +277,7 @@ class WaveNetServer:
         def sig(r):
             return (None if r.prime is not None else
                     (_bucket(r.num_samples, self.length_quantum),
-                     r.temperature))
+                     r.temperature, r.mel is not None))
 
         s0 = sig(first)
         group = [first]
@@ -299,18 +343,26 @@ class WaveNetServer:
         seeds = np.asarray([r.seed for r in group] + [0] * (B - n_real),
                            np.int32)
 
+        # the prime first: it fixes the scan length (singleton, exact) and
+        # the conditioning span the mel rows must cover
         prime_tokens = None
+        P = 0
         if group[0].prime is not None:
             from wavenet_tpu_torch.audio import mulaw
             prime_tokens = mulaw.encode_np(
                 group[0].prime, self.cfg.quantization_channels)[None]
+            P = prime_tokens.shape[1]
             scan_len = group[0].num_samples  # singleton: exact length
+
+        y = None
+        if group[0].mel is not None:
+            y = self._features(group, B, max(P - 1, 0), scan_len)
 
         emitted = [0] * n_real
         for chunk in self.model.stream(
                 num_samples=scan_len, chunk_samples=self.chunk_samples,
                 batch=B, seeds=seeds, prime_tokens=prime_tokens,
-                temperature=group[0].temperature):
+                temperature=group[0].temperature, y=y):
             chunk = np.asarray(chunk, np.float32)
             for i, r in enumerate(group):
                 take = min(chunk.shape[1], r.num_samples - emitted[i])
@@ -321,3 +373,21 @@ class WaveNetServer:
             if all(emitted[i] >= group[i].num_samples
                    for i in range(n_real)):
                 break  # bucket tail serves nobody; stop the scan early
+
+    def _features(self, group, B: int, span: int, scan_len: int):
+        """[B, span + scan_len, M] upsampled features on the model's
+        device: each row upsampled alone at its own timeline length (one
+        conv per row, so its bits cannot depend on the rows batched with
+        it), zero-padded to the group's; pad rows are zeros."""
+        from wavenet_tpu_torch.models import conditioning
+        dev, M = self.model.device, self.cfg.mel.num_mels
+        total = span + scan_len
+        y = torch.zeros(B, total, M, device=dev)
+        ups = self.model.params["upsampler"]
+        with torch.no_grad():
+            for i, r in enumerate(group):
+                n = span + r.num_samples
+                mel = torch.as_tensor(r.mel[None], device=dev)
+                y[i, :n] = conditioning.upsample_mel(ups, self.cfg.mel, mel,
+                                                     n)[0]
+        return y

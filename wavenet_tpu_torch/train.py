@@ -5,8 +5,13 @@
   python -m wavenet_tpu_torch.train --config runs/full/params.json \
       --ckpt runs/full --resume --steps 100
 
-On a CUDA device the conv stack of supported configs (`full` among them)
-runs through the fused layer-group kernels (csrc/train_stack.cu).  The
+  python -m wavenet_tpu_torch.train --preset full_vocoder --synthetic \
+      --steps 100 --device cuda
+
+On a CUDA device the conv stack of supported configs (`full` and the
+mel-conditioned `full_vocoder` among them) runs through the fused
+layer-group kernels (csrc/train_stack.cu); a mel model trains on the
+log-mel frames of its clips (synthetic clips included).  The
 reference's --profile-dir and --sample-every are not ported yet (ROADMAP
 queue 1 item 9).
 """
@@ -22,7 +27,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--preset", default="tiny",
-                   help="config preset (tiny/small/full/fastgen_bench)")
+                   help="config preset (tiny/small/full/fastgen_bench/"
+                        "conditional/full_vocoder)")
     p.add_argument("--config", default=None,
                    help="path to a params.json (overrides --preset)")
     p.add_argument("--data", default=None, help="directory of .wav files")

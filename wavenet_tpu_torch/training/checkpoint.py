@@ -1,8 +1,9 @@
 """Checkpoint and exact resume: one torch.save file per step.
 
 The port's own format (the GPU machine has no orbax): ckpt_<step>.pt holds
-params, optimizer state, EMA, the step and the data iterator's (seed,
-step), written to a temp file and then os.replace'd, so a reader sees
+params, optimizer state and EMA (flat leaves under '/'-joined names, so a
+mel model's upsampler is "upsampler/w0", ...), the step and the data
+iterator's (seed, step), written to a temp file and then os.replace'd, so a reader sees
 either nothing or a whole checkpoint.  params.json (the config) sits
 beside the files, as in the reference, with the same architecture guard
 and max_to_keep.  Saves are synchronous: save() returns once the file is

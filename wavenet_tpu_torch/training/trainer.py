@@ -16,8 +16,13 @@ The step takes the fused layer-group stack when cfg.fused_stack and
 train_stack.supported(cfg, T) (use_fused_stack): the CUDA kernels for
 tensors on the card, their plain versions on the CPU.
 Every op of the step has a fixed summation order (the kernels' split-K
-sums, the embedding's one-hot backward), so a resumed run repeats an
-uninterrupted one bit for bit.
+sums, the embedding's one-hot backward, the upsampler's shifted f32
+products), so a resumed run repeats an uninterrupted one bit for bit.
+A mel model's batches carry "mel" frames; its upsampler and v_cond train
+with the rest.  The state holds params, optimizer moments and EMA as flat
+leaves under '/'-joined names ("upsampler/w0"), the model's nested params
+rebuilt for each loss call; JAX's optax walks the same leaves in the same
+sorted order.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from wavenet_tpu_torch.config import WaveNetConfig
 from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops.cuda import train_stack
 from wavenet_tpu_torch.training.metrics import ThroughputMeter
+from wavenet_tpu_torch.utils.pytree_io import flatten_tree, unflatten_tree
 
 f32 = np.float32
 
@@ -173,8 +179,9 @@ def use_fused_stack(cfg: WaveNetConfig, T: int, device) -> bool:
 
 
 def _leaves(params) -> Dict[str, torch.Tensor]:
+    """Nested or flat params -> flat trainable leaves ('/'-joined names)."""
     return {k: v.detach().clone().requires_grad_(True)
-            for k, v in params.items()}
+            for k, v in flatten_tree(params).items()}
 
 
 class Trainer:
@@ -195,7 +202,7 @@ class Trainer:
             params = wn.init_params(
                 cfg, torch.Generator().manual_seed(cfg.seed), self.device)
         params = _leaves({k: torch.as_tensor(v).to(self.device)
-                          for k, v in params.items()})
+                          for k, v in flatten_tree(params).items()})
         self.tx = make_optimizer(cfg)
         ema = ({k: v.detach().clone() for k, v in params.items()}
                if cfg.ema_decay is not None else None)
@@ -208,12 +215,14 @@ class Trainer:
             self.ckpt = CheckpointManager(checkpoint_dir, cfg)
 
     # ------------------------------------------------------------------
-    def step(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def step(self, tokens: torch.Tensor,
+             mel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step (or accumulation microstep) on [B, W+1]
-        tokens; returns the metrics as 0-d tensors (not fetched)."""
+        tokens (and a mel model's [B, F, M] frames); returns the metrics as
+        0-d tensors (not fetched)."""
         cfg, st = self.cfg, self.state
-        loss, aux = wn.loss_fn(st.params, cfg, tokens,
-                               use_fused=self.use_fused)
+        loss, aux = wn.loss_fn(unflatten_tree(st.params), cfg, tokens,
+                               mel=mel, use_fused=self.use_fused)
         keys = sorted(st.params)
         grads = dict(zip(keys, torch.autograd.grad(
             loss, [st.params[k] for k in keys])))
@@ -229,6 +238,12 @@ class Trainer:
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(norms)
         return metrics
+
+    def _batch(self, batch):
+        """A host batch -> (tokens, mel or None) on the trainer's device."""
+        mel = batch.get("mel")
+        return (torch.from_numpy(batch["tokens"]).to(self.device),
+                None if mel is None else torch.from_numpy(mel).to(self.device))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -251,8 +266,7 @@ class Trainer:
         for i in range(num_steps):
             batch, self.iter_state = self.dataset.sample_batch(
                 self.iter_state)
-            tokens = torch.from_numpy(batch["tokens"]).to(self.device)
-            metrics = self.step(tokens)
+            metrics = self.step(*self._batch(batch))
             if i == 0:
                 self._sync()                  # exclude the first step
             meter.tick()
@@ -284,8 +298,9 @@ class Trainer:
         with torch.no_grad():
             for _ in range(num_batches):
                 batch, it = ds.sample_batch(it)
-                tokens = torch.from_numpy(batch["tokens"]).to(self.device)
-                _, aux = wn.loss_fn(self.state.params, self.cfg, tokens,
+                tokens, mel = self._batch(batch)
+                _, aux = wn.loss_fn(unflatten_tree(self.state.params),
+                                    self.cfg, tokens, mel=mel,
                                     use_fused=self.use_fused)
                 for k, v in aux.items():
                     sums[k] = sums.get(k, 0.0) + float(v)

@@ -1,5 +1,5 @@
-"""Shared '/'-joined flat codec for nested param dicts (numpy only), and the
-weight carry-over between numpy arrays and port tensors.
+"""Shared '/'-joined flat codec for nested param dicts, and the weight
+carry-over between numpy arrays and port tensors.
 
 flatten_tree / unflatten_tree are the key scheme of the JAX package's
 WaveNet.export_npz, so one .npz file serves both packages.
@@ -12,13 +12,15 @@ import torch
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
-    """Nested dict of arrays -> {'a/b/c': np.ndarray} (insertion order)."""
+    """Nested dict -> {'a/b/c': leaf} (insertion order); leaf values (numpy
+    arrays or tensors) pass through unchanged.  The trainer and the
+    checkpoints keep a mel model's nested params as these flat leaves."""
     flat = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             flat.update(flatten_tree(v, f"{prefix}{k}/"))
         else:
-            flat[prefix + k] = np.asarray(v)
+            flat[prefix + k] = v
     return flat
 
 
