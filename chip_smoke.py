@@ -5,29 +5,30 @@
 
 Run from the root of a checkout on a machine with a CUDA card (Hopper,
 sm_90a) and nvcc.  It builds the port's kernels from the checkout's
-sources, checks each against its plain PyTorch version on the card at the
-`full` preset's widths, then serves the `full` preset end to end (export_npz
--> WaveNet.from_npz -> WaveNetServer -> HTTP on localhost) and shows that
-the served requests went through the kernel, then trains `full` and serves
-the trained checkpoint; phases 6-9 do the same for the mel-conditioned
-`full_vocoder` preset through the mel variants of the kernels.  Any failed
-check raises and the exit code is non-zero; without a CUDA device it exits
-2 and prints no result.  The last three lines of stdout are the kernel
-table (JSON), the card's name and power limit, and the device summary
-(JSON).
+sources, checks each against its plain PyTorch version on the card at a
+preset's full widths, then drives the port's main paths through the normal
+entry points (export_npz -> WaveNet.from_npz -> WaveNetServer -> HTTP on
+localhost; the train CLI's main(); WaveNet.from_checkpoint) and shows that
+they went through the kernels: the wide presets `full` and `full_vocoder`
+(phases 2-9), the narrow presets `fastgen_bench` and `conditional` through
+the narrow decode kernel (phases 10-12), and speaker-conditioned models
+through both decode kernels' speaker variants (phase 13).  Any failed check
+raises and the exit code is non-zero; without a CUDA device it exits 2 and
+prints no result.  The last three lines of stdout are the kernel table
+(JSON), the card's name and power limit, and the device summary (JSON).
 
 Phases (one line of numbers each):
   0. device (nvidia-smi name, power limit) and kernel build time (one nvcc
      per source, all started together);
   1. RNG: the device counter-hash bits equal the plain version's exactly;
-  2. decode kernel vs plain at full widths, B=4, 512 steps, T=0 and T=1:
-     teacher-forced token flips <= 0.5% of steps, rings allclose
+  2. wide decode kernel vs plain at full widths, B=4, 512 steps, T=0 and
+     T=1: teacher-forced token flips <= 0.5% of steps, rings allclose
      (atol=rtol=3e-2), first free-running divergence, chunked == one-shot
      bit for bit, kernel and plain time per step;
   3. served slice: 4 concurrent 0.25 s requests (one streamed) plus one
      primed request over HTTP; valid 16-bit PCM of the asked length; a
      replayed seed gives bit-identical audio; the served audio's first
-     samples equal the plain version's; the kernel's launch count grew;
+     samples equal the plain version's; only the wide kernel's count grew;
   4. train_stack kernels vs plain at `full` widths and depth, T=8192
      (5 layer groups), at B=2 and at the training shape B=8: embedded
      tokens in, a fixed random cotangent ct on the skip sum, loss
@@ -38,15 +39,15 @@ Phases (one line of numbers each):
      stack's forward and backward at both shapes (the table reports B=8);
   5. trained and served: python -m wavenet_tpu_torch.train's main() on
      `full` (synthetic data, B=8, window 8192) for 6 steps with a
-     checkpoint at step 3; the train_stack counters are read right after
-     that run (every device kernel the wrappers launched, checked against
-     the count the layer groups give); a resume from step 3 whose losses
-     at steps 4-6 and final params equal the uninterrupted run's bit for
-     bit; WaveNet.from_checkpoint then decodes 0.05 s through the decode
+     checkpoint at step 3; the counters are read right after that run
+     (the train_stack kernels, checked against the count the layer groups
+     give; no other kernel); a resume from step 3 whose losses at steps
+     4-6 and final params equal the uninterrupted run's bit for bit;
+     WaveNet.from_checkpoint then decodes 0.05 s through the decode
      kernel, whose counter grows too;
-  6. the decode kernel's mel variant vs plain at `full_vocoder` widths
-     (M = 80), B=4, 512 steps, T=0 and T=1, y upsampled from random mel
-     frames: as phase 2, with y sliced per chunk;
+  6. the wide decode kernel's mel variant vs plain at `full_vocoder`
+     widths (M = 80), B=4, 512 steps, T=0 and T=1, y upsampled from random
+     mel frames: as phase 2, with y sliced per chunk;
   7. served vocoder: over HTTP, three concurrent mel requests of two
      lengths (one streamed), which must share a batch, and one primed mel
      request; valid PCM of the asked length; a batched request replayed
@@ -58,12 +59,33 @@ Phases (one line of numbers each):
      from random frames: the bands of phase 4, dv_cond and dy included;
   9. train.main on `full_vocoder` (synthetic clips and their log-mel
      frames, B=8, window 8192) for 6 steps with a checkpoint at step 3,
-     the mel counters read right after that run; a resume from step 3 bit
+     the counters read right after that run; a resume from step 3 bit
      for bit (losses, params, upsampler included);
      WaveNet.from_checkpoint(...).vocode() of 0.05 s of a synthetic clip
-     through the decode kernel's mel variant.
-The phases that drive a main path (3, 5, 7, 9) set the counts of its
-kernels to 0 right before and read them right after.
+     through the decode kernel's mel variant;
+ 10. the narrow decode kernel vs plain at `fastgen_bench` widths (R = 64,
+     S = 128, 20 layers), B=64, 512 steps, T=0 and T=1: 0 teacher-forced
+     flips, free-running tokens, rings and carry equal, chunked ==
+     one-shot; kernel and plain ms per step; the tile policy: the kernel
+     at 1, 2, 4, 8 and 16 rows per block (each equal to the default);
+ 11. served `fastgen_bench` (24 kHz): 16 concurrent 0.25 s requests (one
+     streamed), which must share one batch, plus one primed request over
+     HTTP; the checks of phase 3; only the narrow kernel's count grew;
+ 12. `conditional` (R = 64, mel): the narrow kernel's mel variant vs plain
+     at B=4, 512 steps (the checks of phase 10); the served vocoder checks
+     of phase 7 through the narrow kernel; train.main on `conditional`
+     (B=8, window 8192) 6 steps + bit-exact resume through the train_stack
+     kernels' mel variants, and vocode() of the checkpoint through the
+     narrow kernel's mel variant;
+ 13. speakers (global_classes = 109, VCTK's count, global_channels 16):
+     the narrow kernel's speaker variant vs plain at `fastgen_bench` widths,
+     B=8, 256 steps, and the wide kernel's at `full` widths, B=4, 256 steps
+     (the checks of phase 10); each model served over HTTP: four 0.1 s
+     requests of four speakers (two share a seed) in one batch, each equal
+     to its singleton replay, all distinct; only that kernel's speaker
+     count grew.
+The phases that drive a main path (3, 5, 7, 9, 11, 12, 13) set every
+kernel's count to 0 right before and read them right after.
 """
 
 from __future__ import annotations
@@ -89,8 +111,12 @@ VOC_SECONDS = (0.25, 0.2)        # phase 7 request lengths (one bucket)
 TS_B, TS_T, TS_TRAIN_B = 2, 8192, 8   # phase 4 shapes
 SKIP_TOL, LOSS_TOL, GRAD_TOL = 1e-2, 2e-3, 2e-2
 TRAIN_STEPS, RESUME_AT, DECODE_SECONDS = 6, 3, 0.05
+NARROW_B, TILES = 64, (1, 2, 4, 8, 16)   # phase 10 batch, rows per block
+SPEAKERS, SPK_STEPS, SPK_SECONDS = 109, 256, 0.1   # phase 13
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+COUNTERS = {}                    # every kernel wrapper's launch count
 
 
 def nvidia_smi() -> str:
@@ -121,6 +147,41 @@ def cuda_ms(fn, repeats: int = 1) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def register_counters(*modules) -> None:
+    """COUNTERS["<module>.<name>"]: every LaunchCounter of the modules."""
+    from wavenet_tpu_torch.ops.cuda.build import LaunchCounter
+    for mod in modules:
+        short = mod.__name__.rsplit(".", 1)[-1]
+        for k, v in vars(mod).items():
+            if isinstance(v, LaunchCounter):
+                COUNTERS[f"{short}.{k}"] = v
+
+
+def reset_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def check_only(grown, what: str) -> dict:
+    """After a main path's run: every named count grew and no other did.
+    Returns the counts."""
+    got = {k: c.value for k, c in COUNTERS.items()}
+    check(all(got[k] > 0 for k in grown),
+          f"{what}: {grown} did not launch ({got})")
+    check(not any(v for k, v in got.items() if k not in grown),
+          f"{what}: other kernels launched ({got})")
+    return got
+
+
+def counter_name(mod, cfg) -> str:
+    """The count a decode launch of cfg bumps in mod (decode or
+    decode_wide): its speaker, mel or unconditional variant's."""
+    short = mod.__name__.rsplit(".", 1)[-1]
+    var = ("gc_launches" if cfg.global_classes is not None else
+           "mel_launches" if cfg.mel is not None else "launches")
+    return f"{short}.{var}"
+
+
 def phase_rng(pwide, rng, dev) -> None:
     import torch
     seeds = rng.derive_row_seeds(2024, 8).to(dev)
@@ -132,80 +193,108 @@ def phase_rng(pwide, rng, dev) -> None:
           flush=True)
 
 
-def phase_kernel(pwide, cfg, w, dev, card: str, y=None, phase=2) -> dict:
-    """Kernel vs plain at full widths (with the upsampled mel features y
-    [B, STEPS, M] for a mel model); returns the numbers for the table."""
+def phase_kernel(mod, cfg, w, dev, card: str, phase: int, batch: int = B,
+                 steps: int = STEPS, y=None, speaker=None,
+                 exact: bool = False, tiles=()) -> dict:
+    """A decode kernel (mod: ops/cuda/decode or decode_wide) vs its plain
+    version at cfg's widths, with the upsampled mel features y
+    [batch, steps, M] of a mel model and the speaker ids of a speaker
+    model.  exact: the kernel must equal the plain version bit for bit
+    (0 flips, rings and carry equal), else phase 2's bands.  tiles: rows
+    per block to time (the narrow kernel).  Returns the table's numbers."""
     import torch
-    worst_err, ms, plain_ms = 0.0, None, None
+    worst_err, ms, plain_ms, tile_ms = 0.0, None, None, {}
     ys = (lambda t0, n: None) if y is None else \
         (lambda t0, n: y[:, t0:t0 + n])
     for temp in (0.0, 1.0):
-        rings, carry, seeds, _, _ = pwide.setup_decode(
-            cfg, B, STEPS, seeds=[11 * (i + 1) for i in range(B)], device=dev)
+        rings, carry, seeds, g, _, _ = mod.setup_decode(
+            cfg, batch, steps, seeds=[11 * (i + 1) for i in range(batch)],
+            device=dev, w=w, speaker=speaker)
         out = {}
 
         def plain():
-            out["p"] = pwide.decode_chunk_reference(
-                w, cfg, rings, carry, 0, seeds, STEPS, temp, y=y)
-        t_plain = cuda_ms(plain) / STEPS
+            out["p"] = mod.decode_chunk_reference(
+                w, cfg, rings, carry, 0, seeds, steps, temp, y=y, g=g)
+        t_plain = cuda_ms(plain) / steps
         rt, rr, rc = out["p"]
-        kt, kr, kc = pwide.decode_chunk(w, cfg, rings, carry, 0, seeds,
-                                        STEPS, temp, y=y)
+
+        def run(**kw):
+            return mod.decode_chunk(w, cfg, rings, carry, 0, seeds, steps,
+                                    temp, y=y, g=g, **kw)
+        kt, kr, kc = run()
         diverge = (kt != rt).any(0).nonzero()
         first_div = int(diverge[0]) if len(diverge) else None
         forced = torch.cat([carry[:, :1], rt], 1).contiguous()
-        ft, fr, fc = pwide.decode_chunk(w, cfg, rings, carry, 0, seeds,
-                                        STEPS, temp, forced=forced, y=y)
+        ft, fr, fc = run(forced=forced)
         flips = int((ft != rt).sum())
         err = float((fr.float() - rr.float()).abs().max())
         worst_err = max(worst_err, err)
-        check(flips <= FLIP_LIMIT * B * STEPS,
-              f"T={temp}: {flips} teacher-forced flips in {B * STEPS} steps")
-        check(torch.allclose(fr.float(), rr.float(), atol=RING_TOL,
-                             rtol=RING_TOL), f"T={temp}: rings differ")
-        check(torch.equal(fc, rc), f"T={temp}: carry differs")
+        if exact:
+            check(flips == 0, f"T={temp}: {flips} teacher-forced flips")
+            check(torch.equal(fr, rr) and torch.equal(fc, rc),
+                  f"T={temp}: teacher-forced rings or carry differ")
+            check(first_div is None and torch.equal(kr, rr)
+                  and torch.equal(kc, rc), f"T={temp}: kernel != plain")
+        else:
+            check(flips <= FLIP_LIMIT * batch * steps,
+                  f"T={temp}: {flips} teacher-forced flips in "
+                  f"{batch * steps} steps")
+            check(torch.allclose(fr.float(), rr.float(), atol=RING_TOL,
+                                 rtol=RING_TOL), f"T={temp}: rings differ")
+            check(torch.equal(fc, rc), f"T={temp}: carry differs")
 
         # chunked (3 uneven launches) == one-shot, bit for bit
         r, c, toks, t0 = rings, carry, [], 0
-        for n in (STEPS // 5, STEPS * 3 // 5,
-                  STEPS - STEPS // 5 - STEPS * 3 // 5):
-            tk, r, c = pwide.decode_chunk(w, cfg, r, c, t0, seeds, n, temp,
-                                          y=ys(t0, n))
+        for n in (steps // 5, steps * 3 // 5,
+                  steps - steps // 5 - steps * 3 // 5):
+            tk, r, c = mod.decode_chunk(w, cfg, r, c, t0, seeds, n, temp,
+                                        y=ys(t0, n), g=g)
             toks.append(tk)
             t0 += n
         check(torch.equal(torch.cat(toks, 1), kt) and torch.equal(r, kr)
               and torch.equal(c, kc), f"T={temp}: chunked != one-shot")
 
-        t_kernel = cuda_ms(lambda: pwide.decode_chunk(
-            w, cfg, rings, carry, 0, seeds, STEPS, temp, y=y),
-            repeats=3) / STEPS
+        t_kernel = cuda_ms(run, repeats=3) / steps
         if temp > 0:
             ms, plain_ms = t_kernel, t_plain
-        print(f"phase {phase} kernel T={temp}: B={B} steps={STEPS} "
-              f"teacher_forced_flips={flips} first_free_divergence="
-              f"{first_div} rings_max_abs_err={err} chunked_equal=True "
+            for bt in tiles:          # the tile policy, at the same inputs
+                check(all(torch.equal(a, b) for a, b in zip(
+                    run(rows_per_block=bt), (kt, kr, kc))),
+                    f"{bt} rows per block changed a row")
+                tile_ms[bt] = cuda_ms(lambda: run(rows_per_block=bt),
+                                      repeats=3) / steps
+        print(f"phase {phase} kernel {mod.__name__.rsplit('.', 1)[-1]} "
+              f"T={temp}: B={batch} steps={steps} teacher_forced_flips="
+              f"{flips} first_free_divergence={first_div} "
+              f"rings_max_abs_err={err} chunked_equal=True "
               f"kernel_ms_per_step={t_kernel} plain_ms_per_step={t_plain} "
               f"card={card!r}", flush=True)
+    if tiles:
+        print(f"phase {phase} tile policy: B={batch} kernel_ms_per_step by "
+              f"rows per block {tile_ms} card={card!r}", flush=True)
     return {"max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
-            **decode_bound(cfg, w)}
+            **decode_bound(cfg, w, batch, steps, g)}
 
 
-def decode_bound(cfg, w) -> dict:
-    """Least time per decode step of the phase-2 (or 6) launch (B rows,
-    STEPS steps): its MACs (per row-step: L layers of 4R^2 + R(R+S), with
-    mel 2RM more, plus the S^2 + SQ head) at the bf16 peak, or its bytes
-    (weights once, rings in and out, y in as bf16, tokens out) at the
-    memory rate, whichever is larger."""
+def decode_bound(cfg, w, batch: int, steps: int, g) -> dict:
+    """Least time per decode step of a launch of `batch` rows and `steps`
+    steps: its MACs (per row-step: L layers of 4R^2 + R(R+S), with mel 2RM
+    more, plus the S^2 + SQ head) at the bf16 peak, or its bytes (the
+    weights the kernel reads once, rings in and out, y in as bf16, the
+    speaker offsets g in as f32, tokens out) at the memory rate, whichever
+    is larger."""
     L, R, S, Q = (cfg.num_layers, cfg.residual_channels, cfg.skip_channels,
                   cfg.quantization_channels)
     M = 0 if cfg.mel is None else cfg.mel.num_mels
     flops = (2 * (L * (4 * R * R + R * (R + S) + 2 * R * M) + S * S + S * Q)
-             * B * STEPS)
-    rings = sum(cfg.dilations) * B * R * 2
-    nbytes = (sum(v.numel() * v.element_size() for v in w.values())
-              + 2 * rings + B * STEPS * (4 + 2 * M))
+             * batch * steps)
+    rings = sum(cfg.dilations) * batch * R * 2
+    weights = sum(v.numel() * v.element_size() for k, v in w.items()
+                  if k not in ("g_embed", "v_global"))
+    nbytes = (weights + 2 * rings + batch * steps * (4 + 2 * M)
+              + (0 if g is None else g.numel() * 4))
     t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
-    return {"bound_ms": max(t_ops, t_bytes) * 1e3 / STEPS,
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3 / steps,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
 
@@ -225,96 +314,141 @@ def _wav_samples(data: bytes, rate: int):
         return np.frombuffer(w.readframes(w.getnframes()), "<i2")
 
 
-def phase_serve(pwide, cfg, dev, card: str) -> int:
-    """Serve `full` through the normal entry points; returns the kernel's
-    launch count over the served requests."""
-    import numpy as np
+def _served_model(cfg, dev):
+    """cfg with seeded random weights, through export_npz and from_npz."""
     import torch
-    from wavenet_tpu_torch.audio import mulaw
     from wavenet_tpu_torch.models.api import WaveNet
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.npz")
+        WaveNet(cfg).init(torch.Generator().manual_seed(0),
+                          device=dev).export_npz(path)
+        return WaveNet.from_npz(path, device=dev)
+
+
+def _concurrently(url: str, bodies) -> list:
+    """POST every body at once, each on its own thread; the replies."""
+    replies = [None] * len(bodies)
+
+    def call(i):
+        replies[i] = _post(url + "/synthesize", bodies[i])
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        check(not t.is_alive(), "a request did not finish")
+    return replies
+
+
+def _pcm(bodies, lengths, replies, rate: int) -> list:
+    """The replies' samples, checked: HTTP 200, 16-bit PCM (a streamed
+    reply with its headers) of the asked length."""
+    import numpy as np
+    pcm = []
+    for body, n, (status, headers, data) in zip(bodies, lengths, replies):
+        check(status == 200, f"HTTP {status}")
+        if body.get("stream"):
+            check(headers.get("Content-Type") == "audio/L16"
+                  and int(headers["X-Num-Samples"]) == n,
+                  "bad stream headers")
+            got = np.frombuffer(data, "<i2")
+        else:
+            got = _wav_samples(data, rate)
+        check(got.shape == (n,), f"got {got.shape[0]} samples, asked {n}")
+        pcm.append(got)
+    return pcm
+
+
+def _plain_pcm(mod, model, cfg, seed: int, dev, y=None, speaker=None):
+    """The first REF_SAMPLES samples of a request as 16-bit PCM, decoded
+    by the plain version."""
+    import numpy as np
+    from wavenet_tpu_torch.audio import mulaw
+    w = model.decode_weights()
+    rings, carry, s, g, _, _ = mod.setup_decode(
+        cfg, 1, REF_SAMPLES, seeds=[seed], device=dev, w=w,
+        speaker=None if speaker is None else [speaker])
+    ref, _, _ = mod.decode_chunk_reference(
+        w, cfg, rings, carry, 0, s, REF_SAMPLES, 1.0,
+        y=None if y is None else y[:, :REF_SAMPLES], g=g)
+    return (np.clip(mulaw.decode(ref[0]).cpu().numpy(), -1, 1)
+            * 32767.0).astype("<i2")
+
+
+def phase_serve(mod, cfg, dev, card: str, phase: int = 3,
+                seconds: float = SERVE_SECONDS, seeds=(101, 202, 303, 404),
+                speakers=None, primed: bool = True,
+                one_batch: bool = False) -> int:
+    """Serve cfg through the normal entry points; returns the launch count
+    of mod's decode variant (unconditional, or speaker with `speakers`, one
+    id per request) over the served requests.  Request 3 streams; with
+    `primed` one primed request follows; one_batch: the requests of
+    `seeds` must share one batch, and each is replayed alone (else the
+    second)."""
+    import numpy as np
     from wavenet_tpu_torch.serving import WaveNetServer
     from wavenet_tpu_torch.serving.http import make_server
 
     rate = cfg.sample_rate
-    n = int(SERVE_SECONDS * rate)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "full.npz")
-        WaveNet(cfg).init(torch.Generator().manual_seed(0),
-                          device=dev).export_npz(path)
-        model = WaveNet.from_npz(path, device=dev)
-    engine = WaveNetServer(model, max_batch=4, max_wait_ms=200.0,
+    n = int(seconds * rate)
+    model = _served_model(cfg, dev)
+    engine = WaveNetServer(model, max_batch=len(seeds),
+                           max_wait_ms=2000.0 if one_batch else 200.0,
                            chunk_seconds=0.125,
-                           length_quantum_seconds=SERVE_SECONDS)
+                           length_quantum_seconds=seconds)
     server = make_server(engine, port=0)
     url = f"http://127.0.0.1:{server.server_address[1]}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        seeds = [101, 202, 303, 404]
-        prime = (0.5 * np.sin(np.arange(int(PRIME_SECONDS * rate)) * 0.05)
-                 ).astype(np.float32)
-        bodies = [{"seconds": SERVE_SECONDS, "seed": s,
-                   "stream": i == 3} for i, s in enumerate(seeds)]
-        bodies.append({"seconds": SERVE_SECONDS, "seed": 505,
-                       "prime": prime.tolist()})
-        replies = [None] * len(bodies)
+        bodies = [{"seconds": seconds, "seed": s, "stream": i == 3}
+                  for i, s in enumerate(seeds)]
+        for body, spk in zip(bodies, speakers or ()):
+            body["speaker"] = spk
+        if primed:
+            prime = (0.5 * np.sin(np.arange(int(PRIME_SECONDS * rate))
+                                  * 0.05)).astype(np.float32)
+            bodies.append({"seconds": seconds, "seed": 505,
+                           "prime": prime.tolist()})
+        name = counter_name(mod, cfg)
 
-        def call(i):
-            replies[i] = _post(url + "/synthesize", bodies[i])
-
-        pwide.launches.reset()                   # the main path starts here
+        reset_counts()                           # the main path starts here
         wall = time.monotonic()
-        threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(len(bodies))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-            check(not t.is_alive(), "a request did not finish")
+        replies = _concurrently(url, bodies)
         wall = time.monotonic() - wall
-        launches = pwide.launches.value
-        check(launches > 0, "served requests did not launch the kernel")
+        launches = check_only([name], f"phase {phase}")[name]
+        st = dict(engine.stats)
+        if one_batch:
+            check(st["batches"] == 1 + primed,
+                  f"the requests did not share one batch: {st}")
 
-        pcm = []
-        for body, (status, headers, data) in zip(bodies, replies):
-            check(status == 200, f"HTTP {status}")
-            if body.get("stream"):
-                check(headers.get("Content-Type") == "audio/L16"
-                      and int(headers["X-Num-Samples"]) == n,
-                      "bad stream headers")
-                s = np.frombuffer(data, "<i2")
-            else:
-                s = _wav_samples(data, rate)
-            check(s.shape == (n,), f"got {s.shape[0]} samples, asked {n}")
-            pcm.append(s)
+        pcm = _pcm(bodies, [n] * len(bodies), replies, rate)
         check(len({p.tobytes() for p in pcm}) == len(pcm),
-              "distinct seeds gave identical audio")
+              "distinct requests gave identical audio")
 
-        # replay one co-batched seed alone: bit-identical audio
-        _, _, again = _post(url + "/synthesize",
-                            {"seconds": SERVE_SECONDS, "seed": seeds[1]})
-        check(np.array_equal(_wav_samples(again, rate), pcm[1]),
-              "replayed seed gave different audio")
+        # replay co-batched requests alone: bit-identical audio
+        for i in (range(len(seeds)) if one_batch else [1]):
+            _, _, again = _post(url + "/synthesize",
+                                dict(bodies[i], stream=False))
+            check(np.array_equal(_wav_samples(again, rate), pcm[i]),
+                  f"request {i} replayed alone gave different audio")
 
         # served audio vs the plain PyTorch decode of the same request
-        w = model.decode_weights()
-        rings, carry, s, _, _ = pwide.setup_decode(
-            cfg, 1, REF_SAMPLES, seeds=[seeds[0]], device=dev)
-        ref, _, _ = pwide.decode_chunk_reference(w, cfg, rings, carry, 0, s,
-                                                 REF_SAMPLES, 1.0)
-        ref_pcm = (np.clip(mulaw.decode(ref[0]).cpu().numpy(), -1, 1)
-                   * 32767.0).astype("<i2")
-        check(np.array_equal(pcm[0][:REF_SAMPLES], ref_pcm),
-              "served audio differs from the plain decode")
+        check(np.array_equal(pcm[0][:REF_SAMPLES], _plain_pcm(
+            mod, model, cfg, seeds[0], dev,
+            speaker=None if speakers is None else speakers[0])),
+            "served audio differs from the plain decode")
 
-        st = dict(engine.stats)
-        print(f"phase 3 served: requests={st['requests']} "
-              f"batches={st['batches']} samples_out={st['samples_out']} "
-              f"decode_seconds={st['decode_seconds']} "
-              f"realtime_factor={engine.realtime_factor} "
-              f"decode_samples_per_s={st['samples_out'] / st['decode_seconds']}"
-              f" wall_s_5_requests={wall} kernel_launches={launches} "
-              f"card={card!r}", flush=True)
+        # aggregate over the concurrent requests (replays excluded)
+        rtf = st["samples_out"] / rate / st["decode_seconds"]
+        print(f"phase {phase} served: requests={st['requests']} "
+              f"batches={st['batches']} padded_rows={st['padded_rows']} "
+              f"samples_out={st['samples_out']} "
+              f"decode_seconds={st['decode_seconds']} realtime_factor={rtf} "
+              f"wall_s_{len(bodies)}_requests={wall} {name}={launches} "
+              f"replay_bit_identical=True card={card!r}", flush=True)
         return launches
     finally:
         server.shutdown()
@@ -322,23 +456,17 @@ def phase_serve(pwide, cfg, dev, card: str) -> int:
         engine.close()
 
 
-def phase_serve_vocoder(pwide, cfg, dev, card: str) -> int:
-    """Serve the mel model `cfg` (full_vocoder) over HTTP; returns the mel
-    decode variant's launch count over the served requests."""
+def phase_serve_vocoder(mod, cfg, dev, card: str, phase: int = 7) -> int:
+    """Serve the mel model `cfg` over HTTP; returns the mel decode
+    variant's launch count (of mod) over the served requests."""
     import numpy as np
     import torch
-    from wavenet_tpu_torch.audio import mulaw
     from wavenet_tpu_torch.models import conditioning
-    from wavenet_tpu_torch.models.api import WaveNet
     from wavenet_tpu_torch.serving import WaveNetServer
     from wavenet_tpu_torch.serving.http import make_server
 
     rate, hop, M = cfg.sample_rate, cfg.mel.hop_length, cfg.mel.num_mels
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "full_vocoder.npz")
-        WaveNet(cfg).init(torch.Generator().manual_seed(0),
-                          device=dev).export_npz(path)
-        model = WaveNet.from_npz(path, device=dev)
+    model = _served_model(cfg, dev)
     engine = WaveNetServer(model, max_batch=4, max_wait_ms=300.0,
                            chunk_seconds=0.125,
                            length_quantum_seconds=max(VOC_SECONDS))
@@ -359,42 +487,18 @@ def phase_serve_vocoder(pwide, cfg, dev, card: str) -> int:
                    "stream": i == 2} for i, (n, m) in enumerate(zip(lens,
                                                                     mels))]
         bodies[3]["prime"] = prime.tolist()
-        replies = [None] * len(bodies)
+        name = counter_name(mod, cfg)
 
-        def call(i):
-            replies[i] = _post(url + "/synthesize", bodies[i])
-
-        pwide.launches.reset()                   # the main path starts here
-        pwide.mel_launches.reset()
+        reset_counts()                           # the main path starts here
         wall = time.monotonic()
-        threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(len(bodies))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-            check(not t.is_alive(), "a request did not finish")
+        replies = _concurrently(url, bodies)
         wall = time.monotonic() - wall
-        launches = pwide.mel_launches.value
-        check(launches > 0, "served mel requests did not launch the kernel")
-        check(pwide.launches.value == 0,
-              "a mel request launched the unconditional decode")
+        launches = check_only([name], f"phase {phase}")[name]
         st = dict(engine.stats)
         check(st["batches"] < st["requests"],
               f"the mel requests did not batch: {st}")
 
-        pcm = []
-        for body, n, (status, headers, data) in zip(bodies, lens, replies):
-            check(status == 200, f"HTTP {status}")
-            if body.get("stream"):
-                check(headers.get("Content-Type") == "audio/L16"
-                      and int(headers["X-Num-Samples"]) == n,
-                      "bad stream headers")
-                got = np.frombuffer(data, "<i2")
-            else:
-                got = _wav_samples(data, rate)
-            check(got.shape == (n,), f"got {got.shape[0]} samples, asked {n}")
-            pcm.append(got)
+        pcm = _pcm(bodies, lens, replies, rate)
         check(len({p.tobytes() for p in pcm}) == len(pcm),
               "distinct requests gave identical audio")
 
@@ -404,27 +508,20 @@ def phase_serve_vocoder(pwide, cfg, dev, card: str) -> int:
               "a batched mel request differs from its singleton replay")
 
         # served audio vs the plain decode on the same upsampled features
-        w = model.decode_weights()
         with torch.no_grad():
             y = conditioning.upsample_mel(
                 model.params["upsampler"], cfg.mel,
                 torch.from_numpy(mels[0][None]).to(dev), lens[0])
-        rings, carry, s, _, _ = pwide.setup_decode(
-            cfg, 1, REF_SAMPLES, seeds=[bodies[0]["seed"]], device=dev)
-        ref, _, _ = pwide.decode_chunk_reference(
-            w, cfg, rings, carry, 0, s, REF_SAMPLES, 1.0,
-            y=y[:, :REF_SAMPLES])
-        ref_pcm = (np.clip(mulaw.decode(ref[0]).cpu().numpy(), -1, 1)
-                   * 32767.0).astype("<i2")
-        check(np.array_equal(pcm[0][:REF_SAMPLES], ref_pcm),
-              "served vocoder audio differs from the plain decode")
+        check(np.array_equal(pcm[0][:REF_SAMPLES], _plain_pcm(
+            mod, model, cfg, bodies[0]["seed"], dev, y=y)),
+            "served vocoder audio differs from the plain decode")
 
-        print(f"phase 7 served vocoder: requests={st['requests']} "
+        print(f"phase {phase} served vocoder: requests={st['requests']} "
               f"batches={st['batches']} padded_rows={st['padded_rows']} "
               f"samples_out={st['samples_out']} "
-              f"decode_seconds={st['decode_seconds']} "
-              f"realtime_factor={engine.realtime_factor} "
-              f"wall_s_4_requests={wall} mel_kernel_launches={launches} "
+              f"decode_seconds={st['decode_seconds']} realtime_factor="
+              f"{st['samples_out'] / rate / st['decode_seconds']} "
+              f"wall_s_4_requests={wall} {name}={launches} "
               f"replay_bit_identical=True card={card!r}", flush=True)
         return launches
     finally:
@@ -618,11 +715,12 @@ def _losses(path: str) -> dict:
         return {r["step"]: r["loss"] for r in map(json.loads, f)}
 
 
-def phase_train(ts, pwide, dev, card: str, preset: str = "full",
+def phase_train(ts, dmod, dev, card: str, preset: str = "full",
                 phase: int = 5) -> dict:
     """Train `preset` through the CLI's main(), resume, and decode the
-    checkpoint (a mel model vocodes a clip); returns the launch counts of
-    the three kernels (of their mel variants for a mel model)."""
+    checkpoint through dmod's kernel (a mel model vocodes a clip); returns
+    the launch counts of the three kernels (of their mel variants for a
+    mel model)."""
     import math
     import numpy as np
     import torch
@@ -633,18 +731,18 @@ def phase_train(ts, pwide, dev, card: str, preset: str = "full",
     mel = cfg.mel is not None
     fwd_c, bwd_c = ((ts.fwd_mel_launches, ts.bwd_mel_launches) if mel
                     else (ts.fwd_launches, ts.bwd_launches))
-    dec_c = pwide.mel_launches if mel else pwide.launches
-    others = ([ts.fwd_launches, ts.bwd_launches, pwide.launches] if mel
-              else [ts.fwd_mel_launches, ts.bwd_mel_launches,
-                    pwide.mel_launches])
+    fwd_name, bwd_name = (("train_stack.fwd_mel_launches",
+                           "train_stack.bwd_mel_launches") if mel else
+                          ("train_stack.fwd_launches",
+                           "train_stack.bwd_launches"))
+    dec_name = counter_name(dmod, cfg)
     common = ["--preset", preset, "--synthetic", "--device", "cuda",
               "--batch-size", str(TS_TRAIN_B), "--override",
               f"train_window={TS_T}", "--log-every", "1"]
     with tempfile.TemporaryDirectory() as tmp:
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         torch.cuda.reset_peak_memory_stats(dev)
-        for c in (fwd_c, bwd_c, *others):
-            c.reset()                            # the training path starts here
+        reset_counts()                           # the training path starts here
         ma = train.main(common + [
             "--steps", str(TRAIN_STEPS), "--ckpt", a, "--ckpt-every",
             str(RESUME_AT), "--metrics-file", os.path.join(tmp, "a.jsonl")])
@@ -658,8 +756,7 @@ def phase_train(ts, pwide, dev, card: str, preset: str = "full",
                 TRAIN_STEPS * ((12 if mel else 10) * L + 2 * ng))
         check((fwd_n, bwd_n) == want, "training launched (fwd, bwd) = "
               f"{(fwd_n, bwd_n)} train_stack kernels, expected {want}")
-        check(not any(c.value for c in others),
-              "training launched another variant of the kernels")
+        check_only([fwd_name, bwd_name], f"phase {phase} training")
         os.makedirs(b)
         for f in ("params.json", f"ckpt_{RESUME_AT:08d}.pt"):
             shutil.copy(os.path.join(a, f), b)
@@ -685,7 +782,7 @@ def phase_train(ts, pwide, dev, card: str, preset: str = "full",
         check(fwd_c.value > fwd_n and bwd_c.value > bwd_n,
               "the resumed run did not launch the train_stack kernels")
 
-        dec_c.reset()                            # the serving path starts here
+        reset_counts()                           # the serving path starts here
         model = WaveNet.from_checkpoint(a, device=dev)
         n = int(DECODE_SECONDS * model.cfg.sample_rate)
         if mel:
@@ -698,12 +795,10 @@ def phase_train(ts, pwide, dev, card: str, preset: str = "full",
         else:
             toks = model.generate(seconds=DECODE_SECONDS, seed=1)
         torch.cuda.synchronize()
-        dec_n = dec_c.value
+        dec_n = check_only([dec_name], f"phase {phase} decode")[dec_name]
         check(tuple(toks.shape) == (1, n) and int(toks.min()) >= 0
               and int(toks.max()) < model.cfg.quantization_channels,
               "bad decode of the trained model")
-        check(dec_n > 0, "the trained model's decode did not launch the "
-              "kernel")
     print(f"phase {phase} trained and served: preset={preset} "
           f"steps={TRAIN_STEPS} "
           f"losses={[la[s] for s in sorted(la)]} resumed_from={RESUME_AT} "
@@ -714,7 +809,32 @@ def phase_train(ts, pwide, dev, card: str, preset: str = "full",
           f"{bwd_n} decode_launches={dec_n} decoded_samples={n} "
           f"card={card!r}", flush=True)
     return {"train_stack_fwd": fwd_n, "train_stack_bwd": bwd_n,
-            "decode_wide": dec_n}
+            "decode": dec_n}
+
+
+def phase_speakers(pnarrow, pwide, wn, dev, card: str):
+    """Phase 13: speaker-conditioned `fastgen_bench` (narrow) and `full`
+    (wide) models with SPEAKERS classes: each kernel's speaker variant vs
+    plain, then each model served.  Returns ((numbers, launches) of the
+    narrow kernel, the same of the wide one)."""
+    import torch
+    from wavenet_tpu_torch.config import fastgen_bench, full
+    out = []
+    for mod, base, batch in ((pnarrow, fastgen_bench(), 8),
+                             (pwide, full(), 4)):
+        cfg = base.replace(global_classes=SPEAKERS)
+        params = wn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        w = mod.flatten_params(params, cfg)
+        ids = [(37 * i + 5) % SPEAKERS for i in range(batch)]
+        numbers = phase_kernel(mod, cfg, w, dev, card, phase=13, batch=batch,
+                               steps=SPK_STEPS, speaker=ids, exact=True)
+        del params, w
+        launches = phase_serve(mod, cfg, dev, card, phase=13,
+                               seconds=SPK_SECONDS, seeds=(5, 5, 6, 7),
+                               speakers=(3, 50, 77, SPEAKERS - 1),
+                               primed=False, one_batch=True)
+        out.append((numbers, launches))
+    return out
 
 
 def main() -> int:
@@ -725,10 +845,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from wavenet_tpu_torch.config import full, full_vocoder
+        from wavenet_tpu_torch.config import (conditional, fastgen_bench,
+                                              full, full_vocoder)
         from wavenet_tpu_torch.models import wavenet as wn
         from wavenet_tpu_torch.ops import rng
         from wavenet_tpu_torch.ops.cuda import build
+        from wavenet_tpu_torch.ops.cuda import decode as pnarrow
         from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
         from wavenet_tpu_torch.ops.cuda import train_stack as ts
     except ImportError as e:
@@ -739,9 +861,10 @@ def main() -> int:
     card = nvidia_smi()
     dev = torch.device("cuda", 0)
     t = time.monotonic()
-    build.load_all(["decode_wide", "train_stack"])
-    pwide.library()
-    ts.library()
+    build.load_all(["decode_wide", "train_stack", "decode"])
+    for mod in (pwide, ts, pnarrow):
+        mod.library()
+    register_counters(pnarrow, pwide, ts)
     print(f"phase 0 device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernel build_s={time.monotonic() - t}",
           flush=True)
@@ -750,7 +873,7 @@ def main() -> int:
     cfg = full()
     params = wn.init_params(cfg, torch.Generator().manual_seed(0), dev)
     w = pwide.flatten_params(params, cfg)
-    numbers = phase_kernel(pwide, cfg, w, dev, card)
+    numbers = phase_kernel(pwide, cfg, w, dev, card, phase=2)
     launches = phase_serve(pwide, cfg, dev, card)
     stack = phase_train_stack(ts, wn, cfg, params, dev, card)
     trained = phase_train(ts, pwide, dev, card)
@@ -760,11 +883,35 @@ def main() -> int:
     vparams = wn.init_params(vcfg, torch.Generator().manual_seed(0), dev)
     vw = pwide.flatten_params(vparams, vcfg)
     y = _mel_features(vparams, vcfg, B, STEPS, np.random.RandomState(6), dev)
-    mel_numbers = phase_kernel(pwide, vcfg, vw, dev, card, y=y, phase=6)
+    mel_numbers = phase_kernel(pwide, vcfg, vw, dev, card, phase=6, y=y)
     mel_launches = phase_serve_vocoder(pwide, vcfg, dev, card)
     mel_stack = phase_train_stack(ts, wn, vcfg, vparams, dev, card, phase=8,
                                   num_groups=6)
     mel_trained = phase_train(ts, pwide, dev, card, "full_vocoder", phase=9)
+    del vparams, vw, y
+
+    fcfg = fastgen_bench()
+    fparams = wn.init_params(fcfg, torch.Generator().manual_seed(0), dev)
+    fw = pnarrow.flatten_params(fparams, fcfg)
+    narrow_numbers = phase_kernel(pnarrow, fcfg, fw, dev, card, phase=10,
+                                  batch=NARROW_B, exact=True, tiles=TILES)
+    del fparams, fw
+    narrow_launches = phase_serve(pnarrow, fcfg, dev, card, phase=11,
+                                  seeds=tuple(range(1001, 1017)),
+                                  one_batch=True)
+
+    ccfg = conditional()
+    cparams = wn.init_params(ccfg, torch.Generator().manual_seed(0), dev)
+    cw = pnarrow.flatten_params(cparams, ccfg)
+    y = _mel_features(cparams, ccfg, B, STEPS, np.random.RandomState(12), dev)
+    cmel_numbers = phase_kernel(pnarrow, ccfg, cw, dev, card, phase=12, y=y,
+                                exact=True)
+    del cparams, cw, y
+    cmel_launches = phase_serve_vocoder(pnarrow, ccfg, dev, card, phase=12)
+    phase_train(ts, pnarrow, dev, card, "conditional", phase=12)
+
+    (gc_numbers, gc_launches), (wgc_numbers, wgc_launches) = phase_speakers(
+        pnarrow, pwide, wn, dev, card)
 
     src = "wavenet_tpu_torch/csrc/"
     pallas = "wavenet_tpu/ops/pallas/"
@@ -785,7 +932,15 @@ def main() -> int:
         row("train_stack_fwd_mel", "train_stack.cu", "train_stack.py:324",
             mel_trained["train_stack_fwd"], mel_stack["fwd"]),
         row("train_stack_bwd_mel", "train_stack.cu", "train_stack.py:426",
-            mel_trained["train_stack_bwd"], mel_stack["bwd"])]}))
+            mel_trained["train_stack_bwd"], mel_stack["bwd"]),
+        row("decode", "decode.cu", "decode.py:180", narrow_launches,
+            narrow_numbers),
+        row("decode_mel", "decode.cu", "decode.py:180", cmel_launches,
+            cmel_numbers),
+        row("decode_gc", "decode.cu", "decode.py:180", gc_launches,
+            gc_numbers),
+        row("decode_wide_gc", "decode_wide.cu", "decode_wide.py:170",
+            wgc_launches, wgc_numbers)]}))
     print(card)
     # the run used one card, device 0
     print(json.dumps({"ok": True, "device": {

@@ -146,7 +146,7 @@ def test_port_chunked_equals_one_shot(wide):
     _, tc, _, tp = wide
     w = twide.flatten_params(tp, tc)
     B, N = 2, 90
-    rings, carry, s, _, _ = twide.setup_decode(tc, B, N, seeds=11,
+    rings, carry, s, _, _, _ = twide.setup_decode(tc, B, N, seeds=11,
                                               device="cpu")
     one, r1, c1 = twide.decode_chunk(w, tc, rings, carry, 0, s, N, 1.0)
     r, c, parts, t0 = rings, carry, [], 0

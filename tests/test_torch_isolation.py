@@ -17,6 +17,7 @@ import torch
 
 from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.ops.cuda import build
+from wavenet_tpu_torch.ops.cuda import decode as tnarrow
 from wavenet_tpu_torch.ops.cuda import decode_wide as twide
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,7 +43,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert "wavenet_tpu_torch.serve" in names and len(names) >= 15, names
 for n in ("train", "training.trainer", "training.checkpoint",
-          "ops.cuda.train_stack", "audio.dataset"):
+          "ops.cuda.train_stack", "audio.dataset", "ops.cuda.decode",
+          "ops.cuda.decode_common"):
     assert "wavenet_tpu_torch." + n in names, n
 print(len(names))
 """
@@ -54,7 +56,7 @@ print(len(names))
 def test_kernel_module_imports_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     code = """
-from wavenet_tpu_torch.ops.cuda import build, decode_wide
+from wavenet_tpu_torch.ops.cuda import build, decode, decode_wide
 try:
     build.nvcc_path()
 except RuntimeError as e:
@@ -96,26 +98,36 @@ def _cuda_args(cfg, batch=2):
     return w, rings, carry, seeds
 
 
-@pytest.mark.parametrize("case", ["wide", "narrow"])
-def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, case):
-    """A supported config on a CUDA tensor goes to the kernel (which cannot
-    build here: no nvcc); an unsupported one (R < 128) raises.  Neither
+@pytest.mark.parametrize("kernel", ["wide", "narrow"])
+@pytest.mark.parametrize("case", ["wide", "narrow", "narrow_speaker"])
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, kernel, case):
+    """A config a kernel takes, on a CUDA tensor, goes to that kernel
+    (which cannot build here: no nvcc); a config it does not take (R < 128
+    for the wide kernel, R = 128 for the narrow one) raises.  Neither
     touches decode_chunk_reference."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the kernel path really runs")
+    mod = twide if kernel == "wide" else tnarrow
     calls = []
-    monkeypatch.setattr(twide, "decode_chunk_reference",
+    monkeypatch.setattr(mod, "decode_chunk_reference",
                         lambda *a, **k: calls.append(1))
     monkeypatch.setattr(build, "nvcc_path", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
     kw = dict(num_blocks=1, max_dilation=4, skip_channels=128,
               residual_channels=128 if case == "wide" else 32)
+    if case == "narrow_speaker":
+        kw.update(global_classes=3)
     cfg = tconfig.WaveNetConfig(**kw)
     w, rings, carry, seeds = _cuda_args(cfg)
+    g = None
+    if cfg.global_classes:
+        g = _OnCuda(torch.zeros(cfg.num_layers, 2, 64))
     build._libs.pop("decode_wide", None)
-    err = RuntimeError if case == "wide" else ValueError
+    build._libs.pop("decode", None)
+    err = RuntimeError if (kernel == "wide") == (case == "wide") \
+        else ValueError
     with pytest.raises(err):
-        twide.decode_chunk(w, cfg, rings, carry, 0, seeds, 8, 1.0)
+        mod.decode_chunk(w, cfg, rings, carry, 0, seeds, 8, 1.0, g=g)
     assert not calls
 
 

@@ -6,8 +6,10 @@ they run with:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
-Decode: both sides sum every dot product exactly (f64) and round once, so
-the kernel must equal the plain version bit for bit.  Training stack: both
+Decode (the narrow kernel, R < 128, and the wide one): both sides sum
+every dot product exactly (f64) and round once, so each kernel must equal
+the plain version bit for bit, in every variant (unconditional, mel,
+speaker, mel + speaker) and whatever the rows per block.  Training stack: both
 sides sum bf16-valued products in f32 in different orders, so they agree
 within the reference suite's bands (test_pallas_train.py:96-103), and two
 kernel runs agree bit for bit.  chip_smoke.py repeats these checks at the
@@ -20,6 +22,7 @@ import torch
 from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops import rng
+from wavenet_tpu_torch.ops.cuda import decode as pnarrow
 from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
 from wavenet_tpu_torch.ops.cuda import train_stack as ts
 
@@ -57,7 +60,7 @@ def test_decode_kernel_equals_plain(dev, small, temp, batch):
     prime = torch.randint(0, 256, (batch, 6), dtype=torch.int32,
                           generator=torch.Generator().manual_seed(2)).to(dev)
     for forced in (None, prime):
-        rings, carry, s, _, _ = pwide.setup_decode(cfg, batch, 70, forced,
+        rings, carry, s, _, _, _ = pwide.setup_decode(cfg, batch, 70, forced,
                                                    seeds=5, device=dev)
         k = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 70, temp, forced)
         p = pwide.decode_chunk_reference(w, cfg, rings, carry, 0, s, 70,
@@ -68,7 +71,7 @@ def test_decode_kernel_equals_plain(dev, small, temp, batch):
 
 def test_decode_kernel_chunked_equals_one_shot(dev, small):
     cfg, w = small
-    rings, carry, s, _, _ = pwide.setup_decode(cfg, 4, 90, seeds=8,
+    rings, carry, s, _, _, _ = pwide.setup_decode(cfg, 4, 90, seeds=8,
                                                device=dev)
     one = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 90, 1.0)
     r, c, toks, t0 = rings, carry, [], 0
@@ -220,7 +223,7 @@ def test_decode_kernel_mel_equals_plain(dev, num_mels, temp):
                               generator=g).to(dev)
         y = (torch.randn(batch, 64, num_mels, generator=g) * 3).to(dev)
         for forced in (None, prime):
-            rings, carry, s, _, _ = pwide.setup_decode(cfg, batch, 64,
+            rings, carry, s, _, _, _ = pwide.setup_decode(cfg, batch, 64,
                                                        forced, seeds=4,
                                                        device=dev)
             k = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 64, temp,
@@ -281,3 +284,136 @@ def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     kf2 = ts.group_fwd(x, skip, ops, dils, y)
     kb2 = ts.group_bwd(kf2[2], dskip, dxo, ops, dils, y)
     assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))
+
+
+def _narrow_cfg(R, variant):
+    """The widths of the reference's decode tests (R = S = 16), `tiny`
+    (R = 32, S = 16) and `fastgen_bench` (R = 64, S = 128), 8 layers, with
+    the variant's conditioning (mel: 8 bins; speaker: 5 classes)."""
+    S = {16: 16, 32: 16, 64: 128}[R]
+    kw = dict(num_blocks=2, max_dilation=8, residual_channels=R,
+              skip_channels=S)
+    if "mel" in variant:
+        kw["mel"] = tconfig.MelConfig(num_mels=8, hop_length=16,
+                                      win_length=64, fmax=4000.0,
+                                      upsample_factors=(4, 4))
+    if "speaker" in variant:
+        kw.update(global_classes=5, global_channels=8)
+    return tconfig.WaveNetConfig(**kw)
+
+
+def _counts(mod):
+    return (mod.launches.value, mod.mel_launches.value, mod.gc_launches.value)
+
+
+@pytest.mark.parametrize("variant", ["plain", "mel", "speaker",
+                                     "mel_speaker"])
+@pytest.mark.parametrize("R", [16, 32, 64])
+def test_narrow_decode_kernel_equals_plain(dev, R, variant):
+    """The narrow kernel vs the plain version, bit for bit (tokens, rings,
+    carry): greedy and sampled, free-running and primed, B = 1, 3 and 64,
+    then a chunked run (y sliced per chunk) equal to the one-shot run; each
+    launch bumps its variant's counter and no other."""
+    cfg = _narrow_cfg(R, variant)
+    g = torch.Generator().manual_seed(R)
+    w = pnarrow.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    M = 0 if cfg.mel is None else cfg.mel.num_mels
+    which = 2 if cfg.global_classes else 1 if M else 0
+    N = 40
+    for batch in (1, 3, 64):
+        prime = torch.randint(0, 256, (batch, 6), dtype=torch.int32,
+                              generator=g).to(dev)
+        y = (torch.randn(batch, N, M, generator=g) * 3).to(dev) if M else None
+        sp = (torch.randint(0, 5, (batch,), generator=g)
+              if cfg.global_classes else None)
+        for temp in (0.0, 1.0):
+            for forced in (None, prime):
+                rings, carry, s, gc, _, _ = pnarrow.setup_decode(
+                    cfg, batch, N, forced, seeds=3, device=dev, w=w,
+                    speaker=sp)
+                before = _counts(pnarrow)
+                k = pnarrow.decode_chunk(w, cfg, rings, carry, 0, s, N, temp,
+                                         forced, y=y, g=gc)
+                want = list(before)
+                want[which] += 1
+                assert list(_counts(pnarrow)) == want
+                p = pnarrow.decode_chunk_reference(w, cfg, rings, carry, 0, s,
+                                                   N, temp, forced, y=y, g=gc)
+                for a, b in zip(k, p):
+                    assert torch.equal(a, b), (batch, temp, forced is None)
+        r, c, toks, t0 = rings, carry, [], 0
+        for n in (1, 17, 22):
+            tk, r, c = pnarrow.decode_chunk(
+                w, cfg, r, c, t0, s, n, 1.0,
+                y=None if y is None else y[:, t0:t0 + n], g=gc)
+            toks.append(tk)
+            t0 += n
+        one = pnarrow.decode_chunk(w, cfg, rings, carry, 0, s, N, 1.0, y=y,
+                                   g=gc)
+        assert torch.equal(torch.cat(toks, 1), one[0])
+        assert torch.equal(r, one[1]) and torch.equal(c, one[2])
+
+
+def test_narrow_decode_rows_per_block_do_not_change_a_row(dev):
+    """Every tile size (1 to 16 rows per block, ragged last tiles at
+    B = 21) gives the same tokens, rings and carry: the replay contract."""
+    cfg = _narrow_cfg(64, "mel_speaker")
+    g = torch.Generator().manual_seed(9)
+    w = pnarrow.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    B, N = 21, 30
+    y = (torch.randn(B, N, 8, generator=g) * 3).to(dev)
+    rings, carry, s, gc, _, _ = pnarrow.setup_decode(
+        cfg, B, N, seeds=7, device=dev, w=w,
+        speaker=torch.arange(B) % 5)
+    outs = [pnarrow.decode_chunk(w, cfg, rings, carry, 0, s, N, 1.0, y=y,
+                                 g=gc, rows_per_block=bt)
+            for bt in (1, 2, 4, 8, 16)]
+    for o in outs[1:]:
+        for a, b in zip(o, outs[0]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mel", [False, True])
+def test_wide_decode_kernel_speaker_equals_plain(dev, mel):
+    """The wide kernel's speaker variant (with and without mel) vs the
+    plain version, bit for bit, for 1-row and multi-row blocks; it counts
+    as a speaker launch only."""
+    base = _mel_cfg(8) if mel else tconfig.WaveNetConfig(
+        num_blocks=2, max_dilation=16, residual_channels=128,
+        skip_channels=256)
+    cfg = base.replace(global_classes=7)
+    g = torch.Generator().manual_seed(11)
+    w = pwide.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    for batch in (1, 3, 9):
+        y = (torch.randn(batch, 50, 8, generator=g) * 3).to(dev) if mel \
+            else None
+        prime = torch.randint(0, 256, (batch, 5), dtype=torch.int32,
+                              generator=g).to(dev)
+        for forced in (None, prime):
+            rings, carry, s, gc, _, _ = pwide.setup_decode(
+                cfg, batch, 50, forced, seeds=2, device=dev, w=w,
+                speaker=torch.arange(batch) % 7)
+            before = _counts(pwide)
+            k = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 50, 1.0,
+                                   forced, y=y, g=gc)
+            assert _counts(pwide) == (before[0], before[1], before[2] + 1)
+            p = pwide.decode_chunk_reference(w, cfg, rings, carry, 0, s, 50,
+                                             1.0, forced, y=y, g=gc)
+            for a, b in zip(k, p):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "small", "fastgen_bench",
+                                    "conditional"])
+def test_narrow_decode_shared_memory_per_preset(dev, preset):
+    """The narrow kernel's shared memory per block (its own accounting,
+    wn_decode_smem) fits one block at every tile size for every narrow
+    preset; printed (run with -s)."""
+    cfg = tconfig.get_config(preset)
+    M = 0 if cfg.mel is None else cfg.mel.num_mels
+    sizes = {bt: pnarrow.library().wn_decode_smem(
+        bt, cfg.num_layers, cfg.residual_channels, cfg.skip_channels,
+        cfg.quantization_channels, M) for bt in (1, 2, 4, 8, 16)}
+    print(f"narrow decode shared memory, {preset}: {sizes}")
+    assert all(v <= 227 * 1024 for v in sizes.values())
+    assert sizes[1] < sizes[16]

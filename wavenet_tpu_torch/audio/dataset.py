@@ -10,7 +10,7 @@ log-mel frames are computed once at load (audio/mel.py) and a crop starts
 on a hop boundary, so frame f lines up with sample f * hop.  Windows are
 gathered by the numpy loop, the reference's own reference implementation;
 its native C++ gatherer (bit-identical) is not ported yet (ROADMAP queue 1
-item 8), nor are speaker ids (item 6).
+item 8), nor are speaker ids (queue 2 item 1, with speaker training).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class AudioDataset:
         if cfg.global_classes is not None:
             raise NotImplementedError(
                 "speaker conditioned datasets are not ported yet "
-                "(ROADMAP queue 1 item 6)")
+                "(ROADMAP queue 2 item 1)")
         self.cfg = cfg
         window = cfg.train_window + 1
         kept = [c for c in clips if len(c) >= window]

@@ -2,8 +2,8 @@
 //
 // Replaces wavenet_tpu/ops/pallas/decode_wide.py::_decode_kernel, the TPU's
 // whole-loop decoder for wide models (R >= 128, the `full` and
-// `full_vocoder` presets), unconditional or mel-conditioned (its has_cond
-// form; no speaker conditioning).  One launch runs num_steps decode
+// `full_vocoder` presets), in all its forms: unconditional, mel-conditioned
+// (has_cond) and speaker-conditioned (has_gc).  One launch runs num_steps decode
 // steps; per step and batch row: f32 embed of (token, prev) -> L gated
 // dilated layers with compact ring reads/writes -> ReLU/1x1/ReLU/1x1 head ->
 // counter-RNG Gumbel-max sample (argmax when greedy) -> the forced-prime
@@ -12,7 +12,9 @@
 // [B, 2] = (next token, its predecessor) continues a later launch.  A
 // mel-conditioned launch also reads y [B, num_steps, M] bf16 (this launch's
 // steps only, contiguous: a chunked caller passes its chunk's slice) and
-// V_cond [L, M, 2R] bf16, and adds y_t @ V_cond[l] into every layer's gate.
+// V_cond [L, M, 2R] bf16, and adds y_t @ V_cond[l] into every layer's gate;
+// a speaker-conditioned launch reads g [L, B, 2R] f32 (each row's
+// time-constant speaker offsets) and adds g[l, row] after that.
 //
 // What bounds it on the card: each step is a serial chain of L layers, and
 // each layer is dependent matrix-vector phases (z, gate, skip+res) whose
@@ -47,6 +49,7 @@
 //                                                         once; y_t and V_cond
 //                                                         bf16; the last term
 //                                                         only with mel)
+//   z = z + g[l, row]                                    (with a speaker)
 //   h = bf16(tanh(z_f) * sigmoid(z_g))
 //   skip = (skip + h @ W_skip) + b_skip                  (f32)
 //   ring[off_l + (t0+t) mod d_l] <- x  (after the read of `old` there)
@@ -59,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -85,6 +89,7 @@ struct DecodeArgs {
   const int32_t* dils;           // [L]
   const __nv_bfloat16* y;        // [B, num_steps, M] or null (no mel)
   const __nv_bfloat16* vcond;    // [L, M, 2R] or null
+  const float* g;                // [L, B, 2R] or null (no speaker)
   const __nv_bfloat16* rings_in; // [sum_d, B, R]
   __nv_bfloat16* rings_out;      // [sum_d, B, R]
   int32_t* tokens_out;           // [B, num_steps]
@@ -93,108 +98,8 @@ struct DecodeArgs {
   float inv_temp;
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// v[r] = p[r] for the BT rows of one k (16-byte shared loads).
-template <int BT>
-__device__ __forceinline__ void load_rows(const double* p, double v[BT]) {
-  if constexpr (BT % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < BT; i += 2) {
-      const double2 q = *reinterpret_cast<const double2*>(p + i);
-      v[i] = q.x; v[i + 1] = q.y;
-    }
-  } else {
-    v[0] = p[0];
-  }
-}
-
-// out[r] = f32(sum over k of inT[k][r] * W[k][o]), the sum taken in f64:
-// products of bf16 values are exact there and so is their sum (barring an
-// exponent spread of ~30 binades), so out[r] is the correctly rounded f32
-// dot product, independent of summation order -- the plain PyTorch
-// version (models/wavenet.py _dot) gets the same bits, and this function
-// may split the sum over several accumulators.  W is [K, N] bf16 row-major
-// ([in, out]); inT is [K][BT] in shared memory, bf16 values held as f64
-// (converted once when written: a float -> double conversion runs at a
-// quarter of the f64 FMA rate, so converting per product would dominate).
-//
-// The phase is bound by latency (L2 loads, then a chain of dependent f64
-// FMAs), so the weight loads are double-buffered in batches of kHalf (the
-// next batch is in flight while the current one is summed) and a row uses
-// up to 4 independent accumulators.  A range whose length is not a multiple
-// of kHalf ends with single loads.
-constexpr int kHalf = 16;
-
-template <int BT, int NA>
-__device__ __forceinline__ void fma_batch(double (&acc)[NA][BT],
-                                          const __nv_bfloat16 (&wk)[kHalf],
-                                          const double* inT, int k0) {
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) {
-    const double wj = (double)__bfloat162float(wk[j]);
-    double v[BT];
-    load_rows<BT>(inT + (k0 + j) * BT, v);
-#pragma unroll
-    for (int r = 0; r < BT; ++r) acc[j % NA][r] = fma(v[r], wj, acc[j % NA][r]);
-  }
-}
-
-__device__ __forceinline__ void load_batch(__nv_bfloat16 (&wk)[kHalf],
-                                           const __nv_bfloat16* w, int k0,
-                                           int N) {
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) wk[j] = w[(size_t)(k0 + j) * N];
-}
-
-// sum[r] = sum over k in [kb, ke) of inT[k][r] * W[k][o], exact in f64.
-template <int BT>
-__device__ __forceinline__ void dot_part(const __nv_bfloat16* __restrict__ W,
-                                         int kb, int ke, int N, int o,
-                                         const double* inT, double sum[BT]) {
-  constexpr int NA = BT >= 4 ? 1 : 4 / BT;   // accumulators per row
-  double acc[NA][BT];
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int r = 0; r < BT; ++r) acc[a][r] = 0.0;
-  const __nv_bfloat16* w = W + o;
-  int k = kb;
-  if (ke - k >= kHalf) {
-    __nv_bfloat16 wa[kHalf], wb[kHalf];
-    load_batch(wa, w, k, N);
-    while (ke - k >= 2 * kHalf) {
-      load_batch(wb, w, k + kHalf, N);
-      fma_batch<BT, NA>(acc, wa, inT, k);
-      if (ke - k >= 3 * kHalf) load_batch(wa, w, k + 2 * kHalf, N);
-      fma_batch<BT, NA>(acc, wb, inT, k + kHalf);
-      k += 2 * kHalf;
-    }
-    if (ke - k >= kHalf) {
-      fma_batch<BT, NA>(acc, wa, inT, k);
-      k += kHalf;
-    }
-  }
-  for (; k < ke; ++k) {
-    const double wj = (double)__bfloat162float(w[(size_t)k * N]);
-#pragma unroll
-    for (int r = 0; r < BT; ++r) acc[0][r] = fma(inT[k * BT + r], wj, acc[0][r]);
-  }
-#pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    double t = acc[0][r];
-#pragma unroll
-    for (int a = 1; a < NA; ++a) t += acc[a][r];
-    sum[r] = t;
-  }
-}
-
+// out[r] = f32 of the exact dot product of column o of W [K, N] with the
+// BT rows of inT (decode_common.cuh: dot_part).
 template <int BT>
 __device__ __forceinline__ void dot_col(const __nv_bfloat16* __restrict__ W,
                                         int K, int N, int o,
@@ -344,6 +249,12 @@ decode_wide_kernel(const DecodeArgs a) {
           zf += __double2float_rn(zcT[i] + zcT[2 * R * BT + i]);
           zg += __double2float_rn(zcT[ig] + zcT[2 * R * BT + ig]);
         }
+        const int r = i % BT;
+        if (a.g != nullptr && r < nrows) {   // this row's speaker offsets
+          const float* gr = a.g + ((size_t)l * B + b0 + r) * 2 * R;
+          zf += gr[c];
+          zg += gr[R + c];
+        }
         hT[i] = bf16_round(tanhf(zf) * sigmoidf(zg));
       }
       __syncthreads();
@@ -401,21 +312,7 @@ decode_wide_kernel(const DecodeArgs a) {
     const int warp = tid >> 5, lane = tid & 31;
     if (warp < nrows) {
       const int r = warp;
-      float best = -INFINITY;
-      int bi = Q;                      // sentinel: nothing seen yet
-      for (int q = lane; q < Q; q += 32) {
-        const float v = scoreT[q * BT + r];
-        if (v > best || bi == Q) { best = v; bi = q; }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (oi < Q && (bi == Q || ov > best || (ov == best && oi < bi))) {
-          best = ov;
-          bi = oi;
-        }
-      }
+      const int bi = warp_argmax<BT>(scoreT, Q, r, lane);
       if (lane == 0) {
         int nxt = bi;
         a.tokens_out[(size_t)(b0 + r) * a.num_steps + t] = nxt;
@@ -459,7 +356,8 @@ extern "C" {
 // Launch the whole-loop decode on `stream`; returns a cudaError_t code
 // (0 on success).  bt in {1, 2, 4, 8} rows per block; threads <= 512.
 // y [B, num_steps, M] and vcond [L, M, 2R] (bf16) with M > 0 for a
-// mel-conditioned model; null and M = 0 otherwise.
+// mel-conditioned model; null and M = 0 otherwise.  g [L, B, 2R] (f32) for
+// a speaker-conditioned model, null otherwise.
 int wn_decode_wide(const int32_t* seeds, const int32_t* tokens_init,
                    const int32_t* forced, const float* ecur,
                    const float* eprev, const void* wcur, const void* wprev,
@@ -467,7 +365,7 @@ int wn_decode_wide(const int32_t* seeds, const int32_t* tokens_init,
                    const void* wskip, const float* bskip, const void* hw1,
                    const float* hb1, const void* hw2, const float* hb2,
                    const int32_t* dils, const void* y, const void* vcond,
-                   const void* rings_in, void* rings_out,
+                   const float* g, const void* rings_in, void* rings_out,
                    int32_t* tokens_out, int32_t* carry_out, int L, int R,
                    int S, int Q, int M, int sum_d, int B, int num_steps,
                    int t0, int num_forced, int greedy, float inv_temp, int bt,
@@ -475,7 +373,7 @@ int wn_decode_wide(const int32_t* seeds, const int32_t* tokens_init,
   typedef const __nv_bfloat16* W;
   DecodeArgs a{seeds, tokens_init, forced, ecur, eprev,
                (W)wcur, (W)wprev, b, (W)wres, bres, (W)wskip, bskip,
-               (W)hw1, hb1, (W)hw2, hb2, dils, (W)y, (W)vcond,
+               (W)hw1, hb1, (W)hw2, hb2, dils, (W)y, (W)vcond, g,
                (W)rings_in, (__nv_bfloat16*)rings_out, tokens_out, carry_out,
                L, R, S, Q, M, sum_d, B, num_steps, t0, num_forced, greedy,
                inv_temp};

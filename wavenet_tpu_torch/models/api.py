@@ -7,8 +7,11 @@ Trainer's own params, training/trainer.py), so `model.to(device)` moves
 the whole model.  A nested params dict (a mel model's `upsampler`) becomes
 a child module holding its leaves; `params` gives the nested dict back, as
 the functional core and the JAX package's export_npz keys have it.  The
-kernel-layout weights (ops/cuda/decode_wide.flatten_params) are built once
-per device and reused by every decode launch until a param changes.
+kernel-layout weights (ops/cuda/decode_common.flatten_params, one layout
+for the narrow and the wide decode kernel) are built once per device and
+reused by every decode launch until a param changes.  A speaker-conditioned
+model decodes (generate, stream with speaker=) but does not train or score
+yet (models/wavenet.check_trainable).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from torch import nn
 from wavenet_tpu_torch.config import WaveNetConfig
 from wavenet_tpu_torch.models import conditioning
 from wavenet_tpu_torch.models import wavenet as wn
-from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
+from wavenet_tpu_torch.ops.cuda import decode_common
 
 
 def _register(module: nn.Module, tree: dict) -> None:
@@ -176,14 +179,15 @@ class WaveNet(nn.Module):
 
     # ---- decode ----
 
-    def decode_weights(self) -> "pwide.DecodeWeights":
-        """flatten_params of the current params, rebuilt only when a param
-        was moved or modified since the last call."""
+    def decode_weights(self) -> "decode_common.DecodeWeights":
+        """flatten_params of the current params (the layout both decode
+        kernels take), rebuilt only when a param was moved or modified
+        since the last call."""
         key = tuple((p.data_ptr(), p._version, p.device)
                     for p in self.parameters())
         if self._decode_cache is None or self._decode_cache[0] != key:
-            self._decode_cache = (key, pwide.flatten_params(self.params,
-                                                            self.cfg))
+            self._decode_cache = (key, decode_common.flatten_params(
+                self.params, self.cfg))
         return self._decode_cache[1]
 
     def _prime(self, prime_tokens):
@@ -195,14 +199,16 @@ class WaveNet(nn.Module):
     def generate(self, seconds: Optional[float] = None,
                  num_samples: Optional[int] = None, batch: int = 1,
                  prime_tokens=None, temperature: float = 1.0,
-                 seed: int = 0, seeds=None, mel=None, y=None) -> torch.Tensor:
+                 seed: int = 0, seeds=None, mel=None, y=None,
+                 speaker=None) -> torch.Tensor:
         """Sample [batch, num_samples] int32 mu-law tokens on the model's
         device.  seeds: optional [batch] per-row counter-RNG seeds (each
         row's audio then depends only on its seed); else derived from
         `seed`.  A mel model takes mel= frames [batch, F, M] (upsampled
         here over the whole timeline, priming included) or y= features
         already upsampled, [batch, >= max(P - 1, 0) + num_samples, M], on
-        the model's device."""
+        the model's device.  A speaker model takes speaker= [batch] int
+        ids in [0, global_classes)."""
         from wavenet_tpu_torch.generate.sampler import generate_auto
         n = self._num_samples(seconds, num_samples)
         prime = self._prime(prime_tokens)
@@ -210,17 +216,19 @@ class WaveNet(nn.Module):
                              prime_tokens=prime, temperature=temperature,
                              seeds=self._seeds(seed, seeds),
                              device=self.device,
-                             y=self._cond(mel, y, prime, n))
+                             y=self._cond(mel, y, prime, n),
+                             speaker=self._speaker(speaker))
 
     def stream(self, seconds: Optional[float] = None,
                chunk_seconds: float = 1.0, batch: int = 1,
                prime_tokens=None, temperature: float = 1.0,
                num_samples: Optional[int] = None,
                chunk_samples: Optional[int] = None, seed: int = 0,
-               seeds=None, mel=None, y=None):
+               seeds=None, mel=None, y=None, speaker=None):
         """Yield float32 waveform chunks ([batch, <= chunk] numpy arrays in
         [-1, 1]) as they are decoded; the concatenation is bit-identical
-        to a one-shot generate at the same seeds (mel=/y= as there)."""
+        to a one-shot generate at the same seeds (mel=/y=/speaker= as
+        there)."""
         from wavenet_tpu_torch.audio import mulaw
         from wavenet_tpu_torch.generate.sampler import generate_stream
         n = self._num_samples(seconds, num_samples)
@@ -232,7 +240,8 @@ class WaveNet(nn.Module):
                               prime_tokens=prime, temperature=temperature,
                               seeds=self._seeds(seed, seeds),
                               device=self.device,
-                              y=self._cond(mel, y, prime, n))
+                              y=self._cond(mel, y, prime, n),
+                              speaker=self._speaker(speaker))
         for toks in gen:
             yield mulaw.decode(toks, self.cfg.quantization_channels
                                ).cpu().numpy()
@@ -281,6 +290,14 @@ class WaveNet(nn.Module):
                 raise ValueError("pass seconds= or num_samples=")
             num_samples = int(seconds * self.cfg.sample_rate)
         return int(num_samples)
+
+    def _speaker(self, speaker) -> Optional[torch.Tensor]:
+        """Speaker ids [batch] -> int32 on the model's device (None stays
+        None; setup_decode checks them against the model)."""
+        if speaker is None:
+            return None
+        return torch.as_tensor(speaker, device=self.device).to(
+            torch.int32).reshape(-1)
 
     def _seeds(self, seed, seeds):
         if seeds is None:

@@ -9,6 +9,7 @@ Plain functions on a params dict with the JAX package's key names and shapes
                                        head_w2 [S, Q], head_b2 [Q]
   with mel: v_cond [L, M, 2, R] and upsampler {w0, b0, w1, b1, ...}
   (models/conditioning.py), a nested dict as in the reference
+  with speakers (global_classes C): g_embed [C, G], v_global [L, G, 2, R]
 
 Numerics recipe, the reference's (arXiv:1609.03499 eq.2 with bf16 matmul
 inputs and f32 accumulation):
@@ -31,18 +32,22 @@ kernel (which also accumulates in f64) and this plain version agree bit
 for bit, and a row's result cannot depend on how many rows share a call
 (the serving replay contract).
 
-Kernel_size 2 only, no speaker conditioning (ROADMAP queue 1 items 6, 7).
+Kernel_size 2 only (ROADMAP queue 1 item 7).  Speaker (global)
+conditioning is served (decode) but not trained (check_trainable).
 Two halves:
   * training: forward_logits (the scan recipe: the residual rounded to bf16
     after every layer, autograd through it), forward_logits_fused (the
     fused layer-group recipe of ops/cuda/train_stack.py: f32 carry within
     a group, f32 cotangents), loss_fn and score_fn;
-  * decode: decode_step and its drivers; the whole-loop CUDA kernel
-    (ops/cuda/decode_wide.py) computes the same loop on the card.
+  * decode: decode_step and its drivers; the whole-loop CUDA kernels
+    (ops/cuda/decode.py for R < 128, ops/cuda/decode_wide.py for R a
+    multiple of 128) compute the same loop on the card.
 With mel, every layer's gate adds y @ V_cond[l] after the bias, y the
 upsampled features: in training from the mel frames (`mel`) or given
 upsampled (`upsampled_cond`), in decode as per-step contributions cond_t
-(conditioning.project_cond).
+(conditioning.project_cond).  With a speaker, the gate then adds the
+time-constant offset g[l] = g_embed[speaker] @ v_global[l]
+(global_cond_offsets, paper eq.2).
 """
 
 from __future__ import annotations
@@ -66,12 +71,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def check_supported(cfg: WaveNetConfig) -> None:
-    """Raise NotImplementedError for features this slice of the port does
-    not serve yet, naming the ROADMAP item that brings them."""
-    if cfg.global_classes is not None:
-        raise NotImplementedError(
-            "speaker (global) conditioning is not ported yet "
-            "(ROADMAP queue 1 item 6)")
+    """Raise NotImplementedError for features the port does not serve yet,
+    naming the ROADMAP item that brings them."""
     if cfg.kernel_size != 2:
         raise NotImplementedError(
             "kernel_size > 2 is not ported yet (ROADMAP queue 1 item 7)")
@@ -81,6 +82,18 @@ def check_supported(cfg: WaveNetConfig) -> None:
             "ported yet (ROADMAP queue 1 item 2)")
 
 
+def check_trainable(cfg: WaveNetConfig) -> None:
+    """check_supported, and refuse what the port serves but does not train
+    yet: speaker-conditioned models (their forward, loss and score belong
+    to the training half, with the stack kernels' has_gc variants)."""
+    check_supported(cfg)
+    if cfg.global_classes is not None:
+        raise NotImplementedError(
+            "training, loss and score of speaker-conditioned models are not "
+            "ported yet (ROADMAP queue 2 item 1: the train_stack has_gc "
+            "variants and the dataset's speaker ids); they decode and serve")
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -88,10 +101,10 @@ def check_supported(cfg: WaveNetConfig) -> None:
 def init_params(cfg: WaveNetConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random params with the reference's shapes and distributions: embed
-    tables N(0, 0.05^2), stacked Glorot-uniform weights (fan-in from the
-    input axis, fan-out from the last), zero biases.  Drawn from
-    `generator` (a CPU torch.Generator) and moved to `device`; the values
-    are not JAX's (the two RNGs differ)."""
+    tables (and g_embed) N(0, 0.05^2), stacked Glorot-uniform weights
+    (fan-in from the input axis, fan-out from the last), zero biases.
+    Drawn from `generator` (a CPU torch.Generator) and moved to `device`;
+    the values are not JAX's (the two RNGs differ)."""
     check_supported(cfg)
     L, R = cfg.num_layers, cfg.residual_channels
     S, Q = cfg.skip_channels, cfg.quantization_channels
@@ -126,6 +139,10 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
         params["v_cond"] = glorot(L, cfg.mel.num_mels, 2, R)
         params["upsampler"] = conditioning.init_upsampler_params(
             cfg.mel, generator, device)
+    if cfg.global_classes is not None:
+        G = cfg.global_channels
+        params["g_embed"] = normal(cfg.global_classes, G)
+        params["v_global"] = glorot(L, G, 2, R)
     return {k: v if isinstance(v, dict) else v.to(device)
             for k, v in params.items()}
 
@@ -145,6 +162,20 @@ def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     f64 = torch.float64
     return (a.to(torch.bfloat16).to(f64)
             @ w.to(torch.bfloat16).to(f64)).to(torch.float32)
+
+
+def global_cond_offsets(params: Params, cfg: WaveNetConfig,
+                        speaker: torch.Tensor) -> torch.Tensor:
+    """Speaker ids [B] -> per-layer gate offsets [L, B, 2, R] f32 (paper
+    eq.2: one time-constant offset per layer and row, computed once per
+    request batch): g_embed[speaker] @ v_global[l] with bf16 operands,
+    each dot summed exactly and rounded once (_dot).  Accepts model-layout
+    params or the decode kernels' layout (v_global folded to [L, G, 2R])."""
+    L, R, G = cfg.num_layers, cfg.residual_channels, cfg.global_channels
+    gvec = params["g_embed"][speaker.long()]                       # [B, G]
+    v = params["v_global"].reshape(L, G, 2 * R)
+    return torch.stack([_dot(gvec, v[l]) for l in range(L)]).reshape(
+        L, -1, 2, R)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +282,7 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             "valid_mask and halo inputs of forward_logits are not ported yet "
             "(ROADMAP queue 1 items 3 and 11)")
-    check_supported(cfg)
+    check_trainable(cfg)
     B, T = tokens.shape
     prev = _shifted_tokens(tokens) if prev_tokens is None else prev_tokens
     x = embed_tokens(params, cfg, tokens, prev)
@@ -281,7 +312,7 @@ def forward_logits_fused(params: Params, cfg: WaveNetConfig,
     plain PyTorch (its params train through autograd) and y @ V_cond runs
     inside the stack's kernels."""
     from wavenet_tpu_torch.ops.cuda import train_stack
-    check_supported(cfg)
+    check_trainable(cfg)
     x = embed_tokens(params, cfg, tokens, _shifted_tokens(tokens))
     y = _mel_features(params, cfg, tokens.shape[1], mel)
     skip = train_stack.forward_skip_fused(params, cfg, x, tile=tile, y=y)
@@ -368,12 +399,15 @@ def decode_init(cfg: WaveNetConfig, batch: int, device) -> DecodeState:
 
 
 def decode_step(params: Params, cfg: WaveNetConfig, state: DecodeState,
-                token: torch.Tensor, cond_t: Optional[torch.Tensor] = None
+                token: torch.Tensor, cond_t: Optional[torch.Tensor] = None,
+                gcond: Optional[torch.Tensor] = None
                 ) -> Tuple[DecodeState, torch.Tensor]:
     """Advance one sample: consume `token` ([B] int32), return the updated
     state and the logits [B, Q] f32 for the next sample.  cond_t: [B, L, 2R]
     f32 gate contributions of this step (conditioning.project_cond), added
-    after the bias: z = ((x @ W_cur + old @ W_prev) + b) + cond_t[:, l].
+    after the bias: z = ((x @ W_cur + old @ W_prev) + b) + cond_t[:, l];
+    gcond: the speaker offsets [L, B, 2R] (or [L, B, 2, R]) f32 of
+    global_cond_offsets, added after that: z = z + gcond[l].
 
     Updates state.queues IN PLACE (one [B, R] row per layer) instead of
     copying the [sum_d, B, R] rings every step; callers that need the old
@@ -397,6 +431,8 @@ def decode_step(params: Params, cfg: WaveNetConfig, state: DecodeState,
         z = (_dot(x, w_cur[l]) + _dot(old, w_prev[l])) + b[l]   # [B, 2R]
         if cond_t is not None:
             z = z + cond_t[:, l]
+        if gcond is not None:
+            z = z + gcond[l].reshape(B, 2 * R)
         h = _bf(torch.tanh(z[:, :R]) * torch.sigmoid(z[:, R:]))
         skip = (skip + _dot(h, params["w_skip"][l])) + b_skip[l]
         queues[slot] = x.to(torch.bfloat16)     # this layer's INPUT
@@ -425,13 +461,14 @@ def _cond_at(cond, t: int, cond_t0: int = 0):
 
 def decode_prime(params: Params, cfg: WaveNetConfig, batch: int,
                  prime_tokens: Optional[torch.Tensor], device,
-                 cond: Optional[torch.Tensor] = None, num_samples: int = 0):
+                 cond: Optional[torch.Tensor] = None, num_samples: int = 0,
+                 gcond: Optional[torch.Tensor] = None):
     """Decode state ready to free-run: teacher-force all but the last
     priming token (the last one seeds sampling), or seed with the mid-scale
     silence token Q // 2.  cond: [B, total, L, 2R] per-step gate
     contributions (conditioning.prepare_decode_cond) covering the whole
-    timeline, max(P - 1, 0) + num_samples steps.  Returns (state, first
-    token [B])."""
+    timeline, max(P - 1, 0) + num_samples steps; gcond: the speaker
+    offsets (decode_step).  Returns (state, first token [B])."""
     state = decode_init(cfg, batch, device)
     P = 0 if prime_tokens is None else prime_tokens.shape[1]
     total = max(P - 1, 0) + num_samples
@@ -445,7 +482,7 @@ def decode_prime(params: Params, cfg: WaveNetConfig, batch: int,
     prime_tokens = prime_tokens.to(device=device, dtype=torch.int32)
     for i in range(P - 1):
         state, _ = decode_step(params, cfg, state, prime_tokens[:, i],
-                               cond_t=_cond_at(cond, state.t))
+                               cond_t=_cond_at(cond, state.t), gcond=gcond)
     return state, prime_tokens[:, -1]
 
 
@@ -453,17 +490,19 @@ def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
                         state: DecodeState, first: torch.Tensor, n: int,
                         seeds: torch.Tensor, temperature: float = 1.0,
                         cond: Optional[torch.Tensor] = None,
-                        cond_t0: int = 0):
+                        cond_t0: int = 0,
+                        gcond: Optional[torch.Tensor] = None):
     """`n` free-running sampling steps from `state`, consuming `first`.
     Noise is keyed by the state's global step, so chunking cannot change
     the sample path.  cond is indexed by the global step minus cond_t0 (a
-    chunked caller passes its chunk's slice).  Returns (state, next token
-    [B], samples [B, n])."""
+    chunked caller passes its chunk's slice); gcond as in decode_step.
+    Returns (state, next token [B], samples [B, n])."""
     token, out = first, []
     for _ in range(n):
         t = state.t
         state, logits = decode_step(params, cfg, state, token,
-                                    cond_t=_cond_at(cond, t, cond_t0))
+                                    cond_t=_cond_at(cond, t, cond_t0),
+                                    gcond=gcond)
         token = sample_tokens(logits, t, seeds, temperature)
         out.append(token)
     return state, token, torch.stack(out, dim=1)
@@ -472,18 +511,26 @@ def decode_sample_chunk(params: Params, cfg: WaveNetConfig,
 def generate(params: Params, cfg: WaveNetConfig, num_samples: int,
              batch: int = 1, prime_tokens: Optional[torch.Tensor] = None,
              temperature: float = 1.0, seeds=0, device="cuda",
-             cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+             cond: Optional[torch.Tensor] = None,
+             speaker: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain autoregressive sampling of [batch, num_samples] int32 tokens
     (decode_prime + one decode_sample_chunk).  seeds: an int (per-row seeds
     derived from it) or [batch] per-row counter-RNG seeds; cond: the
-    per-step gate contributions of a mel model (see decode_prime)."""
+    per-step gate contributions of a mel model (see decode_prime);
+    speaker: [batch] int ids of a speaker-conditioned model."""
     check_supported(cfg)
     if (cond is None) != (cfg.mel is None):
         raise ValueError("cond is required with cfg.mel, and only then")
+    if (speaker is None) != (cfg.global_classes is None):
+        raise ValueError("speaker is required with cfg.global_classes, "
+                         "and only then")
+    gcond = (None if speaker is None else global_cond_offsets(
+        params, cfg, torch.as_tensor(speaker, device=device)))
     seeds = rng.as_row_seeds(seeds, batch, device)
     state, first = decode_prime(params, cfg, batch, prime_tokens, device,
-                                cond=cond, num_samples=num_samples)
+                                cond=cond, num_samples=num_samples,
+                                gcond=gcond)
     _, _, samples = decode_sample_chunk(params, cfg, state, first,
                                         num_samples, seeds, temperature,
-                                        cond=cond)
+                                        cond=cond, gcond=gcond)
     return samples

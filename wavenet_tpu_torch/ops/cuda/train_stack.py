@@ -505,7 +505,7 @@ def forward_skip_fused(params, cfg: WaveNetConfig, x: torch.Tensor,
     if cfg.global_classes is not None:
         raise NotImplementedError(
             "speaker-conditioned fused stacks are not ported yet (ROADMAP "
-            "queue 2)")
+            "queue 2 item 1)")
     if (y is None) != (cfg.mel is None):
         raise ValueError("y is required with cfg.mel, and only then")
     groups = group_plan(cfg, TT)

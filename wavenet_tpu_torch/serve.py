@@ -11,9 +11,16 @@ written by the port's trainer (EMA weights when the run kept them):
   curl -X POST localhost:8000/synthesize \
        -d '{"seconds": 10.0, "stream": true}' --output raw.pcm   # int16 PCM
   curl localhost:8000/info
-  # a mel-conditioned model (full_vocoder): log-mel frames, [frames, M]
+  # a mel-conditioned model (full_vocoder, conditional): log-mel frames,
+  # [frames, M]
   curl -X POST localhost:8000/synthesize \
        -d '{"seconds": 0.5, "seed": 7, "mel": [[...80 floats...], ...]}'
+  # a speaker-conditioned model (global_classes set): a speaker id
+  curl -X POST localhost:8000/synthesize -d '{"seconds": 0.5, "speaker": 3}'
+
+Narrow models (R < 128: tiny, small, fastgen_bench, conditional) decode
+through the narrow kernel, wide ones (full, full_vocoder) through the wide
+one.
 
 A directory of the JAX package's orbax checkpoints is refused with a message
 that points to export_npz.

@@ -10,13 +10,15 @@ Endpoints:
   GET  /info          -> config + engine stats JSON
   POST /synthesize    -> audio.  JSON body:
        {"seconds": 1.0 | "num_samples": 16000, "seed": 0,
-        "temperature": 1.0, "stream": false,
+        "temperature": 1.0, "speaker": 3, "stream": false,
         "prime": [...] | "prime_b64": "<base64 little-endian f32>"}
        prime: a float waveform in [-1, 1] to continue from.
        mel: [frames, M] log-mel frames (nested lists, or "mel_b64" with
        frames * M little-endian float32) for a mel-conditioned model;
-       required there, answered with 400 elsewhere, as is "speaker" (no
-       speaker-conditioned model is served yet).
+       required there, answered with 400 elsewhere.
+       speaker: the class id of a speaker-conditioned model, in
+       [0, global_classes) (speaker 0 when omitted); 400 elsewhere or out
+       of range.
        stream=false: complete 16-bit PCM WAV (Content-Type audio/wav).
        stream=true:  chunked raw int16 PCM (audio/L16; headers carry
        X-Sample-Rate / X-Num-Samples) — bytes flush as the model decodes,

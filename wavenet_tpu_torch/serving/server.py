@@ -21,11 +21,15 @@ receives its own waveform chunks as they are produced.
     batched mel request equals its singleton replay bit for bit.  The
     features stay on the model's device; only the mel frames cross from
     the host.  Primed requests stay singletons.
+  * A speaker-conditioned model takes each request's speaker id (checked
+    at submit); speakers are not part of the batching signature, so rows
+    of different speakers share a batch (each row's gate offsets are its
+    own, computed once per batch).  Requests that name no speaker, pad
+    rows and warmup rows use speaker 0, as the reference does.
   * Chunks flow through per-request unbounded queues: a lagging consumer
     costs memory for its own utterance and never stalls the decode loop.
 
-Speaker-conditioned models and mesh (multi-GPU) serving are not ported yet
-(ROADMAP queue 1 items 6 and 11); the port's WaveNet refuses such models.
+Mesh (multi-GPU) serving is not ported yet (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ class _Request:
     temperature: float
     mel: Optional[np.ndarray] = None           # [frames, M]
     prime: Optional[np.ndarray] = None
+    speaker: Optional[int] = None
     chunks: "queue.Queue" = field(default_factory=queue.Queue)
     error: Optional[BaseException] = None
 
@@ -160,8 +165,9 @@ class WaveNetServer:
         requests decode as singleton batches.  mel: [frames, M] (or
         [1, frames, M]) log-mel frames of a mel model, covering the
         request's timeline (priming steps included); checked here, so a
-        bad request cannot fail the rows batched with it.  speaker= is
-        rejected: the port serves no speaker-conditioned model yet.
+        bad request cannot fail the rows batched with it.  speaker: the
+        class id of a speaker-conditioned model, in [0, global_classes)
+        (speaker 0 when omitted); refused for other models.
         """
         if num_samples is None:
             if seconds is None:
@@ -170,8 +176,14 @@ class WaveNetServer:
         if num_samples <= 0:
             raise ValueError("num_samples must be positive")
         if speaker is not None:
-            raise ValueError("model has no global conditioning; "
-                             "speaker= is not an input")
+            if self.cfg.global_classes is None:
+                raise ValueError("model has no global conditioning; "
+                                 "speaker= is not an input")
+            if not 0 <= int(speaker) < self.cfg.global_classes:
+                # the id indexes g_embed: refuse it here instead of
+                # failing the rows batched with it
+                raise ValueError(f"speaker={speaker} out of range "
+                                 f"[0, {self.cfg.global_classes})")
         if prime is not None:
             prime = np.asarray(prime, np.float32).reshape(-1)
             if prime.size == 0:
@@ -181,7 +193,7 @@ class WaveNetServer:
         elif self.cfg.mel is not None:
             raise ValueError("a mel-conditioned model needs mel= frames")
         req = _Request(int(num_samples), int(seed), float(temperature),
-                       mel, prime)
+                       mel, prime, None if speaker is None else int(speaker))
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError("server is closed")
@@ -224,7 +236,8 @@ class WaveNetServer:
         """Push `seconds` of synthesis through every batch bucket (1, 2,
         4, ..., max_batch) on the calling thread, so the kernel library is
         built and loaded before the first real request arrives.  On a mel
-        model the rows carry zero mel, as vocoder traffic does."""
+        model the rows carry zero mel, as vocoder traffic does; on a
+        speaker model they name no speaker, so they decode as speaker 0."""
         n = max(1, int(seconds * self.cfg.sample_rate))
         mel = None
         if self.cfg.mel is not None:
@@ -343,6 +356,13 @@ class WaveNetServer:
         seeds = np.asarray([r.seed for r in group] + [0] * (B - n_real),
                            np.int32)
 
+        # per-row speakers (not part of the group signature): requests
+        # without one and pad rows use speaker 0, as the reference does
+        speaker = None
+        if self.cfg.global_classes is not None:
+            ids = [0 if r.speaker is None else r.speaker for r in group]
+            speaker = np.asarray(ids + [0] * (B - n_real), np.int32)
+
         # the prime first: it fixes the scan length (singleton, exact) and
         # the conditioning span the mel rows must cover
         prime_tokens = None
@@ -362,7 +382,7 @@ class WaveNetServer:
         for chunk in self.model.stream(
                 num_samples=scan_len, chunk_samples=self.chunk_samples,
                 batch=B, seeds=seeds, prime_tokens=prime_tokens,
-                temperature=group[0].temperature, y=y):
+                temperature=group[0].temperature, y=y, speaker=speaker):
             chunk = np.asarray(chunk, np.float32)
             for i, r in enumerate(group):
                 take = min(chunk.shape[1], r.num_samples - emitted[i])

@@ -160,7 +160,7 @@ def ema_update(ema, params, decay: float):
 
 
 def _check_single_device(cfg: WaveNetConfig) -> None:
-    wn.check_supported(cfg)
+    wn.check_trainable(cfg)
     if max(cfg.data_parallel, cfg.model_parallel, cfg.seq_parallel) > 1:
         raise NotImplementedError(
             "data_parallel, model_parallel and seq_parallel > 1 are not "
