@@ -11,8 +11,10 @@ entry points (export_npz -> WaveNet.from_npz -> WaveNetServer -> HTTP on
 localhost; the train CLI's main(); WaveNet.from_checkpoint) and shows that
 they went through the kernels: the wide presets `full` and `full_vocoder`
 (phases 2-9), the narrow presets `fastgen_bench` and `conditional` through
-the narrow decode kernel (phases 10-12), and speaker-conditioned models
-through both decode kernels' speaker variants (phase 13).  Any failed check
+the narrow decode kernel (phases 10-12), speaker-conditioned models
+through both decode kernels' speaker variants (phase 13), and a
+speaker-conditioned `full` trained through the train_stack kernels'
+speaker variants (phase 14).  Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -83,8 +85,21 @@ Phases (one line of numbers each):
      (the checks of phase 10); each model served over HTTP: four 0.1 s
      requests of four speakers (two share a seed) in one batch, each equal
      to its singleton replay, all distinct; only that kernel's speaker
-     count grew.
-The phases that drive a main path (3, 5, 7, 9, 11, 12, 13) set every
+     count grew;
+ 14. speaker training (`full` with 109 speakers): the train_stack kernels'
+     speaker variants vs plain over the whole stack at T=8192 (5 layer
+     groups) at B=2 and B=8 with speaker ids that repeat within the batch,
+     the bands of phase 4 with dg (the offsets' cotangent) held too,
+     kernel and plain ms at B=8, and the kernels' ms without and with
+     the offsets in turns on the same inputs; the mel + speaker variants at
+     `full_vocoder` with 109 speakers, B=2 (6 groups); then train.main on
+     `full` with --override global_classes=109 (synthetic clips, B=8,
+     window 8192) for 6 steps with a checkpoint at step 3, the speaker
+     counters equal to their formula and no other count grown, a resume
+     bit for bit (losses, params, g_embed and v_global included), and
+     WaveNet.from_checkpoint(...).generate(speaker=[3, 50]) through the
+     wide decode kernel's speaker variant.
+The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14) set every
 kernel's count to 0 right before and read them right after.
 """
 
@@ -530,32 +545,39 @@ def phase_serve_vocoder(mod, cfg, dev, card: str, phase: int = 7) -> int:
         engine.close()
 
 
-def _stack_fwd(ts, params, cfg, groups, x, fwd, y=None):
+def _stack_fwd(ts, params, cfg, groups, x, fwd, y=None, g=None):
     """The fused stack's forward, group by group, through `fwd` (the
     kernel wrapper or the plain version), with the bf16 mel features y of
-    a mel model: (skip, [(dils, ops, xs)])."""
+    a mel model and the speaker offsets g [L, B, 2, R] of a speaker model:
+    (skip, [(dils, ops, xs, the group's g)])."""
     import torch
+    B = x.shape[0]
     skip = torch.zeros(*x.shape[:2], cfg.skip_channels, device=x.device)
     saved = []
     for lo, hi in groups:
         dils = tuple(cfg.dilations[lo:hi])
         ops = ts.prep_weights(*(params[k][lo:hi] for k in ts.GROUP_KEYS),
                               None if y is None else params["v_cond"][lo:hi])
-        skip, x, xs = fwd(x, skip, ops, dils, y)
-        saved.append((dils, ops, xs))
+        gg = None if g is None else g[lo:hi].transpose(0, 1).reshape(
+            B, hi - lo, -1).contiguous()
+        skip, x, xs = fwd(x, skip, ops, dils, y, gg)
+        saved.append((dils, ops, xs, gg))
     return skip, saved
 
 
 def _stack_bwd(saved, dskip, bwd, y=None):
-    """The backward through `bwd`: [(name, gradient)], dx last, after it
-    the mel features' dy summed over the groups (a mel model)."""
+    """The backward through `bwd`: [(name, gradient)] (each group's dg
+    with speaker offsets), dx last, after it the mel features' dy summed
+    over the groups (a mel model)."""
     import torch
     dx = torch.zeros(*dskip.shape[:2], saved[0][2].shape[-1],
                      device=dskip.device)
     grads, dy = [], None
     names = ("dwz", "db", "dwrs", "dbres", "dbskip", "dv_cond")
-    for gi, (dils, ops, xs) in reversed(list(enumerate(saved))):
-        dx, *gw = bwd(xs, dskip, dx, ops, dils, y)
+    for gi, (dils, ops, xs, gg) in reversed(list(enumerate(saved))):
+        dx, *gw = bwd(xs, dskip, dx, ops, dils, y, gg)
+        if gg is not None:
+            grads.append((f"g{gi}.dg", gw.pop()))
         if y is not None:
             dy = gw[-1] if dy is None else dy + gw[-1]
             gw = gw[:-1]
@@ -563,9 +585,9 @@ def _stack_bwd(saved, dskip, bwd, y=None):
     return grads + [("dx", dx)] + ([] if y is None else [("dy", dy)])
 
 
-def _stack(ts, params, cfg, groups, x, ct, fwd, bwd, y=None):
+def _stack(ts, params, cfg, groups, x, ct, fwd, bwd, y=None, g=None):
     """(skip, loss = mean(skip * ct), grads, saved) through fwd and bwd."""
-    skip, saved = _stack_fwd(ts, params, cfg, groups, x, fwd, y)
+    skip, saved = _stack_fwd(ts, params, cfg, groups, x, fwd, y, g)
     return (skip, (skip * ct).mean(),
             _stack_bwd(saved, ct / ct.numel(), bwd, y), saved)
 
@@ -585,20 +607,22 @@ def stack_bound(cfg, groups, B: int, T: int) -> dict:
     @ Wz^T, dWz, dWrs) at the f32 peak; with mel, y @ V_cond in the
     forward and the recompute (bf16 peak) and dV_cond and dy in the
     backward (f32 peak); against the bytes each must move (input and
-    output activations, y, the bf16 layer-input stash, weights)."""
+    output activations, y, the speaker offsets g in and dg out as f32, the
+    bf16 layer-input stash, weights).  A speaker adds no products."""
     L, R, S = cfg.num_layers, cfg.residual_channels, cfg.skip_channels
     nm = 0 if cfg.mel is None else cfg.mel.num_mels
     M = B * T
+    gbytes = 0 if cfg.global_classes is None else B * L * 2 * R * 4
     wbytes = L * (4 * R * R + R * (R + S) + 2 * R * nm) * 2
     stash = (L + len(groups)) * M * R * 2
     fwd_ops = 2 * M * L * (4 * R * R + R * (R + S) + 2 * R * nm) / PEAK_BF16
     fwd_bytes = (4 * M * R + 4 * M * S + 2 * M * nm + stash + wbytes
-                 ) / PEAK_BYTES
+                 + gbytes) / PEAK_BYTES
     bwd_ops = (2 * M * L * (4 * R * R + 2 * R * nm) / PEAK_BF16
                + 2 * M * L * (2 * R * (R + S) + 8 * R * R + 4 * R * nm)
                / PEAK_F32)
     bwd_bytes = (stash + 4 * M * S + 4 * M * R + 6 * M * nm + 3 * wbytes
-                 ) / PEAK_BYTES
+                 + 2 * gbytes) / PEAK_BYTES
     out = {}
     for name, t_ops, t_bytes in (("fwd", fwd_ops, fwd_bytes),
                                  ("bwd", bwd_ops, bwd_bytes)):
@@ -622,11 +646,18 @@ def _mel_features(params, cfg, B: int, T: int, rs, dev):
                                          frames, T).contiguous()
 
 
+def speaker_ids(B: int) -> list:
+    """B speaker ids in [0, SPEAKERS), each used by two neighbouring rows."""
+    return [(37 * (i // 2) + 5) % SPEAKERS for i in range(B)]
+
+
 def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
-                      num_groups: int = 5) -> dict:
+                      num_groups: int = 5,
+                      batches=(TS_B, TS_TRAIN_B)) -> dict:
     """Kernels vs plain over the whole stack of `cfg` (`full`, or the mel
-    model `full_vocoder` with y); returns the table's numbers for the
-    forward and backward kernels."""
+    model `full_vocoder` with y; with speakers, the offsets g of
+    speaker_ids) at each batch of `batches`; returns the table's numbers
+    for the forward and backward kernels at the last batch."""
     import numpy as np
     import torch
     TT = ts.pick_tile(cfg, TS_T)
@@ -641,22 +672,25 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
         x = wn.embed_tokens(params, cfg, toks, wn._shifted_tokens(toks))
         ct = torch.from_numpy(rs.randn(B, TS_T, cfg.skip_channels).astype(
             np.float32)).to(dev)
-        y = None
+        y = g = None
         if cfg.mel is not None:
             y = _mel_features(params, cfg, B, TS_T, rs, dev).to(
                 torch.bfloat16)
-        return x.contiguous(), ct, y
+        if cfg.global_classes is not None:
+            g = wn.global_cond_offsets(params, cfg, torch.tensor(
+                speaker_ids(B), device=dev))
+        return x.contiguous(), ct, y, g
 
     def compare(B):
         """Kernel vs plain at [B, TS_T] (and two kernel runs), checked
         against the bands; returns the inputs, both runs and the errors."""
-        x, ct, y = inputs(B)
+        x, ct, y, g = inputs(B)
         k = _stack(ts, params, cfg, groups, x, ct, ts.group_fwd, ts.group_bwd,
-                   y)
+                   y, g)
         k2 = _stack(ts, params, cfg, groups, x, ct, ts.group_fwd,
-                    ts.group_bwd, y)
+                    ts.group_bwd, y, g)
         p = _stack(ts, params, cfg, groups, x, ct, ts.group_fwd_reference,
-                   ts.group_bwd_reference, y)
+                   ts.group_bwd_reference, y, g)
         torch.cuda.synchronize()
         skip_err = float((k[0] - p[0]).abs().max())
         skip_rel = skip_err / float(p[0].abs().max())
@@ -671,6 +705,7 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
                         in zip(k[2], k2[2])))
         del k2
         print(f"phase {phase} train_stack: B={B} T={TS_T} groups={groups} "
+              f"speakers={None if g is None else speaker_ids(B)} "
               f"skip_rel={skip_rel} skip_max_abs_err={skip_err} "
               f"loss_kernel={float(k[1])} loss_plain={float(p[1])} "
               f"loss_rel_to_mean_abs={lrel} worst_grad="
@@ -682,17 +717,18 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
         for name, r in grad_rel.items():
             check(r <= GRAD_TOL, f"B={B}: gradient {name} differs: {r}")
         check(same, f"B={B}: two kernel runs differ")
-        return x, ct, y, k, p, skip_err, grad_err
+        return x, ct, y, g, k, p, skip_err, grad_err
 
     with torch.no_grad():
         times = {}
-        for B in (TS_B, TS_TRAIN_B):
-            x, ct, y, k, p, skip_err, grad_err = compare(B)
+        for B in batches:
+            x, ct, y, g, k, p, skip_err, grad_err = compare(B)
             dsk = ct / ct.numel()
             fwd_k = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
-                                               ts.group_fwd, y), 3)
+                                               ts.group_fwd, y, g), 3)
             fwd_p = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
-                                               ts.group_fwd_reference, y), 3)
+                                               ts.group_fwd_reference, y, g),
+                            3)
             bwd_k = cuda_ms(lambda: _stack_bwd(k[3], dsk, ts.group_bwd, y), 3)
             bwd_p = cuda_ms(lambda: _stack_bwd(p[3], dsk,
                                                ts.group_bwd_reference, y), 3)
@@ -702,12 +738,47 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
                   f"fwd_kernel_ms={fwd_k} fwd_plain_ms={fwd_p} "
                   f"bwd_kernel_ms={bwd_k} bwd_plain_ms={bwd_p} "
                   f"card={card!r}", flush=True)
-    bound = stack_bound(cfg, groups, TS_TRAIN_B, TS_T)
-    fk, fp, bk, bp, skip_err, grad_err = times[TS_TRAIN_B]
+    bound = stack_bound(cfg, groups, batches[-1], TS_T)
+    fk, fp, bk, bp, skip_err, grad_err = times[batches[-1]]
     return {"fwd": {"max_abs_err": skip_err, "ms": fk, "plain_ms": fp,
                     **bound["fwd"]},
             "bwd": {"max_abs_err": grad_err, "ms": bk, "plain_ms": bp,
                     **bound["bwd"]}}
+
+
+def speaker_cost(ts, wn, cfg, params, dev, card: str) -> None:
+    """The speaker variants' cost on the card: the whole stack of the
+    speaker model `cfg` at [TS_TRAIN_B, TS_T], kernel forward and backward
+    ms without and with the offsets g, in turns (without, with, with,
+    without) on the same inputs, so that both see the same clocks."""
+    import numpy as np
+    import torch
+    groups = ts.group_plan(cfg, ts.pick_tile(cfg, TS_T))
+    rs = np.random.RandomState(14)
+    toks = torch.from_numpy(rs.randint(
+        0, cfg.quantization_channels, (TS_TRAIN_B, TS_T)).astype(
+            np.int32)).to(dev)
+    x = wn.embed_tokens(params, cfg, toks, wn._shifted_tokens(toks))
+    dsk = torch.from_numpy(rs.randn(TS_TRAIN_B, TS_T, cfg.skip_channels)
+                           .astype(np.float32) / (TS_TRAIN_B * TS_T)).to(dev)
+    g = wn.global_cond_offsets(params, cfg, torch.tensor(
+        speaker_ids(TS_TRAIN_B), device=dev))
+    ms = {"without": [], "with": []}
+    with torch.no_grad():
+        for turn in ("without", "with", "with", "without"):
+            gt = g if turn == "with" else None
+            fwd = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
+                                             ts.group_fwd, None, gt), 3)
+            saved = _stack_fwd(ts, params, cfg, groups, x, ts.group_fwd,
+                               None, gt)[1]
+            bwd = cuda_ms(lambda: _stack_bwd(saved, dsk, ts.group_bwd), 3)
+            ms[turn].append((fwd, bwd))
+            del saved
+    print(f"phase 14 speaker cost B={TS_TRAIN_B} T={TS_T} in turns "
+          f"(without, with, with, without): fwd_kernel_ms without="
+          f"{[f for f, _ in ms['without']]} with={[f for f, _ in ms['with']]}"
+          f" bwd_kernel_ms without={[b for _, b in ms['without']]} with="
+          f"{[b for _, b in ms['with']]} card={card!r}", flush=True)
 
 
 def _losses(path: str) -> dict:
@@ -716,29 +787,31 @@ def _losses(path: str) -> dict:
 
 
 def phase_train(ts, dmod, dev, card: str, preset: str = "full",
-                phase: int = 5) -> dict:
-    """Train `preset` through the CLI's main(), resume, and decode the
-    checkpoint through dmod's kernel (a mel model vocodes a clip); returns
-    the launch counts of the three kernels (of their mel variants for a
-    mel model)."""
+                phase: int = 5, speakers: bool = False) -> dict:
+    """Train `preset` (with SPEAKERS classes when `speakers`) through the
+    CLI's main(), resume, and decode the checkpoint through dmod's kernel
+    (a mel model vocodes a clip, a speaker model decodes two speakers);
+    returns the launch counts of the three kernels (of their mel or
+    speaker variants for such a model)."""
     import math
     import numpy as np
     import torch
     from wavenet_tpu_torch import train
-    from wavenet_tpu_torch.config import get_config
     from wavenet_tpu_torch.models.api import WaveNet
-    cfg = get_config(preset)
-    mel = cfg.mel is not None
-    fwd_c, bwd_c = ((ts.fwd_mel_launches, ts.bwd_mel_launches) if mel
-                    else (ts.fwd_launches, ts.bwd_launches))
-    fwd_name, bwd_name = (("train_stack.fwd_mel_launches",
-                           "train_stack.bwd_mel_launches") if mel else
-                          ("train_stack.fwd_launches",
-                           "train_stack.bwd_launches"))
-    dec_name = counter_name(dmod, cfg)
+    overrides = [f"train_window={TS_T}"]
+    if speakers:
+        overrides.append(f"global_classes={SPEAKERS}")
     common = ["--preset", preset, "--synthetic", "--device", "cuda",
-              "--batch-size", str(TS_TRAIN_B), "--override",
-              f"train_window={TS_T}", "--log-every", "1"]
+              "--batch-size", str(TS_TRAIN_B), "--log-every", "1"]
+    for o in overrides:
+        common += ["--override", o]
+    cfg = train.build_config(train.parse_args(common))
+    mel = cfg.mel is not None
+    var = "gc_" if speakers else "mel_" if mel else ""
+    fwd_name = f"train_stack.fwd_{var}launches"
+    bwd_name = f"train_stack.bwd_{var}launches"
+    fwd_c, bwd_c = COUNTERS[fwd_name], COUNTERS[bwd_name]
+    dec_name = counter_name(dmod, cfg)
     with tempfile.TemporaryDirectory() as tmp:
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         torch.cuda.reset_peak_memory_stats(dev)
@@ -748,12 +821,12 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
             str(RESUME_AT), "--metrics-file", os.path.join(tmp, "a.jsonl")])
         torch.cuda.synchronize()
         fwd_n, bwd_n = fwd_c.value, bwd_c.value
-        # per step and layer group: Lg + 1 forward kernels, 10 Lg + 2
-        # backward kernels (12 Lg + 2 with mel; train_stack.cu)
+        # per step and layer group: Lg + 1 forward kernels and
+        # (10 + 2 mel + 2 speaker) Lg + 2 backward kernels (train_stack.cu)
         ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
         L = cfg.num_layers
         want = (TRAIN_STEPS * (L + ng),
-                TRAIN_STEPS * ((12 if mel else 10) * L + 2 * ng))
+                TRAIN_STEPS * ((10 + 2 * mel + 2 * speakers) * L + 2 * ng))
         check((fwd_n, bwd_n) == want, "training launched (fwd, bwd) = "
               f"{(fwd_n, bwd_n)} train_stack kernels, expected {want}")
         check_only([fwd_name, bwd_name], f"phase {phase} training")
@@ -777,6 +850,7 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
         pb = torch.load(os.path.join(b, last), weights_only=True)["params"]
         check(sorted(pa) == sorted(pb)
               and (not mel or "upsampler/w0" in pa)
+              and (not speakers or {"g_embed", "v_global"} <= set(pa))
               and all(torch.equal(pa[k], pb[k]) for k in pa),
               "resumed params differ from the uninterrupted run's")
         check(fwd_c.value > fwd_n and bwd_c.value > bwd_n,
@@ -792,15 +866,19 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
             toks = model.vocode(clip, seed=1)
             hop = cfg.mel.hop_length
             n = (1 + (n - 1) // hop) * hop
+        elif speakers:
+            toks = model.generate(seconds=DECODE_SECONDS, seed=1, batch=2,
+                                  speaker=[3, 50])
         else:
             toks = model.generate(seconds=DECODE_SECONDS, seed=1)
         torch.cuda.synchronize()
         dec_n = check_only([dec_name], f"phase {phase} decode")[dec_name]
-        check(tuple(toks.shape) == (1, n) and int(toks.min()) >= 0
+        check(tuple(toks.shape) == (2 if speakers else 1, n)
+              and int(toks.min()) >= 0
               and int(toks.max()) < model.cfg.quantization_channels,
               "bad decode of the trained model")
     print(f"phase {phase} trained and served: preset={preset} "
-          f"steps={TRAIN_STEPS} "
+          f"overrides={overrides} steps={TRAIN_STEPS} "
           f"losses={[la[s] for s in sorted(la)]} resumed_from={RESUME_AT} "
           f"resume_bit_exact=True ms_per_step={1e3 / ma['steps_per_sec']} "
           f"audio_seconds_per_sec={ma['audio_seconds_per_sec']} "
@@ -913,6 +991,18 @@ def main() -> int:
     (gc_numbers, gc_launches), (wgc_numbers, wgc_launches) = phase_speakers(
         pnarrow, pwide, wn, dev, card)
 
+    scfg = full().replace(global_classes=SPEAKERS)
+    sparams = wn.init_params(scfg, torch.Generator().manual_seed(0), dev)
+    gc_stack = phase_train_stack(ts, wn, scfg, sparams, dev, card, phase=14)
+    speaker_cost(ts, wn, scfg, sparams, dev, card)
+    del sparams
+    svcfg = full_vocoder().replace(global_classes=SPEAKERS)
+    svparams = wn.init_params(svcfg, torch.Generator().manual_seed(0), dev)
+    phase_train_stack(ts, wn, svcfg, svparams, dev, card, phase=14,
+                      num_groups=6, batches=(TS_B,))
+    del svparams
+    gc_trained = phase_train(ts, pwide, dev, card, phase=14, speakers=True)
+
     src = "wavenet_tpu_torch/csrc/"
     pallas = "wavenet_tpu/ops/pallas/"
 
@@ -940,7 +1030,11 @@ def main() -> int:
         row("decode_gc", "decode.cu", "decode.py:180", gc_launches,
             gc_numbers),
         row("decode_wide_gc", "decode_wide.cu", "decode_wide.py:170",
-            wgc_launches, wgc_numbers)]}))
+            wgc_launches, wgc_numbers),
+        row("train_stack_fwd_gc", "train_stack.cu", "train_stack.py:324",
+            gc_trained["train_stack_fwd"], gc_stack["fwd"]),
+        row("train_stack_bwd_gc", "train_stack.cu", "train_stack.py:426",
+            gc_trained["train_stack_bwd"], gc_stack["bwd"])]}))
     print(card)
     # the run used one card, device 0
     print(json.dumps({"ok": True, "device": {

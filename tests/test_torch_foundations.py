@@ -148,10 +148,12 @@ def test_unported_features_raise_not_implemented():
         cfg = tconfig.WaveNetConfig(residual_channels=128, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             WaveNet(cfg)
-    # speaker models decode and serve; their training waits
+    # speaker models decode, serve and train; the training half still
+    # refuses what the decode half refuses
     for kw in ({"global_classes": 4},
                {"global_classes": 4, "mel": tconfig.MelConfig()}):
         cfg = tconfig.WaveNetConfig(residual_channels=128, **kw)
         WaveNet(cfg)
+        twn.check_trainable(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            twn.check_trainable(cfg)
+            twn.check_trainable(cfg.replace(kernel_size=3))

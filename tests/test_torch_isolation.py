@@ -99,12 +99,16 @@ def _cuda_args(cfg, batch=2):
 
 
 @pytest.mark.parametrize("kernel", ["wide", "narrow"])
-@pytest.mark.parametrize("case", ["wide", "narrow", "narrow_speaker"])
+@pytest.mark.parametrize("case", ["wide", "narrow", "narrow_speaker",
+                                  "speaker"])
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, kernel, case):
     """A config a kernel takes, on a CUDA tensor, goes to that kernel
     (which cannot build here: no nvcc); a config it does not take (R < 128
     for the wide kernel, R = 128 for the narrow one) raises.  Neither
-    touches decode_chunk_reference."""
+    touches decode_chunk_reference.  `speaker` is R = 128 with speaker
+    offsets g; on the wide case's route the train stack's speaker variant
+    (g [B, Lg, 2R]) takes its kernel too, never group_fwd_reference or
+    group_bwd_reference."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the kernel path really runs")
     mod = twide if kernel == "wide" else tnarrow
@@ -113,21 +117,40 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, kernel, case):
                         lambda *a, **k: calls.append(1))
     monkeypatch.setattr(build, "nvcc_path", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
+    wide = case in ("wide", "speaker")
     kw = dict(num_blocks=1, max_dilation=4, skip_channels=128,
-              residual_channels=128 if case == "wide" else 32)
-    if case == "narrow_speaker":
+              residual_channels=128 if wide else 32)
+    if case.endswith("speaker"):
         kw.update(global_classes=3)
     cfg = tconfig.WaveNetConfig(**kw)
     w, rings, carry, seeds = _cuda_args(cfg)
     g = None
     if cfg.global_classes:
-        g = _OnCuda(torch.zeros(cfg.num_layers, 2, 64))
+        g = _OnCuda(torch.zeros(cfg.num_layers, 2,
+                                2 * cfg.residual_channels))
     build._libs.pop("decode_wide", None)
     build._libs.pop("decode", None)
-    err = RuntimeError if (kernel == "wide") == (case == "wide") \
-        else ValueError
+    err = RuntimeError if (kernel == "wide") == wide else ValueError
     with pytest.raises(err):
         mod.decode_chunk(w, cfg, rings, carry, 0, seeds, 8, 1.0, g=g)
+    if case == "speaker" and kernel == "wide":
+        from wavenet_tpu_torch.models import wavenet as wn
+        from wavenet_tpu_torch.ops.cuda import train_stack as ts
+        for name in ("group_fwd_reference", "group_bwd_reference"):
+            monkeypatch.setattr(ts, name, lambda *a, **k: calls.append(1))
+        build._libs.pop("train_stack", None)
+        R, L = cfg.residual_channels, cfg.num_layers
+        params = wn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        ops = ts.prep_weights(*(params[k] for k in ts.GROUP_KEYS))
+        gs = _OnCuda(torch.zeros(2, L, 2 * R))
+        x = _OnCuda(torch.zeros(2, 16, R))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ts.group_fwd(x, _OnCuda(torch.zeros(2, 16, 128)), ops,
+                         cfg.dilations, g=gs)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ts.group_bwd(_OnCuda(torch.zeros(L + 1, 2, 16, R)),
+                         _OnCuda(torch.zeros(2, 16, 128)), x, ops,
+                         cfg.dilations, g=gs)
     assert not calls
 
 

@@ -9,10 +9,11 @@ they run with:
 Decode (the narrow kernel, R < 128, and the wide one): both sides sum
 every dot product exactly (f64) and round once, so each kernel must equal
 the plain version bit for bit, in every variant (unconditional, mel,
-speaker, mel + speaker) and whatever the rows per block.  Training stack: both
-sides sum bf16-valued products in f32 in different orders, so they agree
-within the reference suite's bands (test_pallas_train.py:96-103), and two
-kernel runs agree bit for bit.  chip_smoke.py repeats these checks at the
+speaker, mel + speaker) and whatever the rows per block.  Training stack
+(unconditional, mel, speaker, mel + speaker): both sides sum bf16-valued
+products in f32 in different orders, so they agree within the reference
+suite's bands (test_pallas_train.py:96-103), and two kernel runs agree bit
+for bit.  chip_smoke.py repeats these checks at the
 `full` preset's widths.
 """
 
@@ -283,6 +284,53 @@ def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
         assert float((a - b).abs().max()) <= 2e-2 * scale
     kf2 = ts.group_fwd(x, skip, ops, dils, y)
     kb2 = ts.group_bwd(kf2[2], dskip, dxo, ops, dils, y)
+    assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))
+
+
+@pytest.mark.parametrize("R,S,nm,B,T,dmax", [(128, 256, 0, 2, 256, 16),
+                                             (64, 96, 8, 3, 200, 64),
+                                             (32, 16, 0, 3, 1100, 8)])
+def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
+    """The speaker variants (g [B, Lg, 2R]; with mel in the second case)
+    of one layer group's forward and backward: kernel vs plain within the
+    reference suite's bands, dg included, two kernel runs bit for bit, and
+    (12 + 2 mel) Lg + 2 backward launches counted as speaker launches
+    only.  T = 200 and 1100 are not multiples of the 64-row tile (a tile
+    spans two batch rows), and T = 1100 gives each batch row two splits
+    of ROWS_PER_SPLIT rows in dg's segmented sum."""
+    cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
+                                residual_channels=R, skip_channels=S)
+    g = torch.Generator().manual_seed(8)
+    p = wn.init_params(cfg, g, dev)
+    dils = cfg.dilations
+    Lg = len(dils)
+    rnd = lambda *shape, sc: (torch.randn(*shape, generator=g) * sc).to(dev)
+    vc = rnd(Lg, nm, 2, R, sc=0.1) if nm else None
+    ops = ts.prep_weights(*(p[k] for k in ts.GROUP_KEYS), vc)
+    x = rnd(B, T, R, sc=0.5).to(torch.bfloat16).float()
+    y = rnd(B, T, nm, sc=2.0).to(torch.bfloat16) if nm else None
+    gc = rnd(B, Lg, 2 * R, sc=0.5)
+    skip, dskip, dxo = rnd(B, T, S, sc=0.1), rnd(B, T, S, sc=0.01), \
+        rnd(B, T, R, sc=0.01)
+    counters = (ts.fwd_gc_launches, ts.bwd_gc_launches, ts.fwd_mel_launches,
+                ts.bwd_mel_launches, ts.fwd_launches, ts.bwd_launches)
+    counts = lambda: tuple(c.value for c in counters)
+    before = counts()
+    kf = ts.group_fwd(x, skip, ops, dils, y, gc)
+    pf = ts.group_fwd_reference(x, skip, ops, dils, y, gc)
+    kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils, y, gc)
+    pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils, y, gc)
+    assert counts() == (before[0] + Lg + 1,
+                        before[1] + (12 + (2 if nm else 0)) * Lg + 2,
+                        *before[2:])
+    assert len(kb) == len(pb) == (9 if nm else 7)
+    assert kb[-1].shape == (B, Lg, 2 * R)
+    torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
+    for a, b in zip(kb, pb):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-2 * scale
+    kf2 = ts.group_fwd(x, skip, ops, dils, y, gc)
+    kb2 = ts.group_bwd(kf2[2], dskip, dxo, ops, dils, y, gc)
     assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))
 
 

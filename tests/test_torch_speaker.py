@@ -1,8 +1,8 @@
 """Speaker (global) conditioning in the port, against the JAX package on the
 CPU: the gate offsets, the params, the weights carried across, the wide
 decode with a speaker, the facade, the server's speaker rows and HTTP; and
-the training half, which the port refuses until the stack kernels' has_gc
-variants land.
+the training half's entry points taking speaker ids (their numbers against
+JAX are in tests/test_torch_speaker_train.py).
 
 Tolerances: the offsets g = g_embed[speaker] @ v_global[l] are K = G sums
 that the port takes exactly (f64, one rounding) and JAX in f32: rtol 1e-6.
@@ -190,30 +190,38 @@ def test_facade_generate_and_stream_with_speaker(narrow_model):
 
 
 def test_speaker_training_loss_and_score_are_refused(narrow_model):
-    """Training, loss and score of a speaker model raise
-    NotImplementedError naming the ROADMAP item of the next slice (the
-    trainer, the dataset, the scan and the fused stack alike)."""
+    """Training, loss and score of a speaker model are refused only
+    without speaker ids (the reference's check): with ids the facade, the
+    scan and the fused stack take them, the dataset carries them and the
+    trainer trains on them; the fused stack is the training route."""
     from wavenet_tpu_torch.audio import dataset as tds
     from wavenet_tpu_torch.ops.cuda import train_stack as ts
     from wavenet_tpu_torch.training import trainer as ttrainer
     m, cfg = narrow_model, narrow_model.cfg
-    toks = torch.zeros(1, 33, dtype=torch.int32)
+    toks = torch.randint(0, 256, (2, 33), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4))
+    sp = [4, 1]
     for call in (lambda: m.loss(toks), lambda: m.score(tokens=toks),
                  lambda: m.logits(toks[:, :-1]),
                  lambda: twn.loss_fn(m.params, cfg, toks, use_fused=True),
                  lambda: ts.forward_skip_fused(m.params, cfg,
-                                               torch.zeros(1, 32, 16),
-                                               tile=32),
-                 lambda: tds.AudioDataset([np.zeros(9000, np.float32)], cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+                                               torch.zeros(2, 32, 16),
+                                               tile=32)):
+        with pytest.raises(ValueError, match="speaker ids|g is required"):
             call()
-    ds = tds.AudioDataset.synthetic(tconfig.WaveNetConfig(**dict(
-        NARROW, global_classes=None, train_window=256)), num_clips=1,
-        clip_seconds=0.05)
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            ttrainer.Trainer(cfg, ds, device=device)
-    assert not ts.supported(cfg, 256)       # never the fused stack either
+    scan = twn.loss_fn(m.params, cfg, toks, speaker=torch.tensor(sp))[0]
+    fused = twn.loss_fn(m.params, cfg, toks, use_fused=True,
+                        speaker=torch.tensor(sp))[0]
+    assert float(m.loss(toks, speaker=sp)[0]) == float(scan)
+    np.testing.assert_allclose(float(fused), float(scan), rtol=2e-3)
+    assert m.score(tokens=toks, speaker=sp).shape == (2,)
+    assert m.logits(toks[:, :-1], speaker=sp).shape == (2, 32, 256)
+    small = cfg.replace(train_window=256, batch_size=2)
+    ds = tds.AudioDataset([np.zeros(9000, np.float32)] * 3, small)
+    assert ds.speakers.tolist() == [0, 1, 2]
+    tr = ttrainer.Trainer(small, ds, device="cpu", params=m.params)
+    assert tr.use_fused and ts.supported(cfg, 256)
+    assert np.isfinite(tr.run(1, log_every=0)["loss"])
 
 
 ENGINE = dict(max_batch=4, max_wait_ms=300.0, chunk_seconds=32 / RATE,

@@ -261,7 +261,7 @@ def test_trainer_route_follows_the_reference():
 
 @pytest.mark.parametrize("case", ["data_parallel", "model_parallel",
                                   "seq_parallel", "valid_mask", "halo",
-                                  "speaker_dataset"])
+                                  "kernel_size"])
 def test_features_left_out_raise(case):
     from wavenet_tpu_torch.models import wavenet as twn
     if case.endswith("parallel"):
@@ -270,10 +270,11 @@ def test_features_left_out_raise(case):
                                         clip_seconds=0.05)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.Trainer(tc, ds, device="cpu")
-    elif case == "speaker_dataset":
-        tc = tconfig.conditional().replace(global_classes=4)
+    elif case == "kernel_size":
+        _, tc = _cfgs(kernel_size=3)
+        ds = tds.AudioDataset.synthetic(tc, num_clips=1, clip_seconds=0.05)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tds.AudioDataset([np.zeros(9000, np.float32)], tc)
+            ttrainer.Trainer(tc, ds, device="cpu")
     else:
         _, tc = _cfgs()
         p = twn.init_params(tc, torch.Generator().manual_seed(0), "cpu")

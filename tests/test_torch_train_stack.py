@@ -235,10 +235,10 @@ class _OnCuda:
         return getattr(self._t, name)
 
 
-@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("which", ["fwd", "bwd", "fwd_gc", "bwd_gc"])
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, which):
     """A CUDA tensor goes to the kernel (which cannot build without nvcc)
-    and never to the plain version."""
+    and never to the plain version, with speaker offsets g too."""
     from wavenet_tpu_torch.ops.cuda import build
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the kernel path really runs")
@@ -255,14 +255,15 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, which):
                            torch.zeros(Lg, 2, R), torch.zeros(Lg, R, R),
                            torch.zeros(Lg, R), torch.zeros(Lg, R, S),
                            torch.zeros(Lg, S))
+    g = _OnCuda(torch.zeros(2, Lg, 2 * R)) if which.endswith("gc") else None
     with pytest.raises(RuntimeError, match="nvcc"):
-        if which == "fwd":
+        if which.startswith("fwd"):
             tts.group_fwd(_OnCuda(torch.zeros(2, 16, R)),
-                          _OnCuda(torch.zeros(2, 16, S)), ops, (1, 2))
+                          _OnCuda(torch.zeros(2, 16, S)), ops, (1, 2), g=g)
         else:
             tts.group_bwd(_OnCuda(torch.zeros(Lg + 1, 2, 16, R)),
                           _OnCuda(torch.zeros(2, 16, S)),
-                          _OnCuda(torch.zeros(2, 16, R)), ops, (1, 2))
+                          _OnCuda(torch.zeros(2, 16, R)), ops, (1, 2), g=g)
     assert not calls
 
 

@@ -1,22 +1,24 @@
 """Training data: wav clips -> mu-law tokens -> deterministic random-crop
 batches (numpy only).
 
-A copy of wavenet_tpu/audio/dataset.py for unconditional and
-mel-conditioned models: a batch is a pure function of (cfg.seed,
-state.seed, state.step) through np.random.default_rng, so the port's
-batches ({"tokens"}, plus "mel" for a mel model) are bit-identical to the
-reference's and resume after a checkpoint is exact.  With mel, each clip's
-log-mel frames are computed once at load (audio/mel.py) and a crop starts
-on a hop boundary, so frame f lines up with sample f * hop.  Windows are
-gathered by the numpy loop, the reference's own reference implementation;
-its native C++ gatherer (bit-identical) is not ported yet (ROADMAP queue 1
-item 8), nor are speaker ids (queue 2 item 1, with speaker training).
+A copy of wavenet_tpu/audio/dataset.py: a batch is a pure function of
+(cfg.seed, state.seed, state.step) through np.random.default_rng, so the
+port's batches ({"tokens"}, plus "mel" for a mel model and "speaker" for a
+speaker model) are bit-identical to the reference's and resume after a
+checkpoint is exact.  With mel, each clip's log-mel frames are computed
+once at load (audio/mel.py) and a crop starts on a hop boundary, so frame
+f lines up with sample f * hop.  A speaker model's clips carry class ids:
+by top-level subdirectory of the corpus (speakers_from_dir), or the clip
+index mod global_classes for synthetic data.  Windows are gathered by the
+numpy loop, the reference's own reference implementation; its native C++
+gatherer (bit-identical) is not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +26,30 @@ from wavenet_tpu_torch.audio import mel as mel_lib
 from wavenet_tpu_torch.audio import mulaw
 from wavenet_tpu_torch.audio.io import list_wavs, read_wav
 from wavenet_tpu_torch.config import WaveNetConfig
+
+
+def speakers_from_dir(root: str, paths: Sequence[str],
+                      cfg: WaveNetConfig) -> Optional[List[int]]:
+    """Per-clip class ids from the corpus layout root/<speaker>/<clip>.wav:
+    each clip's id is the index of its top-level subdirectory under `root`
+    in sorted order; clips directly under root take class 0 (the name ""
+    sorts first).  None when cfg.global_classes is unset; more
+    subdirectories than classes raise."""
+    if cfg.global_classes is None:
+        return None
+    rootp = os.path.abspath(root)
+
+    def subdir(p):
+        rel = os.path.relpath(os.path.abspath(p), rootp)
+        return rel.split(os.sep)[0] if os.sep in rel else ""
+
+    names = sorted({subdir(p) for p in paths})
+    if len(names) > cfg.global_classes:
+        raise ValueError(
+            f"{len(names)} speaker subdirectories under {root} but "
+            f"global_classes={cfg.global_classes}")
+    idx = {n: i for i, n in enumerate(names)}
+    return [idx[subdir(p)] for p in paths]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,19 +64,32 @@ class IteratorState:
 
 class AudioDataset:
     """In-memory dataset of mu-law-encoded clips; clips shorter than the
-    training window (+1 for the target offset) are dropped at load."""
+    training window (+1 for the target offset) are dropped at load.  A
+    speaker model's clips take the given per-clip ids (speakers, aligned
+    with clips) or, without them, the kept clip's index mod
+    global_classes."""
 
-    def __init__(self, clips: Sequence[np.ndarray], cfg: WaveNetConfig):
-        if cfg.global_classes is not None:
-            raise NotImplementedError(
-                "speaker conditioned datasets are not ported yet "
-                "(ROADMAP queue 2 item 1)")
+    def __init__(self, clips: Sequence[np.ndarray], cfg: WaveNetConfig,
+                 speakers: Optional[Sequence[int]] = None):
         self.cfg = cfg
         window = cfg.train_window + 1
-        kept = [c for c in clips if len(c) >= window]
+        if speakers is not None and len(speakers) != len(clips):
+            raise ValueError("speakers must align 1:1 with clips")
+        keep = [len(c) >= window for c in clips]
+        kept = [c for c, k in zip(clips, keep) if k]
         if not kept:
             raise ValueError(
                 f"no clip is >= train_window+1 = {window} samples")
+        self.speakers: Optional[np.ndarray] = None
+        if cfg.global_classes is not None:
+            if speakers is not None:
+                sp = np.asarray([s for s, k in zip(speakers, keep) if k],
+                                np.int32)
+            else:
+                sp = np.arange(len(kept), dtype=np.int32) % cfg.global_classes
+            if sp.min() < 0 or sp.max() >= cfg.global_classes:
+                raise ValueError("speaker id out of range for global_classes")
+            self.speakers = sp
         self.tokens = [mulaw.encode_np(c, cfg.quantization_channels)
                        for c in kept]
         self.mels = None
@@ -60,11 +99,13 @@ class AudioDataset:
 
     @classmethod
     def from_dir(cls, root: str, cfg: WaveNetConfig) -> "AudioDataset":
-        """Load every .wav under `root` (resampled to cfg.sample_rate)."""
+        """Load every .wav under `root` (resampled to cfg.sample_rate); a
+        speaker model's ids come from the layout (speakers_from_dir)."""
         paths = list_wavs(root)
         if not paths:
             raise FileNotFoundError(f"no .wav under {root}")
-        return cls([read_wav(p, cfg.sample_rate)[0] for p in paths], cfg)
+        return cls([read_wav(p, cfg.sample_rate)[0] for p in paths], cfg,
+                   speakers=speakers_from_dir(root, paths, cfg))
 
     @classmethod
     def synthetic(cls, cfg: WaveNetConfig, num_clips: int = 4,
@@ -87,8 +128,9 @@ class AudioDataset:
     def sample_batch(self, state: IteratorState
                      ) -> Tuple[Dict[str, np.ndarray], IteratorState]:
         """Pure function of `state`: {"tokens": [B, W+1] int32} random crops
-        (plus "mel": [B, W // hop, M] float32 frames for a mel model) and
-        the advanced iterator state."""
+        (plus "mel": [B, W // hop, M] float32 frames for a mel model and
+        "speaker": [B] int32 clip ids for a speaker model) and the advanced
+        iterator state."""
         cfg = self.cfg
         B = cfg.batch_size
         W = cfg.train_window
@@ -98,8 +140,10 @@ class AudioDataset:
         mels = None
         if self.mels is not None:
             mels = np.empty((B, W // hop, cfg.mel.num_mels), np.float32)
+        clip_idx = np.empty(B, np.int32)
         for i in range(B):
             ci = int(rng.integers(0, len(self.tokens)))
+            clip_idx[i] = ci
             max_start = len(self.tokens[ci]) - (W + 1)
             s = int(rng.integers(0, max_start + 1))
             if mels is not None:
@@ -110,4 +154,6 @@ class AudioDataset:
         batch = {"tokens": toks}
         if mels is not None:
             batch["mel"] = mels
+        if self.speakers is not None:
+            batch["speaker"] = self.speakers[clip_idx]
         return batch, state.next()

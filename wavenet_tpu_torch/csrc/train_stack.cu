@@ -2,25 +2,27 @@
 // forward and backward.
 //
 // Replaces wavenet_tpu/ops/pallas/train_stack.py::_fwd_kernel and
-// ::_bwd_kernel, unconditional and mel-conditioned (their has_cond form;
-// no speaker conditioning): the same per-group contract and numerics, a
-// different schedule.
+// ::_bwd_kernel, unconditional, mel-conditioned (their has_cond form) and
+// speaker-conditioned (has_gc), alone or together: the same per-group
+// contract and numerics, a different schedule.
 //
-//   forward  (x_in, skip_in[, y]) -> (skip_out, x_out), per layer l:
+//   forward  (x_in, skip_in[, y][, g]) -> (skip_out, x_out), per layer l:
 //     xcat = [bf16(x) | bf16(x)[t - d]]                (zero for t < d)
 //     z    = xcat @ Wz + b                              (f32 accumulate)
 //     z    = z + y @ V_cond[l]                          (with mel; y bf16)
+//     z    = z + g[b, l]                                (with a speaker, f32)
 //     h    = bf16(tanh(z_f) * sigmoid(z_g))
 //     o    = h @ [W_res | W_skip]
 //     x    = (x + o_res) + b_res                        (f32 carry)
 //     skip = (skip + o_skip) + b_skip
 //   x_out = bf16(x) once, at the end of the group (held in f32).
 //   backward (dskip, dx_out) -> (dx_in, dWz, db, dWrs, db_res[, dV_cond,
-//   dy]), layers in reverse, every cotangent in f32:
+//   dy][, dg]), layers in reverse, every cotangent in f32:
 //     dcat = [dx | dskip]; dh = dcat @ Wrs^T; dz = [dh*sg*(1-tf^2) | dh*tf*sg*(1-sg)]
 //     dboth = dz @ Wz^T; dx = (dx + dboth_cur) + dboth_prev[t + d]
 //     dWz += xcat^T dz; db += sum dz; dWrs += h^T dcat; db_res += sum dx
 //     with mel: dV_cond[l] = y^T dz; dy += dz @ V_cond[l]^T
+//     with a speaker: dg[b, l] = sum over the row b's T steps of dz
 //
 // What bounds it on this card: arithmetic.  At `full` (L = 40, R = 128,
 // S = 256, B = 8, T = 8192) the forward is ~0.6 TFLOP and the backward
@@ -45,6 +47,11 @@
 //     group's layers in reverse order by a read-modify-write in the layer
 //     kernel's epilogue: one block owns a row per launch, so there are no
 //     atomics and the order is fixed.
+//   * The speaker term g [B, Lg, 2R] is time-constant: each tile row m adds
+//     the offset of its own batch row m / T (a 64-row tile spans two batch
+//     rows whenever T % 64 != 0).  dg is a column sum of dz segmented by
+//     batch row: partial sums over splits that never straddle two rows,
+//     then each row's splits added in order.
 //   * Weight gradients are reductions over all B*T rows.  They run as
 //     fixed-order split-K: each block sums its share of rows into a private
 //     partial, and a second pass adds the partials in split order.  No
@@ -206,6 +213,28 @@ __device__ __forceinline__ void add_cond(float* a_s, float* z_s, float* W_s,
   __syncthreads();
 }
 
+// z += g[m / T] (after the mel term, the reference's order): gl is the
+// layer's offsets, row b at gl + b * gs.  A thread owns columns and walks
+// the tile's rows, reading an offset from device memory only where a new
+// batch row starts: an index division and a device-memory load per element
+// would cost more than the add.
+__device__ __forceinline__ void add_gc(float* z_s, const float* __restrict__ gl,
+                                       int gs, int m0, int M, int T, int R) {
+  const int R2 = 2 * R, rows = min(kTM, M - m0);
+  for (int c = threadIdx.x; c < R2; c += kThreads) {
+    int b = m0 / T, t = m0 % T;
+    float gv = gl[(size_t)b * gs + c];
+    for (int r = 0; r < rows; ++r, ++t) {
+      if (t == T) {
+        t = 0;
+        gv = gl[(size_t)(++b) * gs + c];
+      }
+      z_s[r * R2 + c] += gv;
+    }
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // forward: one layer over all B*T rows
 // ---------------------------------------------------------------------------
@@ -217,8 +246,8 @@ fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
                  const bf16* __restrict__ wz, const float* __restrict__ b,
                  const bf16* __restrict__ wrs, const float* __restrict__ bres,
                  const float* __restrict__ bskip, const bf16* __restrict__ y,
-                 const bf16* __restrict__ vc, int M, int T, int R, int S,
-                 int nm, int d) {
+                 const bf16* __restrict__ vc, const float* __restrict__ gl,
+                 int gs, int M, int T, int R, int S, int nm, int d) {
   extern __shared__ float smem[];
   const int R2 = 2 * R, NO = R + S;
   float* a_s = smem;                  // xcat [64][2R], y [64][nm], h [64][R]
@@ -230,6 +259,7 @@ fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
   load_xcat(a_s, xs_in, m0, M, T, R, d);
   compute_z(a_s, z_s, W_s, wz, b, R);
   if (nm) add_cond(a_s, z_s, W_s, y, vc, m0, M, nm, R);
+  if (gl) add_gc(z_s, gl, gs, m0, M, T, R);
   for (int e = tid; e < kTM * R; e += kThreads) {
     const int r = e / R, c = e % R;
     a_s[e] = round_bf16(tanhf(z_s[r * R2 + c]) * sigmoidf(z_s[r * R2 + R + c]));
@@ -276,7 +306,8 @@ __global__ void init_carry_kernel(const float* __restrict__ x_in,
 // Recompute z and h from the stored layer input, then dh, dz and
 // dboth = dz @ Wz^T.  Writes h (bf16) and dz for the weight gradients,
 // dx_out = dx_in + dboth_cur, and dprev = dboth_prev for the shift pass.
-// With mel (nm > 0) also dy = dz @ V_cond^T, added to dy unless dy_first.
+// With mel (nm > 0) also dy = dz @ V_cond^T, added to dy unless dy_first;
+// with a speaker (gl) the recompute adds the row's offset.
 __global__ void __launch_bounds__(kThreads)
 bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  const float* __restrict__ dx_in,
@@ -285,6 +316,7 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  bf16* __restrict__ h_g, const bf16* __restrict__ wz,
                  const float* __restrict__ b, const bf16* __restrict__ wrs,
                  const bf16* __restrict__ y, const bf16* __restrict__ vc,
+                 const float* __restrict__ gl, int gs,
                  float* __restrict__ dy, int dy_first, int M, int T, int R,
                  int S, int nm, int d) {
   extern __shared__ float smem[];
@@ -299,6 +331,7 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
   load_xcat(a_s, xs_in, m0, M, T, R, d);
   compute_z(a_s, z_s, W_s, wz, b, R);
   if (nm) add_cond(a_s, z_s, W_s, y, vc, m0, M, nm, R);
+  if (gl) add_gc(z_s, gl, gs, m0, M, T, R);
   for (int e = tid; e < kTM * R; e += kThreads) {
     const int r = e / R, c = e % R, m = m0 + r;
     const float tf = tanhf(z_s[r * R2 + c]);
@@ -458,28 +491,34 @@ wgrad_kernel(const bf16* __restrict__ xs, const float* __restrict__ dz,
   }
 }
 
-// Column-sum partials: part[s][n] = sum over the rows of split s of src[m][n].
-__global__ void colsum_kernel(const float* __restrict__ src, int M, int N,
-                              int rows_per_split, float* __restrict__ part) {
+// Column-sum partials of src [B T][N], segmented by batch row: split
+// s = b * nsr + j sums rows [b T + j rps, min(b T + (j + 1) rps, (b + 1) T)),
+// so no split straddles two batch rows (B = 1, T = M: splits of all rows).
+__global__ void colsum_kernel(const float* __restrict__ src, int T, int N,
+                              int rows_per_split, int nsr,
+                              float* __restrict__ part) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = blockIdx.y;
   if (n >= N) return;
-  const int mb = s * rows_per_split;
-  const int me = min(M, mb + rows_per_split);
+  const int b = s / nsr, j = s % nsr;
+  const int mb = b * T + j * rows_per_split;
+  const int me = min((b + 1) * T, mb + rows_per_split);
   float acc = 0.f;
   for (int m = mb; m < me; ++m) acc += src[(size_t)m * N + n];
   part[(size_t)s * N + n] = acc;
 }
 
-// out[e] = sum over s, in order, of part[s][e].
-__global__ void reduce_splits_kernel(const float* __restrict__ part,
-                                     int nsplit, size_t n,
+// out[b * out_stride + e] = sum over j, in order, of part[b * nsr + j][e],
+// for b < B and e < n (B = 1: the sum of all nsr partials).
+__global__ void reduce_splits_kernel(const float* __restrict__ part, int nsr,
+                                     int B, size_t n, size_t out_stride,
                                      float* __restrict__ out) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * n) return;
+  const size_t b = i / n, e = i % n;
   float acc = 0.f;
-  for (int s = 0; s < nsplit; ++s) acc += part[(size_t)s * n + e];
-  out[e] = acc;
+  for (int j = 0; j < nsr; ++j) acc += part[(b * nsr + j) * n + e];
+  out[b * out_stride + e] = acc;
 }
 
 inline unsigned blocks_for(size_t n, int per) {
@@ -502,15 +541,19 @@ inline int counted(int* n) {
   return rc;
 }
 
-// Column sums of src [M, N] into out [N], fixed order (two launches).
-int colsum(const float* src, int M, int N, int rows_per_split, int nsplit,
-           float* part, float* out, cudaStream_t st, int* n) {
-  colsum_kernel<<<dim3(blocks_for(N, 128), nsplit), 128, 0, st>>>(
-      src, M, N, rows_per_split, part);
+// Column sums of src [B T, N] per batch row into out [B][N] (row b at
+// out + b * out_stride; B = 1, T = M for the sum over all rows), fixed
+// order (two launches).  part holds B * ceil(T / rows_per_split) * N.
+int colsum(const float* src, int B, int T, int N, int rows_per_split,
+           float* part, float* out, size_t out_stride, cudaStream_t st,
+           int* n) {
+  const int nsr = (T + rows_per_split - 1) / rows_per_split;
+  colsum_kernel<<<dim3(blocks_for(N, 128), B * nsr), 128, 0, st>>>(
+      src, T, N, rows_per_split, nsr, part);
   int rc = counted(n);
   if (rc) return rc;
-  reduce_splits_kernel<<<blocks_for(N, 256), 256, 0, st>>>(part, nsplit, N,
-                                                           out);
+  reduce_splits_kernel<<<blocks_for((size_t)B * N, 256), 256, 0, st>>>(
+      part, nsr, B, N, out_stride, out);
   return counted(n);
 }
 
@@ -524,18 +567,19 @@ extern "C" {
 // skip_in (then the skip sum is updated in place).  xs [Lg + 1, M, R] bf16
 // receives every layer's input (and the group output last); carry [M, R]
 // is f32 scratch.  With mel, y [M, nm] and vc [Lg, nm, 2R] (bf16), nm a
-// multiple of 4 and at most 2R; else null and nm = 0.
+// multiple of 4 and at most 2R; else null and nm = 0.  With a speaker, g
+// [M / T, Lg, 2R] f32 (each batch row's offsets); else null.
 int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
                     float* x_out, bf16* xs, float* carry, const bf16* wz,
                     const float* b, const bf16* wrs, const float* bres,
                     const float* bskip, const bf16* y, const bf16* vc,
-                    const int* dils, int Lg, int M, int T, int R, int S,
-                    int nm, int* launched, void* stream) {
+                    const float* g, const int* dils, int Lg, int M, int T,
+                    int R, int S, int nm, int* launched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
   const size_t smem = fwd_smem(R);
   if (nm < 0 || nm % 4 || nm > 2 * R || (nm > 0) != (y != nullptr) ||
-      (nm > 0) != (vc != nullptr))
+      (nm > 0) != (vc != nullptr) || T <= 0 || M % T)
     return (int)cudaErrorInvalidValue;
   int rc = (int)cudaFuncSetAttribute(
       fwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -549,8 +593,8 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
         xs + l * MR, carry, xs + (l + 1) * MR, l == Lg - 1 ? x_out : nullptr,
         l == 0 ? skip_in : skip_out, skip_out, wz + (size_t)l * R2 * R2,
         b + (size_t)l * R2, wrs + (size_t)l * R * (R + S), bres + (size_t)l * R,
-        bskip + (size_t)l * S, y, vc ? vc + (size_t)l * nm * R2 : nullptr, M,
-        T, R, S, nm, dils[l]);
+        bskip + (size_t)l * S, y, vc ? vc + (size_t)l * nm * R2 : nullptr,
+        g ? g + (size_t)l * R2 : nullptr, Lg * R2, M, T, R, S, nm, dils[l]);
     if ((rc = counted(launched))) return rc;
   }
   return 0;
@@ -560,25 +604,28 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
 // dx_ct [M, R]: cotangents of the group's skip and x outputs.  Writes
 // dx_in [M, R], dwz [Lg, 2R, 2R], db [Lg, 2R], dwrs [Lg, R, R + S],
 // dbres [Lg, R]; with mel (y [M, nm], vc [Lg, nm, 2R] bf16) also
-// dvc [Lg, nm, 2R] and dy [M, nm].  Scratch: dxa, dxb, dprev [M, R];
-// dz [M, 2R]; h [M, R] bf16; part [nsplit * max(4R^2, R(R+S), 2R nm)];
-// bpart [nsplit * 2R].
+// dvc [Lg, nm, 2R] and dy [M, nm]; with a speaker (g [M / T, Lg, 2R] f32)
+// also dg [M / T, Lg, 2R].  Scratch: dxa, dxb, dprev [M, R]; dz [M, 2R];
+// h [M, R] bf16; part [nsplit * max(4R^2, R(R+S), 2R nm)]; bpart
+// [nsplit * max(2R, S)], and with a speaker at least
+// [(M / T) * ceil(T / rows_per_split) * 2R].
 int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
                     const bf16* wz, const float* b, const bf16* wrs,
-                    const bf16* y, const bf16* vc, const int* dils, int Lg,
-                    int M, int T, int R, int S, int nm, float* dx_in,
-                    float* dwz, float* db, float* dwrs, float* dbres,
-                    float* dvc, float* dy, float* dxa, float* dxb,
-                    float* dprev, float* dz, bf16* h, float* part,
-                    float* bpart, int rows_per_split, int* launched,
-                    void* stream) {
+                    const bf16* y, const bf16* vc, const float* g,
+                    const int* dils, int Lg, int M, int T, int R, int S,
+                    int nm, float* dx_in, float* dwz, float* db, float* dwrs,
+                    float* dbres, float* dvc, float* dy, float* dg,
+                    float* dxa, float* dxb, float* dprev, float* dz, bf16* h,
+                    float* part, float* bpart, int rows_per_split,
+                    int* launched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
   const int R2 = 2 * R, NO = R + S;
   const int nsplit = (M + rows_per_split - 1) / rows_per_split;
   const size_t smem = bwd_smem(R, S);
   if (nm < 0 || nm % 4 || nm > (R2 > NO ? R2 : NO) ||
-      (nm > 0) != (y && vc && dvc && dy))
+      (nm > 0) != (y && vc && dvc && dy) || (g != nullptr) != (dg != nullptr) ||
+      T <= 0 || M % T)
     return (int)cudaErrorInvalidValue;
   int rc = (int)cudaFuncSetAttribute(
       bwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -589,10 +636,11 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
     const int d = dils[l];
     float* dout = l == 0 ? dx_in : (k % 2 ? dxb : dxa);
     const bf16* vcl = vc ? vc + (size_t)l * nm * R2 : nullptr;
+    const float* gl = g ? g + (size_t)l * R2 : nullptr;
     bwd_layer_kernel<<<blocks_for(M, kTM), kThreads, smem, st>>>(
         xs + l * MR, din, dskip, dout, dprev, dz, h, wz + (size_t)l * R2 * R2,
-        b + (size_t)l * R2, wrs + (size_t)l * R * NO, y, vcl, dy, k == 0, M,
-        T, R, S, nm, d);
+        b + (size_t)l * R2, wrs + (size_t)l * R * NO, y, vcl, gl, Lg * R2, dy,
+        k == 0, M, T, R, S, nm, d);
     if ((rc = counted(launched))) return rc;
     shift_add_kernel<<<blocks_for(MR, 256), 256, 0, st>>>(dout, dprev, M, T,
                                                           R, d);
@@ -604,7 +652,7 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
     if ((rc = counted(launched))) return rc;
     const size_t nz = (size_t)R2 * R2;
     reduce_splits_kernel<<<blocks_for(nz, 256), 256, 0, st>>>(
-        part, nsplit, nz, dwz + l * nz);
+        part, nsplit, 1, nz, 0, dwz + l * nz);
     if ((rc = counted(launched))) return rc;
 
     wgrad_kernel<1><<<dim3(blocks_for(R, 64), blocks_for(NO, kNP), nsplit),
@@ -613,7 +661,7 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
     if ((rc = counted(launched))) return rc;
     const size_t nrs = (size_t)R * NO;
     reduce_splits_kernel<<<blocks_for(nrs, 256), 256, 0, st>>>(
-        part, nsplit, nrs, dwrs + l * nrs);
+        part, nsplit, 1, nrs, 0, dwrs + l * nrs);
     if ((rc = counted(launched))) return rc;
 
     if (nm) {
@@ -624,15 +672,19 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
       if ((rc = counted(launched))) return rc;
       const size_t nv = (size_t)nm * R2;
       reduce_splits_kernel<<<blocks_for(nv, 256), 256, 0, st>>>(
-          part, nsplit, nv, dvc + l * nv);
+          part, nsplit, 1, nv, 0, dvc + l * nv);
       if ((rc = counted(launched))) return rc;
     }
 
-    if ((rc = colsum(dz, M, R2, rows_per_split, nsplit, bpart,
-                     db + (size_t)l * R2, st, launched)))
+    if ((rc = colsum(dz, 1, M, R2, rows_per_split, bpart,
+                     db + (size_t)l * R2, 0, st, launched)))
       return rc;
-    if ((rc = colsum(din, M, R, rows_per_split, nsplit, bpart,
-                     dbres + (size_t)l * R, st, launched)))
+    if (g && (rc = colsum(dz, M / T, T, R2, rows_per_split, bpart,
+                          dg + (size_t)l * R2, (size_t)Lg * R2, st,
+                          launched)))
+      return rc;
+    if ((rc = colsum(din, 1, M, R, rows_per_split, bpart,
+                     dbres + (size_t)l * R, 0, st, launched)))
       return rc;
     din = dout;
   }
@@ -642,8 +694,7 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
 // Column sums of src [M, N] (the skip-bias gradient), fixed order.
 int wn_ts_colsum(const float* src, int M, int N, float* out, float* bpart,
                  int rows_per_split, int* launched, void* stream) {
-  const int nsplit = (M + rows_per_split - 1) / rows_per_split;
-  return colsum(src, M, N, rows_per_split, nsplit, bpart, out,
+  return colsum(src, 1, M, N, rows_per_split, bpart, out, 0,
                 (cudaStream_t)stream, launched);
 }
 

@@ -10,8 +10,8 @@ the functional core and the JAX package's export_npz keys have it.  The
 kernel-layout weights (ops/cuda/decode_common.flatten_params, one layout
 for the narrow and the wide decode kernel) are built once per device and
 reused by every decode launch until a param changes.  A speaker-conditioned
-model decodes (generate, stream with speaker=) but does not train or score
-yet (models/wavenet.check_trainable).
+model takes speaker= ids in logits, loss and score (the training half,
+through the same offsets as decode) and in generate and stream.
 """
 
 from __future__ import annotations
@@ -154,20 +154,24 @@ class WaveNet(nn.Module):
             raise ValueError("model is unconditional; mel= is not an input")
         return torch.as_tensor(mel, dtype=torch.float32, device=self.device)
 
-    def logits(self, tokens, mel=None) -> torch.Tensor:
-        """[B, T] tokens -> [B, T, Q] f32 logits (the scan forward)."""
+    def logits(self, tokens, mel=None, speaker=None) -> torch.Tensor:
+        """[B, T] tokens -> [B, T, Q] f32 logits (the scan forward); a
+        speaker model takes speaker= [B] ids."""
         return wn.forward_logits(self.params, self.cfg, self._tokens(tokens),
-                                 mel=self._mel(mel))
+                                 mel=self._mel(mel),
+                                 speaker=self._speaker(speaker))
 
-    def loss(self, tokens, mel=None):
+    def loss(self, tokens, mel=None, speaker=None):
         """(loss, aux) of a [B, W+1] token window (the scan forward)."""
         return wn.loss_fn(self.params, self.cfg, self._tokens(tokens),
-                          mel=self._mel(mel))
+                          mel=self._mel(mel), speaker=self._speaker(speaker))
 
-    def score(self, waveform=None, tokens=None, mel=None) -> torch.Tensor:
+    def score(self, waveform=None, tokens=None, mel=None,
+              speaker=None) -> torch.Tensor:
         """Per-utterance teacher-forced bits/sample ([B]; lower is better)
         of float waveforms [B, T] (mu-law encoded here) or tokens [B, T];
-        mel: the frames of a mel model."""
+        mel: the frames of a mel model; speaker: the [B] ids of a speaker
+        model."""
         from wavenet_tpu_torch.audio import mulaw
         if (waveform is None) == (tokens is None):
             raise ValueError("pass exactly one of waveform= / tokens=")
@@ -175,7 +179,7 @@ class WaveNet(nn.Module):
             tokens = mulaw.encode_np(np.asarray(waveform, np.float32),
                                      self.cfg.quantization_channels)
         return wn.score_fn(self.params, self.cfg, self._tokens(tokens),
-                           mel=self._mel(mel))
+                           mel=self._mel(mel), speaker=self._speaker(speaker))
 
     # ---- decode ----
 
@@ -292,12 +296,18 @@ class WaveNet(nn.Module):
         return int(num_samples)
 
     def _speaker(self, speaker) -> Optional[torch.Tensor]:
-        """Speaker ids [batch] -> int32 on the model's device (None stays
-        None; setup_decode checks them against the model)."""
+        """Speaker ids [batch] -> int32 on the model's device, ids outside
+        [0, global_classes) refused (they index g_embed); None stays None,
+        and the callee checks that ids come with a speaker model only."""
         if speaker is None:
             return None
-        return torch.as_tensor(speaker, device=self.device).to(
-            torch.int32).reshape(-1)
+        ids = torch.as_tensor(speaker).to(torch.int32).reshape(-1)
+        C = self.cfg.global_classes
+        if C is not None and ids.numel() and (int(ids.min()) < 0
+                                              or int(ids.max()) >= C):
+            raise ValueError(f"speaker ids must lie in [0, {C}); got "
+                             f"[{int(ids.min())}, {int(ids.max())}]")
+        return ids.to(self.device)
 
     def _seeds(self, seed, seeds):
         if seeds is None:

@@ -32,9 +32,7 @@ kernel (which also accumulates in f64) and this plain version agree bit
 for bit, and a row's result cannot depend on how many rows share a call
 (the serving replay contract).
 
-Kernel_size 2 only (ROADMAP queue 1 item 7).  Speaker (global)
-conditioning is served (decode) but not trained (check_trainable).
-Two halves:
+Kernel_size 2 only (ROADMAP queue 1 item 7).  Two halves:
   * training: forward_logits (the scan recipe: the residual rounded to bf16
     after every layer, autograd through it), forward_logits_fused (the
     fused layer-group recipe of ops/cuda/train_stack.py: f32 carry within
@@ -47,7 +45,8 @@ upsampled features: in training from the mel frames (`mel`) or given
 upsampled (`upsampled_cond`), in decode as per-step contributions cond_t
 (conditioning.project_cond).  With a speaker, the gate then adds the
 time-constant offset g[l] = g_embed[speaker] @ v_global[l]
-(global_cond_offsets, paper eq.2).
+(global_cond_offsets, paper eq.2), one function for training, scoring
+and decode, so all three see the same g.
 """
 
 from __future__ import annotations
@@ -83,15 +82,10 @@ def check_supported(cfg: WaveNetConfig) -> None:
 
 
 def check_trainable(cfg: WaveNetConfig) -> None:
-    """check_supported, and refuse what the port serves but does not train
-    yet: speaker-conditioned models (their forward, loss and score belong
-    to the training half, with the stack kernels' has_gc variants)."""
+    """Refuse what the training half (forward, loss, score, trainer) does
+    not take: the port trains every model it serves (mel and speaker
+    conditioning included), so this is check_supported."""
     check_supported(cfg)
-    if cfg.global_classes is not None:
-        raise NotImplementedError(
-            "training, loss and score of speaker-conditioned models are not "
-            "ported yet (ROADMAP queue 2 item 1: the train_stack has_gc "
-            "variants and the dataset's speaker ids); they decode and serve")
 
 
 # ---------------------------------------------------------------------------
@@ -170,9 +164,11 @@ def global_cond_offsets(params: Params, cfg: WaveNetConfig,
     eq.2: one time-constant offset per layer and row, computed once per
     request batch): g_embed[speaker] @ v_global[l] with bf16 operands,
     each dot summed exactly and rounded once (_dot).  Accepts model-layout
-    params or the decode kernels' layout (v_global folded to [L, G, 2R])."""
+    params or the decode kernels' layout (v_global folded to [L, G, 2R]).
+    The lookup is a _Gather, so in training two rows of one speaker add
+    their gradients in a fixed order (bit-exact resume)."""
     L, R, G = cfg.num_layers, cfg.residual_channels, cfg.global_channels
-    gvec = params["g_embed"][speaker.long()]                       # [B, G]
+    gvec = _Gather.apply(params["g_embed"].float(), speaker.long())  # [B, G]
     v = params["v_global"].reshape(L, G, 2 * R)
     return torch.stack([_dot(gvec, v[l]) for l in range(L)]).reshape(
         L, -1, 2, R)
@@ -230,10 +226,11 @@ def _shifted_tokens(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
-                w_skip, b_skip, y=None, v_cond=None):
+                w_skip, b_skip, y=None, v_cond=None, gcond=None):
     """One gated residual layer over a whole sequence, the scan recipe:
     z = (x @ W_cur + x[t-d] @ W_prev) + b in f32, then + y @ V_cond when y
-    (the upsampled mel features [B, T, M]) is given, h = bf16(tanh * sigmoid),
+    (the upsampled mel features [B, T, M]) is given, then + gcond (the
+    speaker offsets [B, 2, R], broadcast over time), h = bf16(tanh * sigmoid),
     skip = (skip + h @ W_skip) + b_skip, and the residual rounded once:
     x' = bf16((x + h @ W_res) + b_res).  x: [B, T, R] f32 holding bf16
     values; w_cur, w_prev: [R, 2, R]; b: [2, R]."""
@@ -244,6 +241,8 @@ def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
          + b.reshape(2 * R).float())
     if y is not None:
         z = z + _dot(y, v_cond.reshape(y.shape[-1], 2 * R))
+    if gcond is not None:
+        z = z + gcond.reshape(-1, 1, 2 * R)
     h = _bf(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]))
     skip = (skip + _dot(h, w_skip)) + b_skip.float()
     x = _bf((x + _dot(h, w_res)) + b_res.float())
@@ -265,19 +264,36 @@ def _mel_features(params: Params, cfg: WaveNetConfig, T: int, mel,
     return conditioning.upsample_mel(params["upsampler"], cfg.mel, mel, T)
 
 
+def _speaker_offsets(params: Params, cfg: WaveNetConfig,
+                     speaker) -> Optional[torch.Tensor]:
+    """The speaker offsets [L, B, 2, R] of a speaker model's ids (None for
+    another model); ids are required with cfg.global_classes, and only
+    then (the reference's check, models/wavenet.py:338-341)."""
+    if cfg.global_classes is None:
+        if speaker is not None:
+            raise ValueError("model has no global conditioning; speaker= "
+                             "is not an input")
+        return None
+    if speaker is None:
+        raise ValueError("cfg.global_classes set but no speaker ids passed")
+    return global_cond_offsets(params, cfg, torch.as_tensor(
+        speaker, device=params["g_embed"].device))
+
+
 def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
                    mel: Optional[torch.Tensor] = None,
                    prev_tokens: Optional[torch.Tensor] = None,
                    valid_mask=None, halo_fn=None,
-                   upsampled_cond: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   upsampled_cond: Optional[torch.Tensor] = None,
+                   speaker=None) -> torch.Tensor:
     """[B, T] int tokens -> [B, T, Q] f32 logits (logits[t] predicts t+1),
     the reference's scan path: layer by layer, the residual rounded to bf16
     after every layer; autograd differentiates it (cotangents through the
     bf16 roundings are rounded as JAX's transposes round them).  With
     cfg.remat each layer is recomputed in the backward
     (torch.utils.checkpoint), as jax.checkpoint does.  mel: [B, F, M]
-    frames (F * hop >= T) of a mel model, or upsampled_cond [B, T, M]."""
+    frames (F * hop >= T) of a mel model, or upsampled_cond [B, T, M];
+    speaker: [B] int ids of a speaker model."""
     if valid_mask is not None or halo_fn is not None:
         raise NotImplementedError(
             "valid_mask and halo inputs of forward_logits are not ported yet "
@@ -287,35 +303,44 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
     prev = _shifted_tokens(tokens) if prev_tokens is None else prev_tokens
     x = embed_tokens(params, cfg, tokens, prev)
     y = _mel_features(params, cfg, T, mel, upsampled_cond)
+    g = _speaker_offsets(params, cfg, speaker)
     skip = torch.zeros(B, T, cfg.skip_channels, device=x.device)
     zeros_ctx = x.new_zeros(B, cfg.max_dilation, cfg.residual_channels)
     for l, d in enumerate(cfg.dilations):
         lp = [params[k][l] for k in ("w_cur", "w_prev", "b", "w_res",
                                      "b_res", "w_skip", "b_skip")]
+        kw = {}
         if y is not None:
-            lp += [y, params["v_cond"][l]]
+            kw.update(y=y, v_cond=params["v_cond"][l])
+        if g is not None:
+            kw["gcond"] = g[l]
         if cfg.remat and torch.is_grad_enabled():
             x, skip = checkpoint(_layer_step, x, skip, zeros_ctx, d, *lp,
-                                 use_reentrant=False)
+                                 use_reentrant=False, **kw)
         else:
-            x, skip = _layer_step(x, skip, zeros_ctx, d, *lp)
+            x, skip = _layer_step(x, skip, zeros_ctx, d, *lp, **kw)
     return head_logits(params, cfg, skip)
 
 
 def forward_logits_fused(params: Params, cfg: WaveNetConfig,
                          tokens: torch.Tensor, tile=None,
-                         mel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         mel: Optional[torch.Tensor] = None,
+                         speaker=None) -> torch.Tensor:
     """forward_logits through the fused layer-group stack
     (ops/cuda/train_stack.py: the CUDA kernels for tensors on the card,
     their plain versions on the CPU); callers check
     train_stack.supported(cfg, T).  With mel the upsampler runs here in
     plain PyTorch (its params train through autograd) and y @ V_cond runs
-    inside the stack's kernels."""
+    inside the stack's kernels; with a speaker the offsets g are computed
+    here (g_embed and v_global train through autograd) and added inside
+    the kernels."""
     from wavenet_tpu_torch.ops.cuda import train_stack
     check_trainable(cfg)
     x = embed_tokens(params, cfg, tokens, _shifted_tokens(tokens))
     y = _mel_features(params, cfg, tokens.shape[1], mel)
-    skip = train_stack.forward_skip_fused(params, cfg, x, tile=tile, y=y)
+    g = _speaker_offsets(params, cfg, speaker)
+    skip = train_stack.forward_skip_fused(params, cfg, x, tile=tile, y=y,
+                                          g=g)
     return head_logits(params, cfg, skip)
 
 
@@ -326,17 +351,19 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
             mel: Optional[torch.Tensor] = None, use_fused: bool = False,
-            tile=None):
+            tile=None, speaker=None):
     """Next-sample softmax cross-entropy over a [B, W+1] token window:
     inputs tokens[:, :-1], targets tokens[:, 1:]; mel: [B, F, M] frames
-    covering the W inputs (mel models).  Returns (loss, aux) with
-    aux = {loss, bits_per_sample, accuracy} (0-d tensors)."""
+    covering the W inputs (mel models); speaker: [B] int ids (speaker
+    models).  Returns (loss, aux) with aux = {loss, bits_per_sample,
+    accuracy} (0-d tensors)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if use_fused:
         logits = forward_logits_fused(params, cfg, inputs, tile=tile,
-                                      mel=mel)
+                                      mel=mel, speaker=speaker)
     else:
-        logits = forward_logits(params, cfg, inputs, mel=mel)
+        logits = forward_logits(params, cfg, inputs, mel=mel,
+                                speaker=speaker)
     loss = _nll(logits, targets).mean()
     aux = {
         "loss": loss,
@@ -349,15 +376,17 @@ def loss_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
 
 def score_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
              mel: Optional[torch.Tensor] = None,
-             use_fused: bool = False) -> torch.Tensor:
+             use_fused: bool = False, speaker=None) -> torch.Tensor:
     """Per-utterance teacher-forced score: the mean next-sample negative
     log-likelihood in bits per sample, [B], of tokens [B, T+1] (mel: the
-    frames of a mel model)."""
+    frames of a mel model; speaker: the [B] ids of a speaker model)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if use_fused:
-        logits = forward_logits_fused(params, cfg, inputs, mel=mel)
+        logits = forward_logits_fused(params, cfg, inputs, mel=mel,
+                                      speaker=speaker)
     else:
-        logits = forward_logits(params, cfg, inputs, mel=mel)
+        logits = forward_logits(params, cfg, inputs, mel=mel,
+                                speaker=speaker)
     return _nll(logits, targets).mean(dim=-1) / math.log(2.0)
 
 

@@ -2,9 +2,10 @@
 (csrc/train_stack.cu), their plain PyTorch versions, and the autograd op.
 
 Counterpart of wavenet_tpu/ops/pallas/train_stack.py for width-2 models,
-unconditional or mel-conditioned (y; speaker conditioning is not ported
-yet, ROADMAP queue 2): the planner (`pick_tile`, `plan_dils`, `group_plan`,
-`supported`), `_slice_group`/`_prep_weights` (here `prep_weights`),
+unconditional, mel-conditioned (y) or speaker-conditioned (g, the
+per-row gate offsets), alone or together: the planner (`pick_tile`,
+`plan_dils`, `group_plan`, `supported`), `_slice_group`/`_prep_weights`
+(here `prep_weights`),
 `group_apply` (here the autograd.Function `_GroupApply`) with its forward
 and backward, and `forward_skip_fused`.  Not ported: the multi-row `nb`
 layouts, the roll-based causal shift, the interpret-mode rounding branch
@@ -33,12 +34,15 @@ from wavenet_tpu_torch.ops.cuda import build
 from wavenet_tpu_torch.ops.shift import shift_right
 
 # device kernels launched by each wrapper, as the library reports them, one
-# count per variant: a forward group call launches Lg + 1, a backward one
-# 10 per layer plus 2 (unconditional) or 12 per layer plus 2 (mel)
+# count per variant (unconditional, mel, and speaker with or without mel):
+# a forward group call launches Lg + 1; a backward one
+# (10 + 2 mel + 2 speaker) Lg + 2, mel and speaker each 1 or 0
 fwd_launches = build.LaunchCounter()
 bwd_launches = build.LaunchCounter()
 fwd_mel_launches = build.LaunchCounter()
 bwd_mel_launches = build.LaunchCounter()
+fwd_gc_launches = build.LaunchCounter()
+bwd_gc_launches = build.LaunchCounter()
 
 VMEM_BUDGET = 13 * 1024 * 1024
 ROWS_PER_SPLIT = 1024        # rows per partial sum of a weight gradient
@@ -48,7 +52,7 @@ GROUP_KEYS = ("w_cur", "w_prev", "b", "w_res", "b_res", "w_skip", "b_skip")
 
 
 # ---------------------------------------------------------------------------
-# planner (the reference's arithmetic, single-row layout, no speaker)
+# planner (the reference's arithmetic, single-row layout)
 # ---------------------------------------------------------------------------
 
 def _pad8(d: int) -> int:
@@ -74,21 +78,23 @@ def pick_tile(cfg: WaveNetConfig, T: int) -> int:
 def _group_sizes(cfg: WaveNetConfig, TT: int, dils) -> Tuple[int, int]:
     """The reference's on-chip bytes (fwd, bwd) of one layer group at one
     batch row per grid step (train_stack.py::_group_sizes, nb = (1, 1),
-    mel terms included, no speaker terms).  The mel terms move the group
+    mel and speaker terms included).  The mel terms move the group
     boundaries: at `full_vocoder`, T = 8192 the plan has six groups where
-    `full` has five."""
+    `full` has five; the speaker's g block (gc = 8 Lg R bytes) moves them
+    at some widths (`full` with S = 512 and 109 speakers)."""
     R, S = cfg.residual_channels, cfg.skip_channels
     Lg = len(dils)
     sum_dg = sum(_pad8(d) for d in dils)
     maxd = _winpad(cfg)
     M = cfg.mel.num_mels if cfg.mel is not None else 0
+    gc = 8 * Lg * R if cfg.global_classes is not None else 0
     w = 2 * Lg * (4 * R * R + R * R + R * S) + 2 * Lg * M * 2 * R
     dw = (4 * Lg * (4 * R * R + R * R + R * S + 3 * R)
           + 4 * Lg * M * 2 * R)
-    fwd = (w + 2 * sum_dg * R + 4 * (maxd + TT) * R + 4 * TT * M
+    fwd = (w + gc + 2 * sum_dg * R + 4 * (maxd + TT) * R + 4 * TT * M
            + 2 * (2 * TT * R * 2 + 4 * TT * S * 2 + 2 * sum_dg * R
                   + 2 * TT * R))
-    bwd = (w + dw + 8 * TT * M + 2 * (Lg + 1) * TT * R
+    bwd = (w + dw + 8 * TT * M + 2 * gc + 2 * (Lg + 1) * TT * R
            + 4 * sum_dg * R + 4 * (maxd + TT) * R + 4 * (TT + maxd) * R
            + 2 * (2 * TT * R * 2 + 4 * TT * R * 4 + 4 * TT * S
                   + 2 * sum_dg * R))
@@ -122,10 +128,9 @@ def group_plan(cfg: WaveNetConfig, TT: int) -> List[Tuple[int, int]]:
 
 
 def supported(cfg: WaveNetConfig, T: int) -> bool:
-    """Whether the fused stack takes (cfg, T): width-2, no speaker
-    conditioning, a tileable T and a feasible group plan (the reference's
-    `supported`)."""
-    if cfg.kernel_size != 2 or cfg.global_classes is not None:
+    """Whether the fused stack takes (cfg, T): width-2, a tileable T and a
+    feasible group plan (the reference's `supported`)."""
+    if cfg.kernel_size != 2:
         return False
     TT = pick_tile(cfg, T)
     return bool(TT) and bool(group_plan(cfg, TT))
@@ -219,11 +224,11 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def group_fwd_reference(x, skip, ops, dils: Sequence[int], y=None):
+def group_fwd_reference(x, skip, ops, dils: Sequence[int], y=None, g=None):
     """Plain PyTorch group forward: (x [B,T,R] f32 with bf16 values,
-    skip [B,T,S] f32, with mel y [B,T,M] bf16 and ops ending in v_cond)
-    -> (skip_out, x_out, xs [Lg+1,B,T,R] bf16 holding every layer's input
-    and, last, the group output)."""
+    skip [B,T,S] f32, with mel y [B,T,M] bf16 and ops ending in v_cond,
+    with a speaker g [B,Lg,2R] f32) -> (skip_out, x_out, xs [Lg+1,B,T,R]
+    bf16 holding every layer's input and, last, the group output)."""
     wz, b, wrs, bres, bskip = ops[:5]
     R = x.shape[-1]
     carry = x.float()
@@ -234,6 +239,8 @@ def group_fwd_reference(x, skip, ops, dils: Sequence[int], y=None):
         z = xcat @ wz[l].float() + b[l]
         if y is not None:
             z = z + y.float() @ ops[5][l].float()
+        if g is not None:
+            z = z + g[:, l, None]
         h = _bf(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]))
         o = h @ wrs[l].float()
         carry = (carry + o[..., :R]) + bres[l]
@@ -243,12 +250,13 @@ def group_fwd_reference(x, skip, ops, dils: Sequence[int], y=None):
 
 
 def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
-                        y=None):
+                        y=None, g=None):
     """Plain PyTorch group backward, written out (not autograd) so every
     cotangent stays f32.  Returns (dx_in, dwz, db, dwrs, dbres, dbskip)
     with dbskip = the [S] sum of dskip (each layer's skip-bias gradient),
-    and with mel (y [B,T,M] bf16) also dv_cond [Lg, M, 2R] and dy [B,T,M],
-    dy summed over the layers in reverse order."""
+    with mel (y [B,T,M] bf16) also dv_cond [Lg, M, 2R] and dy [B,T,M],
+    dy summed over the layers in reverse order, and with a speaker (g
+    [B,Lg,2R] f32) last dg [B, Lg, 2R], each row's sum of dz over time."""
     wz, b, wrs = ops[:3]
     Lg = len(dils)
     R = xs.shape[-1]
@@ -263,6 +271,8 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
         M = y.shape[-1]
         dvc = torch.empty(Lg, M, 2 * R, device=dx.device)
         dy = None
+    if g is not None:
+        dg = torch.empty_like(g)
     for l in reversed(range(Lg)):
         d = dils[l]
         xb = xs[l].float()
@@ -270,6 +280,8 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
         z = xcat @ wz[l].float() + b[l]
         if y is not None:
             z = z + yf @ vc[l].float()
+        if g is not None:
+            z = z + g[:, l, None]
         tf, sg = torch.tanh(z[..., :R]), torch.sigmoid(z[..., R:])
         h = _bf(tf * sg)
         dbres[l] = dx.sum(dim=(0, 1))
@@ -280,6 +292,8 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
                         dh * tf * sg * (1.0 - sg)], dim=-1)
         dwz[l] = xcat.reshape(-1, 2 * R).T @ dz.reshape(-1, 2 * R)
         db[l] = dz.sum(dim=(0, 1))
+        if g is not None:
+            dg[:, l] = dz.sum(dim=1)
         if y is not None:
             dvc[l] = yf.reshape(-1, M).T @ dz.reshape(-1, 2 * R)
             part = dz @ vc[l].float().T
@@ -287,7 +301,9 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
         dboth = dz @ wz[l].float().T
         dx = (dx + dboth[..., :R]) + _anticausal(dboth[..., R:], d)
     out = (dx, dwz, db, dwrs, dbres, dskip.sum(dim=(0, 1)))
-    return out if y is None else out + (dvc, dy)
+    if y is not None:
+        out += (dvc, dy)
+    return out if g is None else out + (dg,)
 
 
 # ---------------------------------------------------------------------------
@@ -296,9 +312,9 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wn_ts_group_fwd.argtypes = [p] * 14 + [i] * 6 + [p, p]
+    lib.wn_ts_group_fwd.argtypes = [p] * 15 + [i] * 6 + [p, p]
     lib.wn_ts_group_fwd.restype = i
-    lib.wn_ts_group_bwd.argtypes = [p] * 9 + [i] * 6 + [p] * 14 + [i, p, p]
+    lib.wn_ts_group_bwd.argtypes = [p] * 10 + [i] * 6 + [p] * 15 + [i, p, p]
     lib.wn_ts_group_bwd.restype = i
     lib.wn_ts_colsum.argtypes = [p, i, i, p, p, i, p, p]
     lib.wn_ts_colsum.restype = i
@@ -313,9 +329,10 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check_ops(ops, Lg, R, S, dev, y, B, T) -> int:
+def _check_ops(ops, Lg, R, S, dev, y, B, T, g=None) -> int:
     """Check the operands (and y [B, T, M] bf16 with v_cond last in ops, or
-    neither); returns M (0 without mel)."""
+    neither; and g [B, Lg, 2R] f32 when given); returns M (0 without
+    mel)."""
     bf, f32 = torch.bfloat16, torch.float32
     M = 0 if y is None else y.shape[-1]
     if len(ops) != (5 if y is None else 6):
@@ -327,6 +344,8 @@ def _check_ops(ops, Lg, R, S, dev, y, B, T) -> int:
         build.check_tensor(name, x, shape, dtype, dev)
     if y is not None:
         build.check_tensor("y", y, (B, T, M), bf, dev)
+    if g is not None:
+        build.check_tensor("g", g, (B, Lg, 2 * R), f32, dev)
     return M
 
 
@@ -356,23 +375,35 @@ def _ptr(x) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
-def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None):
+def _counters(nm: int, g, fwd: bool) -> build.LaunchCounter:
+    """The count a launch of this variant bumps: speaker (with or without
+    mel), mel, or unconditional."""
+    if g is not None:
+        return fwd_gc_launches if fwd else bwd_gc_launches
+    if nm:
+        return fwd_mel_launches if fwd else bwd_mel_launches
+    return fwd_launches if fwd else bwd_launches
+
+
+def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None,
+              g=None):
     """One layer group's forward (plain version for CPU tensors, the
     kernel for CUDA tensors): returns (skip_out, x_out, xs).  With mel,
-    y [B, T, M] bf16 and ops ending in v_cond.  skip_out is a new tensor;
+    y [B, T, M] bf16 and ops ending in v_cond; with a speaker, g [B, Lg, 2R]
+    f32 (each row's gate offsets).  skip_out is a new tensor;
     the kernel could write it in place (it reads each skip element once
     before writing it), but a new buffer keeps autograd's view of the
     inputs unchanged at the cost of one [B, T, S] f32 buffer per live
     group."""
     if x.device.type == "cpu":
-        return group_fwd_reference(x, skip, ops, dils, y)
+        return group_fwd_reference(x, skip, ops, dils, y, g)
     S = skip.shape[-1]
     lib, (B, T, R), dils_c = _prepare(x, S, dils, "group_fwd", y)
     dev, f32 = x.device, torch.float32
     Lg = len(dils)
     build.check_tensor("x", x, (B, T, R), f32, dev)
     build.check_tensor("skip", skip, (B, T, S), f32, dev)
-    nm = _check_ops(ops, Lg, R, S, dev, y, B, T)
+    nm = _check_ops(ops, Lg, R, S, dev, y, B, T, g)
     skip_out = torch.empty_like(skip)
     x_out = torch.empty_like(x)
     xs = torch.empty(Lg + 1, B, T, R, dtype=torch.bfloat16, device=dev)
@@ -384,23 +415,23 @@ def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None):
             x.data_ptr(), skip.data_ptr(), skip_out.data_ptr(),
             x_out.data_ptr(), xs.data_ptr(), carry.data_ptr(),
             *(o.data_ptr() for o in ops[:5]), _ptr(y),
-            _ptr(ops[5] if nm else None), ctypes.addressof(dils_c),
+            _ptr(ops[5] if nm else None), _ptr(g), ctypes.addressof(dils_c),
             Lg, B * T, T, R, S, nm, ctypes.byref(n), stream)
-    (fwd_mel_launches if nm else fwd_launches).add(n.value)
+    _counters(nm, g, fwd=True).add(n.value)
     _raise_on(lib, rc, "wn_ts_group_fwd")
     return skip_out, x_out, xs
 
 
 def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
-              ops, dils, y=None):
+              ops, dils, y=None, g=None):
     """One layer group's backward (plain version for CPU tensors, the
     kernel for CUDA tensors): returns (dx_in, dwz, db, dwrs, dbres,
-    dbskip), all f32, and with mel (y, ops ending in v_cond) also
-    (dv_cond, dy); the weight gradients are fixed-order sums and dy a
-    fixed-order sum over the layers, so two runs on the same inputs give
-    the same bits."""
+    dbskip), all f32, with mel (y, ops ending in v_cond) also (dv_cond,
+    dy), and with a speaker (g [B, Lg, 2R]) last dg [B, Lg, 2R]; the weight
+    gradients and dg are fixed-order sums and dy a fixed-order sum over
+    the layers, so two runs on the same inputs give the same bits."""
     if xs.device.type == "cpu":
-        return group_bwd_reference(xs, dskip, dx_out, ops, dils, y)
+        return group_bwd_reference(xs, dskip, dx_out, ops, dils, y, g)
     S = dskip.shape[-1]
     lib, (B, T, R), dils_c = _prepare(dx_out, S, dils, "group_bwd", y)
     dev, f32 = xs.device, torch.float32
@@ -409,18 +440,22 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
     build.check_tensor("xs", xs, (Lg + 1, B, T, R), torch.bfloat16, dev)
     build.check_tensor("dskip", dskip, (B, T, S), f32, dev)
     build.check_tensor("dx_out", dx_out, (B, T, R), f32, dev)
-    nm = _check_ops(ops, Lg, R, S, dev, y, B, T)
+    nm = _check_ops(ops, Lg, R, S, dev, y, B, T, g)
     nsplit = -(-M // ROWS_PER_SPLIT)
     e = lambda *shape, dtype=f32: torch.empty(*shape, dtype=dtype, device=dev)
     dx_in, dwz, db = e(B, T, R), e(Lg, 2 * R, 2 * R), e(Lg, 2 * R)
     dwrs, dbres, dbskip = e(Lg, R, R + S), e(Lg, R), e(S)
-    dvc = dy = None
+    dvc = dy = dg = None
     if nm:
         dvc, dy = e(Lg, nm, 2 * R), e(B, T, nm)
+    if g is not None:
+        dg = e(B, Lg, 2 * R)
     dxa, dxb, dprev, dz = e(M, R), e(M, R), e(M, R), e(M, 2 * R)
     h = e(M, R, dtype=torch.bfloat16)
     part = e(nsplit * max(4 * R * R, R * (R + S), 2 * R * nm))
-    bpart = e(nsplit * max(2 * R, S))
+    # dg's partials: ceil(T / ROWS_PER_SPLIT) row-aligned splits per row
+    bpart = e(max(nsplit * max(2 * R, S),
+                  0 if g is None else B * -(-T // ROWS_PER_SPLIT) * 2 * R))
     wz, b, wrs = ops[:3]
     n = ctypes.c_int(0)
     with torch.cuda.device(dev):
@@ -428,10 +463,10 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
         rc = lib.wn_ts_group_bwd(
             xs.data_ptr(), dskip.data_ptr(), dx_out.data_ptr(),
             wz.data_ptr(), b.data_ptr(), wrs.data_ptr(), _ptr(y),
-            _ptr(ops[5] if nm else None), ctypes.addressof(dils_c), Lg, M,
-            T, R, S, nm, dx_in.data_ptr(), dwz.data_ptr(), db.data_ptr(),
-            dwrs.data_ptr(), dbres.data_ptr(), _ptr(dvc), _ptr(dy),
-            dxa.data_ptr(),
+            _ptr(ops[5] if nm else None), _ptr(g), ctypes.addressof(dils_c),
+            Lg, M, T, R, S, nm, dx_in.data_ptr(), dwz.data_ptr(),
+            db.data_ptr(), dwrs.data_ptr(), dbres.data_ptr(), _ptr(dvc),
+            _ptr(dy), _ptr(dg), dxa.data_ptr(),
             dxb.data_ptr(), dprev.data_ptr(), dz.data_ptr(), h.data_ptr(),
             part.data_ptr(), bpart.data_ptr(), ROWS_PER_SPLIT,
             ctypes.byref(n), stream)
@@ -439,10 +474,12 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
             rc = lib.wn_ts_colsum(dskip.data_ptr(), M, S, dbskip.data_ptr(),
                                   bpart.data_ptr(), ROWS_PER_SPLIT,
                                   ctypes.byref(n), stream)
-    (bwd_mel_launches if nm else bwd_launches).add(n.value)
+    _counters(nm, g, fwd=False).add(n.value)
     _raise_on(lib, rc, "wn_ts_group_bwd")
     out = (dx_in, dwz, db, dwrs, dbres, dbskip)
-    return out if not nm else out + (dvc, dy)
+    if nm:
+        out += (dvc, dy)
+    return out if g is None else out + (dg,)
 
 
 # ---------------------------------------------------------------------------
@@ -450,37 +487,41 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class _GroupApply(torch.autograd.Function):
-    """One layer group: (x, skip_in, y, raw group params) -> (skip_out,
+    """One layer group: (x, skip_in, y, g, raw group params) -> (skip_out,
     x_out), with group_bwd as its backward (the reference's custom VJP).
     y is the f32 upsampled mel features [B, T, M] (None without mel): it
     is rounded to bf16 here, inside the op, so its cotangent dy comes back
-    f32, as the reference's VJP hands it to the upsampler."""
+    f32, as the reference's VJP hands it to the upsampler.  g is the
+    group's speaker offsets [B, Lg, 2R] f32 (None without a speaker); its
+    cotangent dg is f32."""
 
     @staticmethod
-    def forward(ctx, dils, x, skip, y, w_cur, w_prev, b, w_res, b_res,
+    def forward(ctx, dils, x, skip, y, g, w_cur, w_prev, b, w_res, b_res,
                 w_skip, b_skip, v_cond):
         ops = prep_weights(w_cur, w_prev, b, w_res, b_res, w_skip, b_skip,
                            v_cond)
         yb = None if y is None else y.to(torch.bfloat16).contiguous()
-        skip_out, x_out, xs = group_fwd(x, skip, ops, dils, yb)
-        ctx.save_for_backward(xs, yb, *ops)
+        skip_out, x_out, xs = group_fwd(x, skip, ops, dils, yb, g)
+        ctx.save_for_backward(xs, yb, g, *ops)
         ctx.dils = dils
         return skip_out, x_out
 
     @staticmethod
     def backward(ctx, dskip, dx_out):
-        xs, yb, *ops = ctx.saved_tensors
+        xs, yb, g, *ops = ctx.saved_tensors
         dils = ctx.dils
         dx, dwz, db, dwrs, dbres, dbskip, *cond = group_bwd(
             xs, dskip.float().contiguous(), dx_out.float().contiguous(),
-            ops, dils, yb)
+            ops, dils, yb, g)
         Lg, R = len(dils), xs.shape[-1]
         S = dskip.shape[-1]
-        dvc = dy = None
+        dvc = dy = dg = None
+        if g is not None:
+            dg = cond.pop()
         if cond:
             dvc, dy = cond
             dvc = dvc.reshape(Lg, dvc.shape[1], 2, R)
-        return (None, dx, dskip, dy,
+        return (None, dx, dskip, dy, dg,
                 dwz[:, :R].reshape(Lg, R, 2, R),
                 dwz[:, R:].reshape(Lg, R, 2, R),
                 db.reshape(Lg, 2, R),
@@ -489,11 +530,14 @@ class _GroupApply(torch.autograd.Function):
 
 
 def forward_skip_fused(params, cfg: WaveNetConfig, x: torch.Tensor,
-                       tile=None, y=None) -> torch.Tensor:
+                       tile=None, y=None, g=None) -> torch.Tensor:
     """Embedded input [B, T, R] (f32 holding bf16 values) -> skip sum
     [B, T, S] f32 through the layer groups of group_plan(cfg, tile).
     y: the upsampled mel features [B, T, M] f32 of a mel model (None
-    otherwise).  Callers check supported(cfg, T) first; on a CUDA device
+    otherwise); g: the speaker offsets [L, B, 2, R] f32 of a speaker model
+    (models/wavenet.global_cond_offsets), sliced per group as the
+    reference slices them, so autograd carries dg back to g_embed and
+    v_global.  Callers check supported(cfg, T) first; on a CUDA device
     widths the kernels do not take raise NotImplementedError."""
     B, T, R = x.shape
     TT = tile or pick_tile(cfg, T)
@@ -502,12 +546,11 @@ def forward_skip_fused(params, cfg: WaveNetConfig, x: torch.Tensor,
                          f"fused paths on train_stack.supported(cfg, T)")
     if T % TT:
         raise ValueError(f"tile={TT} does not divide T={T}")
-    if cfg.global_classes is not None:
-        raise NotImplementedError(
-            "speaker-conditioned fused stacks are not ported yet (ROADMAP "
-            "queue 2 item 1)")
     if (y is None) != (cfg.mel is None):
         raise ValueError("y is required with cfg.mel, and only then")
+    if (g is None) != (cfg.global_classes is None):
+        raise ValueError("g is required with cfg.global_classes, and only "
+                         "then")
     groups = group_plan(cfg, TT)
     if not groups:
         raise ValueError("no feasible group plan; gate on supported()")
@@ -517,8 +560,10 @@ def forward_skip_fused(params, cfg: WaveNetConfig, x: torch.Tensor,
     x_g = x.float().contiguous()
     y = None if y is None else y.float()
     for lo, hi in groups:
+        g_g = None if g is None else g[lo:hi].float().transpose(0, 1).reshape(
+            B, hi - lo, 2 * R).contiguous()
         skip, x_g = _GroupApply.apply(
-            tuple(cfg.dilations[lo:hi]), x_g, skip, y,
+            tuple(cfg.dilations[lo:hi]), x_g, skip, y, g_g,
             *(params[k][lo:hi] for k in GROUP_KEYS),
             None if y is None else params["v_cond"][lo:hi])
     return skip

@@ -7,11 +7,15 @@
 
   python -m wavenet_tpu_torch.train --preset full_vocoder --synthetic \
       --steps 100 --device cuda
+  python -m wavenet_tpu_torch.train --preset full --data corpus \
+      --override 'global_classes=109' --steps 100 --device cuda
 
 On a CUDA device the conv stack of supported configs (`full` and the
-mel-conditioned `full_vocoder` among them) runs through the fused
-layer-group kernels (csrc/train_stack.cu); a mel model trains on the
-log-mel frames of its clips (synthetic clips included).  The
+mel-conditioned `full_vocoder` among them, with or without speakers) runs
+through the fused layer-group kernels (csrc/train_stack.cu); a mel model
+trains on the log-mel frames of its clips (synthetic clips included), a
+speaker model on its clips' ids (corpus/<speaker>/*.wav by subdirectory,
+synthetic clips by index mod global_classes).  The
 reference's --profile-dir and --sample-every are not ported yet (ROADMAP
 queue 1 item 9).
 """

@@ -19,7 +19,9 @@ Every op of the step has a fixed summation order (the kernels' split-K
 sums, the embedding's one-hot backward, the upsampler's shifted f32
 products), so a resumed run repeats an uninterrupted one bit for bit.
 A mel model's batches carry "mel" frames; its upsampler and v_cond train
-with the rest.  The state holds params, optimizer moments and EMA as flat
+with the rest.  A speaker model's batches carry "speaker" ids; g_embed and
+v_global train with the rest (the ids' lookup has a one-hot backward, so
+two rows of one speaker add in a fixed order).  The state holds params, optimizer moments and EMA as flat
 leaves under '/'-joined names ("upsampler/w0"), the model's nested params
 rebuilt for each loss call; JAX's optax walks the same leaves in the same
 sorted order.
@@ -216,13 +218,16 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def step(self, tokens: torch.Tensor,
-             mel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             mel: Optional[torch.Tensor] = None,
+             speaker: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
         """One optimizer step (or accumulation microstep) on [B, W+1]
-        tokens (and a mel model's [B, F, M] frames); returns the metrics as
-        0-d tensors (not fetched)."""
+        tokens (and a mel model's [B, F, M] frames, a speaker model's [B]
+        ids); returns the metrics as 0-d tensors (not fetched)."""
         cfg, st = self.cfg, self.state
         loss, aux = wn.loss_fn(unflatten_tree(st.params), cfg, tokens,
-                               mel=mel, use_fused=self.use_fused)
+                               mel=mel, use_fused=self.use_fused,
+                               speaker=speaker)
         keys = sorted(st.params)
         grads = dict(zip(keys, torch.autograd.grad(
             loss, [st.params[k] for k in keys])))
@@ -240,10 +245,12 @@ class Trainer:
         return metrics
 
     def _batch(self, batch):
-        """A host batch -> (tokens, mel or None) on the trainer's device."""
-        mel = batch.get("mel")
-        return (torch.from_numpy(batch["tokens"]).to(self.device),
-                None if mel is None else torch.from_numpy(mel).to(self.device))
+        """A host batch -> (tokens, mel or None, speaker or None) on the
+        trainer's device."""
+        def dev(key):
+            v = batch.get(key)
+            return None if v is None else torch.from_numpy(v).to(self.device)
+        return dev("tokens"), dev("mel"), dev("speaker")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -298,10 +305,11 @@ class Trainer:
         with torch.no_grad():
             for _ in range(num_batches):
                 batch, it = ds.sample_batch(it)
-                tokens, mel = self._batch(batch)
+                tokens, mel, speaker = self._batch(batch)
                 _, aux = wn.loss_fn(unflatten_tree(self.state.params),
                                     self.cfg, tokens, mel=mel,
-                                    use_fused=self.use_fused)
+                                    use_fused=self.use_fused,
+                                    speaker=speaker)
                 for k, v in aux.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
         return {f"eval_{k}": v / num_batches for k, v in sums.items()}
