@@ -14,7 +14,8 @@ they went through the kernels: the wide presets `full` and `full_vocoder`
 the narrow decode kernel (phases 10-12), speaker-conditioned models
 through both decode kernels' speaker variants (phase 13), and a
 speaker-conditioned `full` trained through the train_stack kernels'
-speaker variants (phase 14).  Any failed check
+speaker variants (phase 14), then the port's verify tool with its probe
+kernels (phase 15).  Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -98,9 +99,17 @@ Phases (one line of numbers each):
      counters equal to their formula and no other count grown, a resume
      bit for bit (losses, params, g_embed and v_global included), and
      WaveNet.from_checkpoint(...).generate(speaker=[3, 50]) through the
-     wide decode kernel's speaker variant.
-The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14) set every
-kernel's count to 0 right before and read them right after.
+     wide decode kernel's speaker variant;
+ 15. the verify tool, `python -m wavenet_tpu_torch.verify` in a subprocess
+     (each check family in its own process, the counts set to 0 at each
+     family's start and summed at its end): its lines are printed, exit 1
+     fails the run, exit 2 (train_stack drift only) is printed and
+     counted; every decode comparison must be BIT-EXACT and every probe
+     kernel must have launched on that path; then the four probe kernels
+     (csrc/probes.cu) against their plain versions here, each timed with
+     its plain version and its bound.
+The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15) set
+every kernel's count to 0 right before and read them right after.
 """
 
 from __future__ import annotations
@@ -160,6 +169,25 @@ def cuda_ms(fn, repeats: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Milliseconds of device time per fn() for work far shorter than the
+    host's launch path (the probes): the stream is held busy (~50 ms)
+    while n calls are queued behind the first event, so the events time
+    the kernels back to back and not the host enqueueing them."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    fn()                                         # warm up (allocations)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
 
 
 def register_counters(*modules) -> None:
@@ -545,51 +573,11 @@ def phase_serve_vocoder(mod, cfg, dev, card: str, phase: int = 7) -> int:
         engine.close()
 
 
-def _stack_fwd(ts, params, cfg, groups, x, fwd, y=None, g=None):
-    """The fused stack's forward, group by group, through `fwd` (the
-    kernel wrapper or the plain version), with the bf16 mel features y of
-    a mel model and the speaker offsets g [L, B, 2, R] of a speaker model:
-    (skip, [(dils, ops, xs, the group's g)])."""
-    import torch
-    B = x.shape[0]
-    skip = torch.zeros(*x.shape[:2], cfg.skip_channels, device=x.device)
-    saved = []
-    for lo, hi in groups:
-        dils = tuple(cfg.dilations[lo:hi])
-        ops = ts.prep_weights(*(params[k][lo:hi] for k in ts.GROUP_KEYS),
-                              None if y is None else params["v_cond"][lo:hi])
-        gg = None if g is None else g[lo:hi].transpose(0, 1).reshape(
-            B, hi - lo, -1).contiguous()
-        skip, x, xs = fwd(x, skip, ops, dils, y, gg)
-        saved.append((dils, ops, xs, gg))
-    return skip, saved
-
-
-def _stack_bwd(saved, dskip, bwd, y=None):
-    """The backward through `bwd`: [(name, gradient)] (each group's dg
-    with speaker offsets), dx last, after it the mel features' dy summed
-    over the groups (a mel model)."""
-    import torch
-    dx = torch.zeros(*dskip.shape[:2], saved[0][2].shape[-1],
-                     device=dskip.device)
-    grads, dy = [], None
-    names = ("dwz", "db", "dwrs", "dbres", "dbskip", "dv_cond")
-    for gi, (dils, ops, xs, gg) in reversed(list(enumerate(saved))):
-        dx, *gw = bwd(xs, dskip, dx, ops, dils, y, gg)
-        if gg is not None:
-            grads.append((f"g{gi}.dg", gw.pop()))
-        if y is not None:
-            dy = gw[-1] if dy is None else dy + gw[-1]
-            gw = gw[:-1]
-        grads += [(f"g{gi}.{n}", g) for n, g in zip(names, gw)]
-    return grads + [("dx", dx)] + ([] if y is None else [("dy", dy)])
-
-
 def _stack(ts, params, cfg, groups, x, ct, fwd, bwd, y=None, g=None):
     """(skip, loss = mean(skip * ct), grads, saved) through fwd and bwd."""
-    skip, saved = _stack_fwd(ts, params, cfg, groups, x, fwd, y, g)
+    skip, saved = ts.stack_forward(params, cfg, groups, x, fwd, y, g)
     return (skip, (skip * ct).mean(),
-            _stack_bwd(saved, ct / ct.numel(), bwd, y), saved)
+            ts.stack_backward(saved, ct / ct.numel(), bwd, y), saved)
 
 
 def loss_rel(loss_k: float, loss_p: float, skip_p, ct) -> float:
@@ -724,14 +712,14 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
         for B in batches:
             x, ct, y, g, k, p, skip_err, grad_err = compare(B)
             dsk = ct / ct.numel()
-            fwd_k = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
-                                               ts.group_fwd, y, g), 3)
-            fwd_p = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
-                                               ts.group_fwd_reference, y, g),
-                            3)
-            bwd_k = cuda_ms(lambda: _stack_bwd(k[3], dsk, ts.group_bwd, y), 3)
-            bwd_p = cuda_ms(lambda: _stack_bwd(p[3], dsk,
-                                               ts.group_bwd_reference, y), 3)
+            fwd_k = cuda_ms(lambda: ts.stack_forward(
+                params, cfg, groups, x, ts.group_fwd, y, g), 3)
+            fwd_p = cuda_ms(lambda: ts.stack_forward(
+                params, cfg, groups, x, ts.group_fwd_reference, y, g), 3)
+            bwd_k = cuda_ms(lambda: ts.stack_backward(
+                k[3], dsk, ts.group_bwd, y), 3)
+            bwd_p = cuda_ms(lambda: ts.stack_backward(
+                p[3], dsk, ts.group_bwd_reference, y), 3)
             times[B] = (fwd_k, fwd_p, bwd_k, bwd_p, skip_err, grad_err)
             del k, p
             print(f"phase {phase} train_stack times B={B} T={TS_T}: "
@@ -767,11 +755,12 @@ def speaker_cost(ts, wn, cfg, params, dev, card: str) -> None:
     with torch.no_grad():
         for turn in ("without", "with", "with", "without"):
             gt = g if turn == "with" else None
-            fwd = cuda_ms(lambda: _stack_fwd(ts, params, cfg, groups, x,
-                                             ts.group_fwd, None, gt), 3)
-            saved = _stack_fwd(ts, params, cfg, groups, x, ts.group_fwd,
-                               None, gt)[1]
-            bwd = cuda_ms(lambda: _stack_bwd(saved, dsk, ts.group_bwd), 3)
+            fwd = cuda_ms(lambda: ts.stack_forward(
+                params, cfg, groups, x, ts.group_fwd, None, gt), 3)
+            saved = ts.stack_forward(params, cfg, groups, x, ts.group_fwd,
+                                     None, gt)[1]
+            bwd = cuda_ms(lambda: ts.stack_backward(
+                saved, dsk, ts.group_bwd), 3)
             ms[turn].append((fwd, bwd))
             del saved
     print(f"phase 14 speaker cost B={TS_TRAIN_B} T={TS_T} in turns "
@@ -915,6 +904,156 @@ def phase_speakers(pnarrow, pwide, wn, dev, card: str):
     return out
 
 
+def probe_numbers(probes, dev) -> dict:
+    """Phase 15's probe kernels against their plain versions (on the CPU
+    for the comparison; on the card, the same functions, for plain_ms):
+    P1 and P4 and P3's bf16 cases exact, P3's f32 case within 1e-6 of its
+    largest element, P2 within probes.GATE_ULPS ulps of torch's CPU
+    values.  max_abs_err is the largest difference measured.  Per probe,
+    the device ms (device_ms) of one call of each of its cases summed,
+    likewise plain_ms and the bound, and library_ms where one PyTorch call
+    computes the same function (torch.tanh for P2's first output)."""
+    import torch
+    inp, cpu = probes.probe_inputs(dev), probes.probe_inputs("cpu")
+    f32b = 4
+    out = {}
+
+    def bound(nbytes: float, ops: float, peak: float) -> dict:
+        t_b, t_o = nbytes / PEAK_BYTES, ops / peak
+        return {"bound_ms": max(t_b, t_o) * 1e3,
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    def abs_err(got, want) -> float:
+        return float((got.cpu() - want).abs().max())
+
+    # P1: each mode writes [rows, tiles, 8, 128] f32 and reads nothing
+    err, ms, pms, nbytes = 0.0, 0.0, 0.0, 0
+    for mode, (_, rows, tiles, expect) in probes.SCRATCH_MODES.items():
+        got = probes.probe_scratch(mode, dev).cpu()
+        want = probes.probe_scratch_reference(mode)
+        check(torch.equal(got, want) and torch.equal(
+            got[:, :, 0, 0], torch.tensor(expect, dtype=torch.float32)),
+            f"P1 {mode}: kernel != plain or the probe's expectation")
+        err = max(err, abs_err(got, want))
+        ms += device_ms(lambda: probes.probe_scratch(mode, dev))
+        pms += device_ms(lambda: probes.probe_scratch_reference(mode, dev))
+        nbytes += got.numel() * f32b
+    out["probe_scratch"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                            "library_ms": None,
+                            **bound(nbytes, 0, PEAK_F32)}
+    # P2: 8,192 inputs, three outputs; ~20 f32 operations per element
+    x = inp["gate_x"]
+    got = probes.probe_gate(x)
+    want = probes.probe_gate_reference(cpu["gate_x"])
+    for name, a, b in zip(("tanh", "sigmoid", "gate"), got, want):
+        u = probes.ulps(a, b)
+        check(u <= probes.GATE_ULPS, f"P2 {name}: {u} ulps from torch's CPU "
+              f"values (> {probes.GATE_ULPS})")
+    err = max(abs_err(a, b) for a, b in zip(got, want))
+    out["probe_gate"] = {
+        "max_abs_err": err, "ms": device_ms(lambda: probes.probe_gate(x)),
+        "plain_ms": device_ms(lambda: probes.probe_gate_reference(x)),
+        "library_ms": device_ms(lambda: torch.tanh(x)),
+        **bound(4 * x.numel() * f32b, 20 * x.numel(), PEAK_F32)}
+    # P3: a [256,128]x[128,64] and b [256,64]x[64,128] bf16 products, c
+    # an f32 [256,128]x[128,64] one
+    err, ms, pms, t_b, t_o = 0.0, 0.0, 0.0, 0.0, 0.0
+    for case, ops in (("a", ("a", "b", "w")), ("b", ("h", "w_rs")),
+                      ("c", ("xf", "yf", "wf"))):
+        args = [inp[k] for k in ops]
+        got = probes.probe_lane_ops(case, *args)
+        want = probes.probe_lane_ops_reference(case, *(cpu[k] for k in ops))
+        for a, b in zip(got, want):
+            e = abs_err(a, b)
+            check(e <= 1e-6 * float(b.abs().max()) if case == "c"
+                  else e == 0.0, f"P3 {case}: kernel != plain ({e})")
+            err = max(err, e)
+        ms += device_ms(lambda: probes.probe_lane_ops(case, *args))
+        pms += device_ms(lambda: probes.probe_lane_ops_reference(case, *args))
+        nb = (sum(t.numel() * t.element_size() for t in args)
+              + sum(o.numel() * f32b for o in got))
+        t_b += nb / PEAK_BYTES
+        t_o += 2 * 256 * 128 * 64 / (PEAK_F32 if case == "c" else PEAK_BF16)
+    out["probe_lane_ops"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": None,
+        "bound_ms": max(t_b, t_o) * 1e3,
+        "bound_by": "bytes" if t_b >= t_o else "operations"}
+    # P4: a case reads D ring rows and TT - D rows of x and writes [TT, R],
+    # f32 (the rest of the ring and of x is not read)
+    err, ms, pms = 0.0, 0.0, 0.0
+    for case in probes.SHIFT_CASES:
+        ring = inp["snaps" if case == "B" else "ring"]
+        got = probes.probe_shift_concat(case, ring, inp["shift_x"]).cpu()
+        want = probes.probe_shift_concat_reference(
+            case, cpu["snaps" if case == "B" else "ring"], cpu["shift_x"])
+        check(torch.equal(got, want), f"P4 {case}: kernel != plain")
+        err = max(err, abs_err(got, want))
+        ms += device_ms(lambda: probes.probe_shift_concat(
+            case, ring, inp["shift_x"]))
+        pms += device_ms(lambda: probes.probe_shift_concat_reference(
+            case, ring, inp["shift_x"]))
+    nbytes = len(probes.SHIFT_CASES) * f32b * probes.R * (
+        probes.D + (probes.TT - probes.D) + probes.TT)
+    out["probe_shift_concat"] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": pms, "library_ms": None,
+                                 **bound(nbytes, 0, PEAK_F32)}
+    return out
+
+
+def phase_verify(probes, dev, card: str) -> tuple:
+    """Phase 15: the verify tool in a subprocess (the main path of this
+    slice), then the probe kernels here.  Returns (the probe rows'
+    numbers, the tool's launch counts)."""
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "wavenet_tpu_torch.verify"],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    counts, lines = None, proc.stdout.splitlines()
+    for line in lines:
+        if line.startswith("VERIFY_COUNTS "):
+            counts = json.loads(line[len("VERIFY_COUNTS "):])
+        else:
+            print(f"phase 15 verify | {line}", flush=True)
+    if proc.returncode not in (0, 2):
+        print(proc.stderr[-3000:], file=sys.stderr, flush=True)
+    check(proc.returncode in (0, 2),
+          f"verify exited {proc.returncode} (1: a FAIL)")
+    check(counts is not None, "verify printed no launch counts")
+    decode_lines = [ln for ln in lines
+                    if ln.startswith(("decode ", "wide-decode "))]
+    check(decode_lines and all(ln.split(": ", 1)[1].startswith("BIT-EXACT")
+                               for ln in decode_lines),
+          "a decode comparison of the verify tool is not BIT-EXACT")
+    for name in ("probes.scratch_launches", "probes.gate_launches",
+                 "probes.lane_launches", "probes.shift_launches",
+                 "decode.launches", "decode_wide.launches",
+                 "train_stack.fwd_launches", "train_stack.bwd_launches"):
+        check(counts.get(name, 0) > 0,
+              f"verify: {name} did not launch ({counts})")
+    drifts = [ln for ln in lines if ": DRIFT" in ln]
+    check(all(ln.startswith("train ") for ln in drifts),
+          f"verify: a DRIFT outside the train_stack checks ({drifts})")
+    print(f"phase 15 verify: exit={proc.returncode} "
+          f"drift_lines={len(drifts)} decode_checks={len(decode_lines)} "
+          f"all_decode_bit_exact=True seconds={time.monotonic() - t} "
+          f"launches={counts} card={card!r}", flush=True)
+    reset_counts()
+    numbers = probe_numbers(probes, dev)
+    short = {"probe_scratch": "scratch", "probe_gate": "gate",
+             "probe_lane_ops": "lane", "probe_shift_concat": "shift"}
+    for name, n in numbers.items():
+        print(f"phase 15 {name}: ms={n['ms']} plain_ms={n['plain_ms']} "
+              f"bound_ms={n['bound_ms']} ({n['bound_by']}) library_ms="
+              f"{n['library_ms']} max_abs_err={n['max_abs_err']} "
+              f"verify_launches="
+              f"{counts[f'probes.{short[name]}_launches']} card={card!r}",
+              flush=True)
+    torch.cuda.synchronize()
+    return numbers, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -930,6 +1069,7 @@ def main() -> int:
         from wavenet_tpu_torch.ops.cuda import build
         from wavenet_tpu_torch.ops.cuda import decode as pnarrow
         from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
+        from wavenet_tpu_torch.ops.cuda import probes
         from wavenet_tpu_torch.ops.cuda import train_stack as ts
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -939,10 +1079,10 @@ def main() -> int:
     card = nvidia_smi()
     dev = torch.device("cuda", 0)
     t = time.monotonic()
-    build.load_all(["decode_wide", "train_stack", "decode"])
-    for mod in (pwide, ts, pnarrow):
+    build.load_all(["decode_wide", "train_stack", "decode", "probes"])
+    for mod in (pwide, ts, pnarrow, probes):
         mod.library()
-    register_counters(pnarrow, pwide, ts)
+    register_counters(pnarrow, pwide, ts, probes)
     print(f"phase 0 device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernel build_s={time.monotonic() - t}",
           flush=True)
@@ -1003,13 +1143,20 @@ def main() -> int:
     del svparams
     gc_trained = phase_train(ts, pwide, dev, card, phase=14, speakers=True)
 
+    probe_nums, verify_counts = phase_verify(probes, dev, card)
+
     src = "wavenet_tpu_torch/csrc/"
     pallas = "wavenet_tpu/ops/pallas/"
 
-    def row(name, source, replaces, launched, numbers):
+    def row(name, source, replaces, launched, numbers, where=pallas):
         return {"name": name, "route": "cuda", "source": src + source,
-                "replaces": pallas + replaces, "launches": launched,
+                "replaces": where + replaces, "launches": launched,
                 **numbers}
+
+    def probe_row(name, counter, replaces):
+        return row(name, "probes.cu", replaces,
+                   verify_counts[f"probes.{counter}"], probe_nums[name],
+                   where="tools/")
     print(json.dumps({"kernels": [
         row("decode_wide", "decode_wide.cu", "decode_wide.py:170", launches,
             numbers),
@@ -1034,7 +1181,14 @@ def main() -> int:
         row("train_stack_fwd_gc", "train_stack.cu", "train_stack.py:324",
             gc_trained["train_stack_fwd"], gc_stack["fwd"]),
         row("train_stack_bwd_gc", "train_stack.cu", "train_stack.py:426",
-            gc_trained["train_stack_bwd"], gc_stack["bwd"])]}))
+            gc_trained["train_stack_bwd"], gc_stack["bwd"]),
+        probe_row("probe_scratch", "scratch_launches",
+                  "tpu_scratch_test.py:6"),
+        probe_row("probe_gate", "gate_launches", "tpu_tanh_probe.py:18"),
+        probe_row("probe_lane_ops", "lane_launches",
+                  "tpu_lane_ops_check.py:22"),
+        probe_row("probe_shift_concat", "shift_launches",
+                  "tpu_concat_probe.py:50")]}))
     print(card)
     # the run used one card, device 0
     print(json.dumps({"ok": True, "device": {

@@ -227,9 +227,11 @@ def test_generate_routes_on_width(monkeypatch, R):
 
 
 def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
-    """On a CUDA device R = 192 (neither < 128 nor a multiple of 128) and
-    R = 128 with S = 48 raise before any decode_chunk, kernel or plain, is
-    reached; on the CPU the plain version still decodes them."""
+    """On a CUDA device R = 192 and R = 128 with S = 48 (widths the wide
+    kernel refuses; the narrow one takes them since it takes any width
+    whose block fits) raise before any decode_chunk, kernel or plain, is
+    reached once Q = 30000 makes the narrow block too large for 227 KiB;
+    on the CPU the plain version still decodes them."""
     spies = [_Spy(tdec.decode_chunk), _Spy(twide.decode_chunk),
              _Spy(tdec.decode_chunk_reference),
              _Spy(twide.decode_chunk_reference)]
@@ -240,7 +242,8 @@ def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
         monkeypatch.setattr(mod, name, spy)
     for R, S in ((192, 32), (128, 48)):
         tc = tconfig.WaveNetConfig(num_blocks=1, max_dilation=2,
-                                   residual_channels=R, skip_channels=S)
+                                   residual_channels=R, skip_channels=S,
+                                   quantization_channels=30000)
         params = twn.init_params(tc, torch.Generator().manual_seed(0), "cpu")
         for call in (lambda: sampler.generate_auto(params, tc, 4,
                                                    device="cuda"),
@@ -251,6 +254,6 @@ def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
         assert not any(s.calls for s in spies)
         assert sampler.generate_auto(params, tc, 4,
                                      device="cpu").shape == (1, 4)
-        assert spies[1].calls == 1
+        assert spies[0].calls == 1
         for s in spies:
             s.calls = 0

@@ -144,16 +144,20 @@ def test_init_params_shapes_match_reference():
 
 def test_unported_features_raise_not_implemented():
     from wavenet_tpu_torch.models import wavenet as twn
+    # kernel_size > 2 and causal_channels != R now run on the plain route;
+    # a compute dtype other than bf16 and f32 stays refused
     for kw in ({"kernel_size": 3}, {"causal_channels": 64}):
-        cfg = tconfig.WaveNetConfig(residual_channels=128, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            WaveNet(cfg)
-    # speaker models decode, serve and train; the training half still
-    # refuses what the decode half refuses
+        WaveNet(tconfig.WaveNetConfig(residual_channels=128, **kw))
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        WaveNet(tconfig.WaveNetConfig(residual_channels=128,
+                                      compute_dtype="float16"))
+    # speaker models decode, serve and train; the training half refuses
+    # what the decode half refuses
     for kw in ({"global_classes": 4},
                {"global_classes": 4, "mel": tconfig.MelConfig()}):
         cfg = tconfig.WaveNetConfig(residual_channels=128, **kw)
         WaveNet(cfg)
         twn.check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            twn.check_trainable(cfg.replace(kernel_size=3))
+        twn.check_trainable(cfg.replace(kernel_size=3))
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            twn.check_trainable(cfg.replace(compute_dtype="float16"))

@@ -44,7 +44,8 @@ assert not bad, bad
 assert "wavenet_tpu_torch.serve" in names and len(names) >= 15, names
 for n in ("train", "training.trainer", "training.checkpoint",
           "ops.cuda.train_stack", "audio.dataset", "ops.cuda.decode",
-          "ops.cuda.decode_common"):
+          "ops.cuda.decode_common", "verify", "ops.cuda.probes",
+          "utils.golden"):
     assert "wavenet_tpu_torch." + n in names, n
 print(len(names))
 """
@@ -104,11 +105,11 @@ def _cuda_args(cfg, batch=2):
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, kernel, case):
     """A config a kernel takes, on a CUDA tensor, goes to that kernel
     (which cannot build here: no nvcc); a config it does not take (R < 128
-    for the wide kernel, R = 128 for the narrow one) raises.  Neither
-    touches decode_chunk_reference.  `speaker` is R = 128 with speaker
-    offsets g; on the wide case's route the train stack's speaker variant
-    (g [B, Lg, 2R]) takes its kernel too, never group_fwd_reference or
-    group_bwd_reference."""
+    for the wide kernel; the narrow one takes R = 128 too, as every width
+    whose block fits) raises.  Neither touches decode_chunk_reference.
+    `speaker` is R = 128 with speaker offsets g; on the wide case's route
+    the train stack's speaker variant (g [B, Lg, 2R]) takes its kernel
+    too, never group_fwd_reference or group_bwd_reference."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the kernel path really runs")
     mod = twide if kernel == "wide" else tnarrow
@@ -130,7 +131,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, kernel, case):
                                 2 * cfg.residual_channels))
     build._libs.pop("decode_wide", None)
     build._libs.pop("decode", None)
-    err = RuntimeError if (kernel == "wide") == wide else ValueError
+    err = RuntimeError if kernel == "narrow" or wide else ValueError
     with pytest.raises(err):
         mod.decode_chunk(w, cfg, rings, carry, 0, seeds, 8, 1.0, g=g)
     if case == "speaker" and kernel == "wide":
@@ -171,3 +172,54 @@ def test_bad_operands_are_refused_before_launch():
     with pytest.raises(ValueError, match="prime token ids"):
         twide.setup_decode(cfg, 2, 8, torch.tensor([[3, 256], [0, 1]]),
                            device="cpu")
+
+
+def test_no_source_of_the_port_names_jax_the_reference_or_tools():
+    """Every module of wavenet_tpu_torch (verify.py and ops/cuda/probes.py
+    included) and chip_smoke.py import neither jax, nor wavenet_tpu, nor
+    anything under tools/ (checked on the source, so that an import inside
+    a function counts too)."""
+    import ast
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "wavenet_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert any(f.endswith("verify.py") for f in files)
+    assert any(f.endswith(os.path.join("cuda", "probes.py")) for f in files)
+    for f in files:
+        for node in ast.walk(ast.parse(open(f).read())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in ("jax", "jaxlib", "wavenet_tpu", "tools"), \
+                    (f, m)
+
+
+def test_probe_wrappers_take_the_kernel_on_cuda(monkeypatch):
+    """A CUDA tensor sent to a probe wrapper goes to its kernel (which
+    cannot build here) and never to the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the kernel path really runs")
+    from wavenet_tpu_torch.ops.cuda import probes
+    calls = []
+    for name in ("probe_scratch_reference", "probe_gate_reference",
+                 "probe_lane_ops_reference", "probe_shift_concat_reference"):
+        monkeypatch.setattr(probes, name, lambda *a, **k: calls.append(1))
+    monkeypatch.setattr(build, "nvcc_path", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    build._libs.pop("probes", None)
+    inp = {k: _OnCuda(v) for k, v in probes.probe_inputs("cpu").items()}
+    for call in (lambda: probes.probe_gate(inp["gate_x"]),
+                 lambda: probes.probe_lane_ops("a", inp["a"], inp["b"],
+                                               inp["w"]),
+                 lambda: probes.probe_lane_ops("c", inp["xf"], inp["yf"],
+                                               inp["wf"]),
+                 lambda: probes.probe_shift_concat("B", inp["snaps"],
+                                                   inp["shift_x"])):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert not calls

@@ -454,14 +454,114 @@ def test_wide_decode_kernel_speaker_equals_plain(dev, mel):
 @pytest.mark.parametrize("preset", ["tiny", "small", "fastgen_bench",
                                     "conditional"])
 def test_narrow_decode_shared_memory_per_preset(dev, preset):
-    """The narrow kernel's shared memory per block (its own accounting,
-    wn_decode_smem) fits one block at every tile size for every narrow
+    """The narrow kernel's shared memory per block (smem_bytes, the size it
+    is launched with) fits one block at every tile size for every narrow
     preset; printed (run with -s)."""
     cfg = tconfig.get_config(preset)
     M = 0 if cfg.mel is None else cfg.mel.num_mels
-    sizes = {bt: pnarrow.library().wn_decode_smem(
+    sizes = {bt: pnarrow.smem_bytes(
         bt, cfg.num_layers, cfg.residual_channels, cfg.skip_channels,
         cfg.quantization_channels, M) for bt in (1, 2, 4, 8, 16)}
     print(f"narrow decode shared memory, {preset}: {sizes}")
     assert all(v <= 227 * 1024 for v in sizes.values())
     assert sizes[1] < sizes[16]
+
+
+@pytest.mark.parametrize("R,S", [(128, 80), (192, 64)])
+def test_narrow_decode_widened_widths_equal_plain(dev, R, S):
+    """The widths the narrow kernel took over (R = 128 with S = 80, which
+    the wide kernel refuses for S, and R = 192): the sampler routes them
+    to it, and it equals the plain version bit for bit, greedy and
+    sampled, free-running and primed, at 1-row and multi-row blocks."""
+    from wavenet_tpu_torch.generate import sampler
+    cfg = tconfig.WaveNetConfig(num_blocks=2, max_dilation=8,
+                                residual_channels=R, skip_channels=S)
+    assert sampler.kernel_module(cfg, dev) is pnarrow
+    g = torch.Generator().manual_seed(R + S)
+    w = pnarrow.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    for batch in (1, 5):
+        prime = torch.randint(0, 256, (batch, 4), dtype=torch.int32,
+                              generator=g).to(dev)
+        for temp in (0.0, 1.0):
+            for forced in (None, prime):
+                rings, carry, s, _, _, _ = pnarrow.setup_decode(
+                    cfg, batch, 30, forced, seeds=5, device=dev, w=w)
+                for bt in (None, 4):
+                    k = pnarrow.decode_chunk(w, cfg, rings, carry, 0, s, 30,
+                                             temp, forced, rows_per_block=bt)
+                    p = pnarrow.decode_chunk_reference(
+                        w, cfg, rings, carry, 0, s, 30, temp, forced)
+                    for a, b in zip(k, p):
+                        assert torch.equal(a, b), (batch, temp, bt)
+
+
+@pytest.mark.parametrize("R,S,Q,M", [(16, 16, 256, 0), (64, 128, 256, 80),
+                                     (128, 80, 256, 0), (192, 64, 64, 8)])
+def test_narrow_decode_plans_equal_plain(dev, R, S, Q, M):
+    """The kernel launched with decode.py's plan (segment counts, units
+    and shared memory from plan and smem_bytes, at widths whose phases
+    split differently, with and without mel) equals the plain version bit
+    for bit at every tile size whose block fits 227 KiB; a larger one is
+    refused before launch."""
+    mel = None if not M else _mel_cfg(M).mel
+    cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=4,
+                                residual_channels=R, skip_channels=S,
+                                quantization_channels=Q, mel=mel)
+    g = torch.Generator().manual_seed(R + S + Q + M)
+    w = pnarrow.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    batch, steps = 16, 12
+    y = (None if not M else
+         (torch.randn(batch, steps, M, generator=g) * 3).to(dev))
+    rings, carry, s, _, _, _ = pnarrow.setup_decode(cfg, batch, steps,
+                                                    None, seeds=3,
+                                                    device=dev, w=w)
+    p = pnarrow.decode_chunk_reference(w, cfg, rings, carry, 0, s, steps,
+                                       1.0, y=y)
+    for bt in (1, 2, 4, 8, 16):
+        if pnarrow.smem_bytes(bt, cfg.num_layers, R, S, Q, M) > 227 * 1024:
+            assert bt > 1
+            with pytest.raises(ValueError, match="shared"):
+                pnarrow.decode_chunk(w, cfg, rings, carry, 0, s, steps, 1.0,
+                                     y=y, rows_per_block=bt)
+            continue
+        k = pnarrow.decode_chunk(w, cfg, rings, carry, 0, s, steps, 1.0,
+                                 y=y, rows_per_block=bt)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), (bt, pnarrow.plan(R, S, Q, M))
+
+
+def test_probe_kernels_equal_their_plain_versions(dev):
+    """P1-P4 (csrc/probes.cu) against their plain versions, each launch
+    counted: P1 every mode exact and equal to the probes' printed
+    expectations; P2 elementwise within 4 ulps of torch's CPU tanh and
+    sigmoid (the card's tanhf and expf against the CPU's; the count is
+    measured by the verify tool); P3 a and b exact, c within 1e-6 of its
+    largest element; P4 exact."""
+    from wavenet_tpu_torch.ops.cuda import probes
+    before = probes.scratch_launches.value
+    for mode, (_, rows, tiles, expect) in probes.SCRATCH_MODES.items():
+        got = probes.probe_scratch(mode, dev).cpu()
+        assert torch.equal(got, probes.probe_scratch_reference(mode))
+        want = torch.tensor(expect, dtype=torch.float32)
+        assert torch.equal(got[:, :, 0, 0], want)
+    assert probes.scratch_launches.value == before + 4 + 4
+    inp, cpu = probes.probe_inputs(dev), probes.probe_inputs("cpu")
+    for got, want in zip(probes.probe_gate(inp["gate_x"]),
+                         probes.probe_gate_reference(cpu["gate_x"])):
+        assert probes.ulps(got, want) <= probes.GATE_ULPS == 4
+    for case, ops in (("a", ("a", "b", "w")), ("b", ("h", "w_rs")),
+                      ("c", ("xf", "yf", "wf"))):
+        got = probes.probe_lane_ops(case, *(inp[k] for k in ops))
+        want = probes.probe_lane_ops_reference(case, *(cpu[k] for k in ops))
+        for a, b in zip(got, want):
+            if case == "c":
+                assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(
+                    b.abs().max())
+            else:
+                assert torch.equal(a.cpu(), b)
+    for case in probes.SHIFT_CASES:
+        ring = "snaps" if case == "B" else "ring"
+        assert torch.equal(
+            probes.probe_shift_concat(case, inp[ring], inp["shift_x"]).cpu(),
+            probes.probe_shift_concat_reference(case, cpu[ring],
+                                                cpu["shift_x"]))

@@ -263,6 +263,9 @@ def test_trainer_route_follows_the_reference():
                                   "seq_parallel", "valid_mask", "halo",
                                   "kernel_size"])
 def test_features_left_out_raise(case):
+    """What the port still leaves out raises.  A kernel_size > 2 model now
+    trains on the scan, but the fused stack leaves it out; a valid_mask
+    is taken now, but not beside a halo."""
     from wavenet_tpu_torch.models import wavenet as twn
     if case.endswith("parallel"):
         _, tc = _cfgs(**{case: 2})
@@ -272,14 +275,16 @@ def test_features_left_out_raise(case):
             ttrainer.Trainer(tc, ds, device="cpu")
     elif case == "kernel_size":
         _, tc = _cfgs(kernel_size=3)
-        ds = tds.AudioDataset.synthetic(tc, num_clips=1, clip_seconds=0.05)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.Trainer(tc, ds, device="cpu")
+        p = twn.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="trains on the scan"):
+            twn.loss_fn(p, tc, torch.zeros(1, 65, dtype=torch.int32),
+                        use_fused=True)
     else:
         _, tc = _cfgs()
         p = twn.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-        kw = {"valid_mask": torch.ones(1, 8)} if case == "valid_mask" \
-            else {"halo_fn": lambda x: x}
+        kw = {"halo_fn": lambda x: x}
+        if case == "valid_mask":
+            kw["valid_mask"] = torch.ones(1, 8)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             twn.forward_logits(p, tc, torch.zeros(1, 8, dtype=torch.int32),
                                **kw)

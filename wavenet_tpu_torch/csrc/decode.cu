@@ -3,7 +3,10 @@
 //
 // Replaces wavenet_tpu/ops/pallas/decode.py::_decode_kernel, the TPU's
 // whole-loop decoder for models with R < 128 (the `tiny`, `small`,
-// `fastgen_bench` and `conditional` presets), in all its forms:
+// `fastgen_bench` and `conditional` presets; the port also sends it every
+// other width the wide kernel does not take, such as R = 192 or R = 128
+// with S = 80, as the reference tries its narrow kernel first), in all its
+// forms:
 // unconditional, mel-conditioned (has_cond) and speaker-conditioned
 // (has_gc).  It computes what decode_wide.cu computes, on the same layout:
 // one launch runs num_steps decode steps; per step and batch row: f32 embed
@@ -69,7 +72,6 @@
 namespace {
 
 constexpr int kThreads = 512;  // threads per block (ops/cuda/decode.py)
-constexpr int kMinSeg = 8;     // shortest K segment a phase splits into
 
 struct DecodeArgs {
   const int32_t* seeds;          // [B]
@@ -98,42 +100,11 @@ struct DecodeArgs {
   int32_t* carry_out;            // [B, 2]
   int L, R, S, Q, M, sum_d, B, num_steps, t0, num_forced, greedy;
   float inv_temp;
+  // the plan (ops/cuda/decode.py plan): K segments per dot product of the
+  // four phases (z, skip + residual, head 1, head 2) and the partial-sum
+  // units of the largest phase, which size `part` below
+  int seg_z, seg_sr, seg_h1, seg_h2, units;
 };
-
-// K segments per dot product of a phase with ndots dot products whose
-// shortest K is kmin: doubled while the phase has fewer units than the
-// block has threads and every segment keeps at least kMinSeg terms.
-__host__ __device__ inline int phase_segs(int ndots, int kmin) {
-  int s = 1;
-  while (ndots * s < kThreads && (kmin + 2 * s - 1) / (2 * s) >= kMinSeg)
-    s *= 2;
-  return s;
-}
-
-// The segment counts of the four phases (z, skip + residual, head 1,
-// head 2) and the partial-sum units the largest needs.
-struct Plan {
-  int z, sr, h1, h2, units;
-};
-
-__host__ __device__ inline Plan make_plan(int R, int S, int Q, int M) {
-  Plan p;
-  const int nz = 4 * R + (M ? 2 * R : 0);
-  p.z = phase_segs(nz, M && M < R ? M : R);
-  p.sr = phase_segs(S + R, R);
-  p.h1 = phase_segs(S, S);
-  p.h2 = phase_segs(Q, S);
-  const int u[4] = {nz * p.z, (S + R) * p.sr, S * p.h1, Q * p.h2};
-  p.units = u[0];
-  for (int i = 1; i < 4; ++i) p.units = u[i] > p.units ? u[i] : p.units;
-  return p;
-}
-
-size_t smem_bytes(int bt, int L, int R, int S, int Q, int M) {
-  const Plan p = make_plan(R, S, Q, M);
-  return sizeof(double) * (size_t)bt * (3 * R + 2 * S + M + p.units)
-       + sizeof(float) * ((size_t)bt * (S + Q) + 3 * bt + 2 * L);
-}
 
 // One dot product of a phase: column o of W [K, N] against inT [K][BT].
 struct Job {
@@ -184,9 +155,9 @@ decode_kernel(const DecodeArgs a) {
   const int b0 = blockIdx.x * BT;
   const int nrows = min(BT, B - b0);
   const int tid = threadIdx.x;
-  const Plan plan = make_plan(R, S, Q, M);
 
-  // matmul inputs: bf16 values held as f64
+  // the block's shared memory, in the order ops/cuda/decode.py smem_bytes
+  // sums it; matmul inputs: bf16 values held as f64
   double* xT = smem;                 // [R][BT] residual stream
   double* oldT = xT + R * BT;        // [R][BT] ring read of this layer
   double* hT = oldT + R * BT;        // [R][BT] gated output
@@ -194,7 +165,7 @@ decode_kernel(const DecodeArgs a) {
   double* s1T = sT + S * BT;         // [S][BT] head hidden
   double* yT = s1T + S * BT;         // [M][BT] mel features y_t (with mel)
   double* part = yT + M * BT;        // [units][BT] partial sums of a phase
-  float* skipT = reinterpret_cast<float*>(part + plan.units * BT);
+  float* skipT = reinterpret_cast<float*>(part + a.units * BT);
                                      // [S][BT] f32 skip sum
   float* scoreT = skipT + S * BT;    // [Q][BT] sampling scores
   int* tok = reinterpret_cast<int*>(scoreT + Q * BT);   // [BT]
@@ -284,20 +255,20 @@ decode_kernel(const DecodeArgs a) {
       const Job jp{a.wprev + (size_t)l * R * 2 * R, oldT, R, 2 * R};
       const Job jy = M ? Job{a.vcond + (size_t)l * M * 2 * R, yT, M, 2 * R}
                        : none;
-      dot_units<BT>(jc, jp, jy, plan.z, part, tid);
+      dot_units<BT>(jc, jp, jy, a.seg_z, part, tid);
       __syncthreads();
 
       const float* bl = a.b + (size_t)l * 2 * R;
-      const int up = 2 * R * plan.z;       // first unit of old @ W_prev
+      const int up = 2 * R * a.seg_z;       // first unit of old @ W_prev
       for (int i = tid; i < BT * R; i += kThreads) {
         const int c = i / BT, r = i % BT;
         float z[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {      // filter half, then gate half
           const int col = h * R + c;
-          z[h] = (dot_sum<BT>(part, 0, 2 * R, plan.z, col, r)
-                  + dot_sum<BT>(part, up, 2 * R, plan.z, col, r)) + bl[col];
-          if (M) z[h] += dot_sum<BT>(part, 2 * up, 2 * R, plan.z, col, r);
+          z[h] = (dot_sum<BT>(part, 0, 2 * R, a.seg_z, col, r)
+                  + dot_sum<BT>(part, up, 2 * R, a.seg_z, col, r)) + bl[col];
+          if (M) z[h] += dot_sum<BT>(part, 2 * up, 2 * R, a.seg_z, col, r);
           if (a.g != nullptr && r < nrows)   // this row's speaker offsets
             z[h] += a.g[((size_t)l * B + b0 + r) * 2 * R + col];
         }
@@ -308,18 +279,18 @@ decode_kernel(const DecodeArgs a) {
       // skip and residual: h @ W_skip, h @ W_res, split
       const Job js{a.wskip + (size_t)l * R * S, hT, R, S};
       const Job jr{a.wres + (size_t)l * R * R, hT, R, R};
-      dot_units<BT>(js, jr, none, plan.sr, part, tid);
+      dot_units<BT>(js, jr, none, a.seg_sr, part, tid);
       __syncthreads();
 
       for (int i = tid; i < BT * (S + R); i += kThreads) {
         const int o = i / BT, r = i % BT;
         if (o < S) {
           const float bo = a.bskip[(size_t)l * S + o];
-          skipT[i] = (skipT[i] + dot_sum<BT>(part, 0, S, plan.sr, o, r)) + bo;
+          skipT[i] = (skipT[i] + dot_sum<BT>(part, 0, S, a.seg_sr, o, r)) + bo;
         } else {
           const int c = o - S;
           const float bo = a.bres[(size_t)l * R + c];
-          const float p = dot_sum<BT>(part, S * plan.sr, R, plan.sr, c, r);
+          const float p = dot_sum<BT>(part, S * a.seg_sr, R, a.seg_sr, c, r);
           xT[c * BT + r] = bf16_round(((float)xT[c * BT + r] + p) + bo);
         }
       }
@@ -330,19 +301,19 @@ decode_kernel(const DecodeArgs a) {
     for (int i = tid; i < BT * S; i += kThreads)
       sT[i] = bf16_round(fmaxf(skipT[i], 0.0f));
     __syncthreads();
-    dot_units<BT>(Job{a.hw1, sT, S, S}, none, none, plan.h1, part, tid);
+    dot_units<BT>(Job{a.hw1, sT, S, S}, none, none, a.seg_h1, part, tid);
     __syncthreads();
     for (int i = tid; i < BT * S; i += kThreads) {
       const int o = i / BT, r = i % BT;
       s1T[i] = bf16_round(
-          fmaxf(dot_sum<BT>(part, 0, S, plan.h1, o, r) + a.hb1[o], 0.0f));
+          fmaxf(dot_sum<BT>(part, 0, S, a.seg_h1, o, r) + a.hb1[o], 0.0f));
     }
     __syncthreads();
-    dot_units<BT>(Job{a.hw2, s1T, S, Q}, none, none, plan.h2, part, tid);
+    dot_units<BT>(Job{a.hw2, s1T, S, Q}, none, none, a.seg_h2, part, tid);
     __syncthreads();
     for (int i = tid; i < BT * Q; i += kThreads) {
       const int o = i / BT, r = i % BT;
-      float sc = dot_sum<BT>(part, 0, Q, plan.h2, o, r) + a.hb2[o];
+      float sc = dot_sum<BT>(part, 0, Q, a.seg_h2, o, r) + a.hb2[o];
       if (!a.greedy && r < nrows)
         sc = __fadd_rn(__fmul_rn(sc, a.inv_temp),
                        wn_counter_gumbel(seed[r], g, o));
@@ -374,8 +345,7 @@ decode_kernel(const DecodeArgs a) {
 }
 
 template <int BT>
-int launch(const DecodeArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(BT, a.L, a.R, a.S, a.Q, a.M);
+int launch(const DecodeArgs& a, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       decode_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -390,7 +360,9 @@ int launch(const DecodeArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // Launch the narrow whole-loop decode on `stream`; returns a cudaError_t
-// code (0 on success).  bt in {1, 2, 4, 8, 16} rows per block.  y
+// code (0 on success).  bt in {1, 2, 4, 8, 16} rows per block; seg_z,
+// seg_sr, seg_h1, seg_h2 and units the plan and smem its shared memory
+// bytes per block (ops/cuda/decode.py plan and smem_bytes).  y
 // [B, num_steps, M] and vcond [L, M, 2R] (bf16) with M > 0 for a
 // mel-conditioned model, null and M = 0 otherwise; g [L, B, 2R] (f32) for a
 // speaker-conditioned model, null otherwise.
@@ -404,31 +376,29 @@ int wn_decode(const int32_t* seeds, const int32_t* tokens_init,
               const void* rings_in, void* rings_out, int32_t* tokens_out,
               int32_t* carry_out, int L, int R, int S, int Q, int M,
               int sum_d, int B, int num_steps, int t0, int num_forced,
-              int greedy, float inv_temp, int bt, void* stream) {
+              int greedy, float inv_temp, int bt, int seg_z, int seg_sr,
+              int seg_h1, int seg_h2, int units, int smem, void* stream) {
   typedef const __nv_bfloat16* W;
   DecodeArgs a{seeds, tokens_init, forced, ecur, eprev,
                (W)wcur, (W)wprev, b, (W)wres, bres, (W)wskip, bskip,
                (W)hw1, hb1, (W)hw2, hb2, dils, (W)y, (W)vcond, g,
                (W)rings_in, (__nv_bfloat16*)rings_out, tokens_out, carry_out,
                L, R, S, Q, M, sum_d, B, num_steps, t0, num_forced, greedy,
-               inv_temp};
+               inv_temp, seg_z, seg_sr, seg_h1, seg_h2, units};
   if (R < 1 || S < 1 || Q < 1 || L < 1 || M < 0 || B < 1 || num_steps < 1 ||
-      (M > 0) != (y != nullptr) || (M > 0) != (vcond != nullptr))
+      (M > 0) != (y != nullptr) || (M > 0) != (vcond != nullptr) ||
+      seg_z < 1 || seg_sr < 1 || seg_h1 < 1 || seg_h2 < 1 || units < 1 ||
+      smem < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bt) {
-    case 1: return launch<1>(a, s);
-    case 2: return launch<2>(a, s);
-    case 4: return launch<4>(a, s);
-    case 8: return launch<8>(a, s);
-    case 16: return launch<16>(a, s);
+    case 1: return launch<1>(a, smem, s);
+    case 2: return launch<2>(a, smem, s);
+    case 4: return launch<4>(a, smem, s);
+    case 8: return launch<8>(a, smem, s);
+    case 16: return launch<16>(a, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// Shared memory bytes one block of wn_decode needs.
-size_t wn_decode_smem(int bt, int L, int R, int S, int Q, int M) {
-  return smem_bytes(bt, L, R, S, Q, M);
 }
 
 const char* wn_error_string(int code) {

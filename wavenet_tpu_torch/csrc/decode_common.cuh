@@ -1,6 +1,7 @@
 // Device helpers shared by the two whole-loop decode kernels, decode.cu
-// (R < 128) and decode_wide.cu (R a multiple of 128): the exact dot
-// products, the bf16 rounding, the gate's sigmoid and the per-row argmax.
+// (the narrow kernel) and decode_wide.cu (R a multiple of 128): the exact
+// dot products, the bf16 rounding, the gate's sigmoid (gate.cuh) and the
+// per-row argmax.
 //
 // Exact dot products: out = f32(sum over k of in[k] * W[k][o]) with the sum
 // taken in f64.  Products of bf16 values are exact there and so is their
@@ -17,14 +18,12 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "gate.cuh"
+
 namespace {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
 }
 
 // v[r] = p[r] for the BT rows of one k (16-byte shared loads).

@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gate.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -81,10 +83,6 @@ constexpr int kWM = 32;         // rows staged at a time in the weight grads
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.f / (1.f + expf(-v));
 }
 
 // xcat[m][i]: the layer input at row m (i < R) or its causal partner at

@@ -1,20 +1,33 @@
-"""Generation: one-shot and streaming decode, and token -> audio.
+"""Generation: one-shot and streaming decode, the naive oracle, and
+token -> audio.
 
 Counterparts of wavenet_tpu/generate/sampler.py's generate_auto,
-generate_stream and tokens_to_waveform.  Both decoders route on the
-model's width, as the reference routes on its kernels: R < 128 to the
-narrow whole-loop kernel (ops/cuda/decode.py, the reference's
-ops/pallas/decode.py), R a multiple of 128 to the wide one
-(ops/cuda/decode_wide.py).  Each module's decode_chunk takes its CUDA
-kernel for tensors on the card and the plain PyTorch version for tensors
-on the CPU; on the card a width neither kernel takes raises.  A
-mel-conditioned model takes y, its upsampled features on the decode
+generate_stream, generate_naive and tokens_to_waveform.  Both decoders
+take one of three routes, named by kernel_module, as the reference routes
+between its kernels and its XLA scan:
+  * the narrow whole-loop kernel (ops/cuda/decode.py, the reference's
+    ops/pallas/decode.py) for R < 128 and for any other bf16 width-2 model
+    the wide kernel does not take, wherever its block fits;
+  * the wide one (ops/cuda/decode_wide.py) for R a multiple of 128 with S a
+    multiple of 32;
+  * the plain route (PLAIN: decode_common.decode_chunk_reference on any
+    device) for a model that no reference kernel takes, kernel_size > 2,
+    causal_channels != residual_channels or compute_dtype float32: the
+    counterpart of the reference's scan (generate_auto's last branch and
+    _stream_scan).
+A kernel module's decode_chunk takes its CUDA kernel for tensors on the
+card and the plain PyTorch version for tensors on the CPU; on the card a
+width the reference's kernels take but neither port kernel does raises.
+Every route carries the same rings and carry from launch to launch and keys
+its RNG by the global step, so chunked decode equals one-shot bit for bit.
+A mel-conditioned model takes y, its upsampled features on the decode
 device, covering the whole timeline (priming steps included); a
 speaker-conditioned model takes speaker, its [B] int ids.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Iterator, Optional
 
 import numpy as np
@@ -22,23 +35,36 @@ import torch
 
 from wavenet_tpu_torch.audio import mulaw
 from wavenet_tpu_torch.config import WaveNetConfig
+from wavenet_tpu_torch.models import wavenet as wn
+from wavenet_tpu_torch.ops import rng
 from wavenet_tpu_torch.ops.cuda import decode as pnarrow
 from wavenet_tpu_torch.ops.cuda import decode_common
 from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
 
+# the plain route: the whole decode in plain PyTorch, on any device
+PLAIN = types.SimpleNamespace(
+    decode_chunk=decode_common.decode_chunk_reference)
+
 
 def kernel_module(cfg: WaveNetConfig, device):
-    """The decode module that serves cfg: ops/cuda/decode for R < 128,
-    ops/cuda/decode_wide for R a multiple of 128.  On the CPU either runs
-    the plain version, so any width decodes there; on the card a width
-    neither kernel takes raises ValueError."""
-    R = cfg.residual_channels
-    mod = pnarrow if R < 128 else pwide
+    """The route that decodes cfg: PLAIN for a model no reference kernel
+    takes (kernel_size > 2, E != R, compute_dtype float32); else
+    ops/cuda/decode_wide for R a multiple of 128 with S a multiple of 32,
+    and ops/cuda/decode for every other width.  On the CPU a kernel module
+    runs its plain version, so any width decodes there; on the card a
+    width whose route has no kernel raises ValueError."""
+    R, S = cfg.residual_channels, cfg.skip_channels
+    if (cfg.kernel_size != 2 or cfg.embed_channels != R
+            or wn.compute_dtype(cfg) != torch.bfloat16):
+        return PLAIN
+    mod = pwide if pwide.supported(cfg) else pnarrow
     if torch.device(device).type == "cuda" and not mod.supported(cfg):
         raise ValueError(
             f"no decode kernel takes residual_channels={R}, skip_channels="
-            f"{cfg.skip_channels} (the narrow kernel takes R < 128, the wide "
-            f"one R a multiple of 128 with S a multiple of 32)")
+            f"{S}, quantization_channels={cfg.quantization_channels} (the "
+            f"wide kernel takes R a multiple of 128 with S a multiple of "
+            f"32, the narrow one any width whose one-row block fits 227 KiB "
+            f"of shared memory)")
     return mod
 
 
@@ -95,6 +121,83 @@ def generate_stream(params, cfg: WaveNetConfig, num_samples: int,
         if toks.shape[1]:
             yield toks
         t0 += n
+
+
+@torch.no_grad()
+def generate_naive(params, cfg: WaveNetConfig, num_samples: int,
+                   batch: int = 1,
+                   prime_tokens: Optional[torch.Tensor] = None,
+                   speaker=None, y: Optional[torch.Tensor] = None,
+                   temperature: float = 1.0, seeds=0,
+                   device="cuda") -> torch.Tensor:
+    """Naive AR sampling, [batch, num_samples] int32: the full
+    receptive-field forward (models/wavenet.forward_logits) per sample, the
+    slow oracle the fast decoders are held against (the reference's
+    generate_naive, wavenet_tpu/generate/sampler.py:355).  It reproduces
+    the fast path's boundary semantics exactly:
+
+    - The window is RF + K - 1 tokens wide: positions [K-1:] feed the model
+      and the K - 1 before each one are its true history (prev_tokens and,
+      for K > 2, prev_tokens_extra), so the oldest model position never
+      sees the default zero-token history once the window has rolled past
+      the sequence start.
+    - While the history is shorter than the window, a validity mask makes
+      the missing positions contribute exactly the zero left-padding the
+      fast path's empty rings see (forward_logits valid_mask), instead of
+      a window full of silence tokens; they are left-filled with token 0,
+      the fast path's initial history.
+    - A mel model's y ([batch, >= max(P-1, 0) + num_samples, M] upsampled
+      features, the fast decoders' timeline) slides a matching window:
+      model position t' sees y at its absolute decode step, zeros before
+      the sequence start.
+    - Sampling draws the counter RNG keyed by (row seed, absolute decode
+      step, class), as the fast decoders do, so at any temperature fast
+      and naive give the same tokens (the reference's oracle samples with
+      jax.random instead, so it matches its fast path only greedily).
+
+    params: model params on `device`; speaker: [batch] ids of a speaker
+    model; seeds: an int or [batch] per-row seeds."""
+    K = cfg.kernel_size
+    rf, Km1, Q = cfg.receptive_field, K - 1, cfg.quantization_channels
+    W = rf + Km1
+    P = 0 if prime_tokens is None else prime_tokens.shape[1]
+    window = torch.zeros(batch, W, dtype=torch.int32, device=device)
+    if P == 0:
+        window[:, -1] = Q // 2
+        count = 1                              # valid tokens in the window
+    else:
+        prime = prime_tokens.to(device=device, dtype=torch.int32)
+        count = min(P, W)
+        window[:, W - count:] = prime[:, P - count:]
+    base = max(P - 1, 0)                       # decode step of sample 0
+    y_pad = None
+    if y is not None:
+        if cfg.mel is None:
+            raise ValueError("y passed but cfg.mel is None")
+        if y.shape[1] < base + num_samples:
+            raise ValueError(f"y covers {y.shape[1]} < {base + num_samples} "
+                             f"steps (priming included)")
+        # rf - 1 zero steps first: a window ending at step s reads
+        # y_pad[:, s : s + rf]
+        y_pad = torch.nn.functional.pad(y.float(), (0, 0, rf - 1, 0))
+    seeds = rng.as_row_seeds(seeds, batch, device)
+    pos = torch.arange(rf, device=device)
+    out = torch.empty(batch, num_samples, dtype=torch.int32, device=device)
+    for i in range(num_samples):
+        mask = (pos >= rf - min(count, rf)).float().expand(batch, rf)
+        extra = (None if Km1 == 1 else torch.stack(
+            [window[:, Km1 - j:W - j] for j in range(2, Km1 + 1)]))
+        logits = wn.forward_logits(
+            params, cfg, window[:, Km1:], prev_tokens=window[:, Km1 - 1:-1],
+            prev_tokens_extra=extra, speaker=speaker,
+            upsampled_cond=(None if y_pad is None
+                            else y_pad[:, base + i:base + i + rf]),
+            valid_mask=mask)[:, -1]
+        nxt = wn.sample_tokens(logits, base + i, seeds, temperature)
+        out[:, i] = nxt
+        window = torch.cat([window[:, 1:], nxt[:, None]], dim=1)
+        count = min(count + 1, W)
+    return out
 
 
 def tokens_to_waveform(tokens: torch.Tensor, cfg: WaveNetConfig) -> np.ndarray:

@@ -14,9 +14,10 @@ exact resume, while the products here are f32 GEMMs (TF32 off) with fixed
 summation orders and deterministic backwards.  It stays plain PyTorch on
 every device: the upsampler is outside the reference's Pallas kernels.
 
-project_cond is the decode recipe of the gate contribution: bf16 operands,
-each dot product summed exactly (f64) and rounded once to f32, as
-models/wavenet.py's _dot and the decode kernel compute it.
+project_cond is the decode recipe of the gate contribution: operands in the
+compute dtype (bf16 by default), each dot product summed in f64 (exact for
+bf16) and rounded once to f32, as models/wavenet.py's _dot and the decode
+kernels compute it.
 """
 
 from __future__ import annotations
@@ -82,15 +83,17 @@ def upsample_mel(params: Dict[str, torch.Tensor], mel_cfg: MelConfig,
     return y[:, :target_len, :]
 
 
-def project_cond(params, y: torch.Tensor) -> torch.Tensor:
+def project_cond(params, y: torch.Tensor,
+                 cdt: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Upsampled features [.., M] -> per-layer gate contributions
-    [.., L, 2R] f32: y @ V_cond[l] for every layer, from bf16 operands, each
-    dot product the exact f64 sum rounded once to f32.  params["v_cond"]
-    may be the model's [L, M, 2, R] or the kernel layout [L, M, 2R]."""
+    [.., L, 2R] f32: y @ V_cond[l] for every layer, from operands rounded to
+    the compute dtype cdt, each dot product summed in f64 and rounded once
+    to f32.  params["v_cond"] may be the model's [L, M, 2, R] or the kernel
+    layout [L, M, 2R]."""
     v = params["v_cond"]
     f64 = torch.float64
-    v = v.to(torch.bfloat16).to(f64).reshape(v.shape[0], v.shape[1], -1)
-    out = torch.einsum("...m,lmn->...ln", y.to(torch.bfloat16).to(f64), v)
+    v = v.to(cdt).to(f64).reshape(v.shape[0], v.shape[1], -1)
+    out = torch.einsum("...m,lmn->...ln", y.to(cdt).to(f64), v)
     return out.to(torch.float32)
 
 
@@ -98,5 +101,6 @@ def prepare_decode_cond(params, cfg: WaveNetConfig, mel: torch.Tensor,
                         total_len: int) -> torch.Tensor:
     """[B, F, M] mel -> [B, total_len, L, 2R] per-step gate contributions
     for the plain decode loop (models/wavenet.generate, cond[:, t])."""
+    from wavenet_tpu_torch.models.wavenet import compute_dtype
     y = upsample_mel(params["upsampler"], cfg.mel, mel, total_len)
-    return project_cond(params, y)
+    return project_cond(params, y, compute_dtype(cfg))

@@ -32,14 +32,24 @@ kernel (which also accumulates in f64) and this plain version agree bit
 for bit, and a row's result cannot depend on how many rows share a call
 (the serving replay contract).
 
-Kernel_size 2 only (ROADMAP queue 1 item 7).  Two halves:
-  * training: forward_logits (the scan recipe: the residual rounded to bf16
-    after every layer, autograd through it), forward_logits_fused (the
-    fused layer-group recipe of ops/cuda/train_stack.py: f32 carry within
-    a group, f32 cotangents), loss_fn and score_fn;
+Every config the reference takes, in two halves:
+  * training: forward_logits (the scan recipe: the residual rounded to the
+    compute dtype after every layer, autograd through it),
+    forward_logits_fused (the fused layer-group recipe of
+    ops/cuda/train_stack.py: f32 carry within a group, f32 cotangents),
+    loss_fn and score_fn;
   * decode: decode_step and its drivers; the whole-loop CUDA kernels
-    (ops/cuda/decode.py for R < 128, ops/cuda/decode_wide.py for R a
-    multiple of 128) compute the same loop on the card.
+    (ops/cuda/decode.py, ops/cuda/decode_wide.py) compute the same loop on
+    the card for the configs the reference's kernels take.
+cfg.compute_dtype sets the type of every matmul operand, activation,
+residual and ring, as the reference's _dtype(cfg) does: "bfloat16" rounds
+them as described above; "float32" keeps them in f32 (the products still
+summed in f64 and rounded once to f32).  kernel_size K > 2 adds the taps
+w_prevk [L, K-2, R, 2, R] at distances 2d..(K-1)d and embed_prevk
+[K-2, Q, E] at t-2..t-(K-1); causal_channels E != R adds w_embed_proj
+[E, R] after the embedding.  The CUDA kernels take none of these three
+(bf16, K = 2, E = R only, as the reference's Pallas kernels): such models
+train and decode here, on the plain path, on any device.
 With mel, every layer's gate adds y @ V_cond[l] after the bias, y the
 upsampled features: in training from the mel frames (`mel`) or given
 upsampled (`upsampled_cond`), in decode as per-step contributions cond_t
@@ -69,22 +79,29 @@ Params = Dict[str, torch.Tensor]
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(cfg: WaveNetConfig) -> torch.dtype:
+    """The torch dtype of cfg.compute_dtype (matmul operands, activations,
+    the residual stream and the decode rings)."""
+    check_supported(cfg)
+    return _DTYPES[cfg.compute_dtype]
+
+
 def check_supported(cfg: WaveNetConfig) -> None:
-    """Raise NotImplementedError for features the port does not serve yet,
-    naming the ROADMAP item that brings them."""
-    if cfg.kernel_size != 2:
+    """Raise NotImplementedError for a compute dtype the port does not
+    take (bfloat16 and float32 only)."""
+    if cfg.compute_dtype not in _DTYPES:
         raise NotImplementedError(
-            "kernel_size > 2 is not ported yet (ROADMAP queue 1 item 7)")
-    if cfg.embed_channels != cfg.residual_channels:
-        raise NotImplementedError(
-            "causal_channels != residual_channels (w_embed_proj) is not "
-            "ported yet (ROADMAP queue 1 item 2)")
+            f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
+            f"{sorted(_DTYPES)}")
 
 
 def check_trainable(cfg: WaveNetConfig) -> None:
     """Refuse what the training half (forward, loss, score, trainer) does
-    not take: the port trains every model it serves (mel and speaker
-    conditioning included), so this is check_supported."""
+    not take: the port trains every model it serves, so this is
+    check_supported."""
     check_supported(cfg)
 
 
@@ -95,17 +112,21 @@ def check_trainable(cfg: WaveNetConfig) -> None:
 def init_params(cfg: WaveNetConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random params with the reference's shapes and distributions: embed
-    tables (and g_embed) N(0, 0.05^2), stacked Glorot-uniform weights
-    (fan-in from the input axis, fan-out from the last), zero biases.
-    Drawn from `generator` (a CPU torch.Generator) and moved to `device`;
-    the values are not JAX's (the two RNGs differ)."""
+    tables (and g_embed, embed_prevk) N(0, 0.05^2), stacked Glorot-uniform
+    weights (fan-in from the input axis, fan-out from the last), zero
+    biases.  Drawn from `generator` (a CPU torch.Generator) and moved to
+    `device`; the values are not JAX's (the two RNGs differ).  The leaves
+    of K > 2 and E != R are drawn last, so a K = 2, E = R model draws what
+    it drew before they existed."""
     check_supported(cfg)
     L, R = cfg.num_layers, cfg.residual_channels
     S, Q = cfg.skip_channels, cfg.quantization_channels
+    E, K = cfg.embed_channels, cfg.kernel_size
     f32 = torch.float32
 
     def glorot(*shape):
-        fan_in = shape[1] if len(shape) == 4 else shape[-2]
+        # the leading L (and K-2) axes and the gate axis are batch axes
+        fan_in = shape[-3] if len(shape) >= 4 else shape[-2]
         fan_out = shape[-1]
         limit = (6.0 / (fan_in + fan_out)) ** 0.5
         u = torch.rand(shape, generator=generator, dtype=f32)
@@ -115,8 +136,8 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
         return torch.randn(shape, generator=generator, dtype=f32) * 0.05
 
     params = {
-        "embed_cur": normal(Q, R),
-        "embed_prev": normal(Q, R),
+        "embed_cur": normal(Q, E),
+        "embed_prev": normal(Q, E),
         "w_cur": glorot(L, R, 2, R),
         "w_prev": glorot(L, R, 2, R),
         "b": torch.zeros(L, 2, R),
@@ -137,6 +158,11 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
         G = cfg.global_channels
         params["g_embed"] = normal(cfg.global_classes, G)
         params["v_global"] = glorot(L, G, 2, R)
+    if K > 2:
+        params["w_prevk"] = glorot(L, K - 2, R, 2, R)
+        params["embed_prevk"] = normal(K - 2, Q, E)
+    if E != R:
+        params["w_embed_proj"] = glorot(E, R)
     return {k: v if isinstance(v, dict) else v.to(device)
             for k, v in params.items()}
 
@@ -145,17 +171,18 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
 # Numerics helpers
 # ---------------------------------------------------------------------------
 
-def _bf(x: torch.Tensor) -> torch.Tensor:
-    """Round to bf16 and hold the value in f32 (a no-op round for bf16)."""
-    return x.to(torch.bfloat16).to(torch.float32)
+def _round(x: torch.Tensor, cdt=torch.bfloat16) -> torch.Tensor:
+    """Round to the compute dtype cdt and hold the value in f32 (a no-op
+    for f32)."""
+    return x.to(cdt).to(torch.float32)
 
 
-def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[B, K] x [K, N] -> [B, N] f32: the exact product of the bf16-rounded
-    operands (summed in f64), rounded once to f32."""
+def _dot(a: torch.Tensor, w: torch.Tensor, cdt=torch.bfloat16) -> torch.Tensor:
+    """[B, K] x [K, N] -> [B, N] f32: the product of the operands rounded
+    to the compute dtype cdt, summed in f64 (exact for bf16 operands) and
+    rounded once to f32."""
     f64 = torch.float64
-    return (a.to(torch.bfloat16).to(f64)
-            @ w.to(torch.bfloat16).to(f64)).to(torch.float32)
+    return (a.to(cdt).to(f64) @ w.to(cdt).to(f64)).to(torch.float32)
 
 
 def global_cond_offsets(params: Params, cfg: WaveNetConfig,
@@ -163,14 +190,16 @@ def global_cond_offsets(params: Params, cfg: WaveNetConfig,
     """Speaker ids [B] -> per-layer gate offsets [L, B, 2, R] f32 (paper
     eq.2: one time-constant offset per layer and row, computed once per
     request batch): g_embed[speaker] @ v_global[l] with bf16 operands,
-    each dot summed exactly and rounded once (_dot).  Accepts model-layout
-    params or the decode kernels' layout (v_global folded to [L, G, 2R]).
-    The lookup is a _Gather, so in training two rows of one speaker add
-    their gradients in a fixed order (bit-exact resume)."""
+    each dot summed exactly and rounded once (_dot; f32 operands at
+    compute_dtype float32).  Accepts model-layout params or the decode
+    kernels' layout (v_global folded to [L, G, 2R]).  The lookup is a
+    _Gather, so in training two rows of one speaker add their gradients in
+    a fixed order (bit-exact resume)."""
     L, R, G = cfg.num_layers, cfg.residual_channels, cfg.global_channels
+    cdt = compute_dtype(cfg)
     gvec = _Gather.apply(params["g_embed"].float(), speaker.long())  # [B, G]
     v = params["v_global"].reshape(L, G, 2 * R)
-    return torch.stack([_dot(gvec, v[l]) for l in range(L)]).reshape(
+    return torch.stack([_dot(gvec, v[l], cdt) for l in range(L)]).reshape(
         L, -1, 2, R)
 
 
@@ -179,12 +208,27 @@ def global_cond_offsets(params: Params, cfg: WaveNetConfig,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
-                 prev_tokens: torch.Tensor) -> torch.Tensor:
-    """E_cur[tokens] + E_prev[prev_tokens], summed in f32 and rounded once
-    to bf16 -> residual stream [.., R] (f32 holding bf16 values)."""
+                 prev_tokens: torch.Tensor,
+                 prev_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """E_cur[tokens] + E_prev[prev_tokens] (+ embed_prevk[j][prev_extra[j]]
+    for the taps at t-2..t-(K-1) of a kernel_size K > 2 model), summed in
+    f32 and rounded once to the compute dtype; a model with E != R then
+    projects: x = round(x @ w_embed_proj).  -> residual stream [.., R]
+    (f32 holding compute-dtype values).  prev_extra: [K-2, *tokens.shape]."""
+    cdt = compute_dtype(cfg)
     x = (_Gather.apply(params["embed_cur"].float(), tokens.long())
          + _Gather.apply(params["embed_prev"].float(), prev_tokens.long()))
-    return _bf(x)
+    ek = params.get("embed_prevk")
+    if ek is not None:
+        if prev_extra is None:
+            raise ValueError("kernel_size > 2 model: embed_tokens needs the "
+                             "prev_extra taps (tokens at t-2..t-(K-1))")
+        for j in range(ek.shape[0]):
+            x = x + _Gather.apply(ek[j].float(), prev_extra[j].long())
+    x = _round(x, cdt)
+    if "w_embed_proj" in params:
+        x = _round(_dot(x, params["w_embed_proj"], cdt), cdt)
+    return x
 
 
 class _Gather(torch.autograd.Function):
@@ -211,9 +255,11 @@ class _Gather(torch.autograd.Function):
 def head_logits(params: Params, cfg: WaveNetConfig,
                 skip: torch.Tensor) -> torch.Tensor:
     """skip-sum -> ReLU -> 1x1 -> ReLU -> 1x1 (paper §2.4 Fig 4)."""
+    cdt = compute_dtype(cfg)
     h = torch.relu(skip)
-    h = torch.relu(_dot(h, params["head_w1"]) + params["head_b1"].float())
-    return _dot(h, params["head_w2"]) + params["head_b2"].float()
+    h = torch.relu(_dot(h, params["head_w1"], cdt)
+                   + params["head_b1"].float())
+    return _dot(h, params["head_w2"], cdt) + params["head_b2"].float()
 
 
 # ---------------------------------------------------------------------------
@@ -225,27 +271,44 @@ def _shifted_tokens(tokens: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(tokens[:, :1]), tokens[:, :-1]], dim=1)
 
 
+def _shifted_tokens_extra(tokens: torch.Tensor, K: int) -> torch.Tensor:
+    """[K-2, B, T] with entry j-2 holding tokens[t-j], zero-token filled
+    before the sequence start: the extra embed taps of kernel_size K > 2.
+    Pad-then-slice keeps the width at T even when T <= j."""
+    T = tokens.shape[1]
+    return torch.stack([torch.nn.functional.pad(tokens, (j, 0))[:, :T]
+                        for j in range(2, K)])
+
+
 def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
-                w_skip, b_skip, y=None, v_cond=None, gcond=None):
+                w_skip, b_skip, y=None, v_cond=None, gcond=None,
+                w_prevk=None, cdt=torch.bfloat16):
     """One gated residual layer over a whole sequence, the scan recipe:
-    z = (x @ W_cur + x[t-d] @ W_prev) + b in f32, then + y @ V_cond when y
+    z = (x @ W_cur + x[t-d] @ W_prev) [+ x[t-jd] @ W_prevk[j-2] for the
+    taps j = 2..K-1 of a K > 2 model] + b in f32, then + y @ V_cond when y
     (the upsampled mel features [B, T, M]) is given, then + gcond (the
-    speaker offsets [B, 2, R], broadcast over time), h = bf16(tanh * sigmoid),
-    skip = (skip + h @ W_skip) + b_skip, and the residual rounded once:
-    x' = bf16((x + h @ W_res) + b_res).  x: [B, T, R] f32 holding bf16
-    values; w_cur, w_prev: [R, 2, R]; b: [2, R]."""
+    speaker offsets [B, 2, R], broadcast over time), h = round(tanh *
+    sigmoid), skip = (skip + h @ W_skip) + b_skip, and the residual rounded
+    once: x' = round((x + h @ W_res) + b_res), every round to the compute
+    dtype cdt.  x: [B, T, R] f32 holding cdt values; w_cur, w_prev:
+    [R, 2, R]; b: [2, R]; w_prevk: [K-2, R, 2, R]; left_ctx: the
+    (K-1) maxd samples before x."""
     R = x.shape[-1]
     x_prev = shift_right(x, d, left_ctx)
-    z = ((_dot(x, w_cur.reshape(R, 2 * R)) + _dot(x_prev,
-                                                   w_prev.reshape(R, 2 * R)))
-         + b.reshape(2 * R).float())
+    z = (_dot(x, w_cur.reshape(R, 2 * R), cdt)
+         + _dot(x_prev, w_prev.reshape(R, 2 * R), cdt))
+    if w_prevk is not None:              # the order of decode_step's taps
+        for j in range(w_prevk.shape[0]):
+            z = z + _dot(shift_right(x, (j + 2) * d, left_ctx),
+                         w_prevk[j].reshape(R, 2 * R), cdt)
+    z = z + b.reshape(2 * R).float()
     if y is not None:
-        z = z + _dot(y, v_cond.reshape(y.shape[-1], 2 * R))
+        z = z + _dot(y, v_cond.reshape(y.shape[-1], 2 * R), cdt)
     if gcond is not None:
         z = z + gcond.reshape(-1, 1, 2 * R)
-    h = _bf(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]))
-    skip = (skip + _dot(h, w_skip)) + b_skip.float()
-    x = _bf((x + _dot(h, w_res)) + b_res.float())
+    h = _round(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]), cdt)
+    skip = (skip + _dot(h, w_skip, cdt)) + b_skip.float()
+    x = _round((x + _dot(h, w_res, cdt)) + b_res.float(), cdt)
     return x, skip
 
 
@@ -285,35 +348,58 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
                    prev_tokens: Optional[torch.Tensor] = None,
                    valid_mask=None, halo_fn=None,
                    upsampled_cond: Optional[torch.Tensor] = None,
-                   speaker=None) -> torch.Tensor:
+                   speaker=None,
+                   prev_tokens_extra: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """[B, T] int tokens -> [B, T, Q] f32 logits (logits[t] predicts t+1),
-    the reference's scan path: layer by layer, the residual rounded to bf16
-    after every layer; autograd differentiates it (cotangents through the
-    bf16 roundings are rounded as JAX's transposes round them).  With
-    cfg.remat each layer is recomputed in the backward
+    the reference's scan path: layer by layer, the residual rounded to the
+    compute dtype after every layer; autograd differentiates it
+    (cotangents through the bf16 roundings are rounded as JAX's transposes
+    round them).  With cfg.remat each layer is recomputed in the backward
     (torch.utils.checkpoint), as jax.checkpoint does.  mel: [B, F, M]
     frames (F * hop >= T) of a mel model, or upsampled_cond [B, T, M];
-    speaker: [B] int ids of a speaker model."""
-    if valid_mask is not None or halo_fn is not None:
+    speaker: [B] int ids of a speaker model.
+    prev_tokens: [B, T] tokens at t-1 (default: tokens shifted right, a
+      zero-token first); prev_tokens_extra: [K-2, B, T] tokens at
+      t-2..t-(K-1) of a kernel_size K > 2 model (default: zero-filled
+      shifts).  The naive oracle passes its window's true history in both.
+    valid_mask: [B, T] 0/1, the positions that exist.  The carry is zeroed
+      at masked positions before every layer, so each dilated read of one
+      returns the zero padding a shorter sequence would see: logits at
+      valid positions equal those of the valid suffix alone (the
+      reference's contract, wavenet_tpu/models/wavenet.py:272-281)."""
+    if halo_fn is not None:
         raise NotImplementedError(
-            "valid_mask and halo inputs of forward_logits are not ported yet "
-            "(ROADMAP queue 1 items 3 and 11)")
+            "the halo input of forward_logits (sequence parallelism) is not "
+            "ported yet (ROADMAP queue 1 item 11)")
     check_trainable(cfg)
     B, T = tokens.shape
+    K, cdt = cfg.kernel_size, compute_dtype(cfg)
     prev = _shifted_tokens(tokens) if prev_tokens is None else prev_tokens
-    x = embed_tokens(params, cfg, tokens, prev)
+    prev_extra = None
+    if K > 2:
+        prev_extra = (_shifted_tokens_extra(tokens, K)
+                      if prev_tokens_extra is None else prev_tokens_extra)
+    x = embed_tokens(params, cfg, tokens, prev, prev_extra)
     y = _mel_features(params, cfg, T, mel, upsampled_cond)
     g = _speaker_offsets(params, cfg, speaker)
+    vmask = (None if valid_mask is None else
+             torch.as_tensor(valid_mask, device=x.device).float()[..., None])
     skip = torch.zeros(B, T, cfg.skip_channels, device=x.device)
-    zeros_ctx = x.new_zeros(B, cfg.max_dilation, cfg.residual_channels)
+    zeros_ctx = x.new_zeros(B, (K - 1) * cfg.max_dilation,
+                            cfg.residual_channels)
     for l, d in enumerate(cfg.dilations):
         lp = [params[k][l] for k in ("w_cur", "w_prev", "b", "w_res",
                                      "b_res", "w_skip", "b_skip")]
-        kw = {}
+        kw = {"cdt": cdt}
         if y is not None:
             kw.update(y=y, v_cond=params["v_cond"][l])
         if g is not None:
             kw["gcond"] = g[l]
+        if K > 2:
+            kw["w_prevk"] = params["w_prevk"][l]
+        if vmask is not None:
+            x = x * vmask
         if cfg.remat and torch.is_grad_enabled():
             x, skip = checkpoint(_layer_step, x, skip, zeros_ctx, d, *lp,
                                  use_reentrant=False, **kw)
@@ -333,9 +419,15 @@ def forward_logits_fused(params: Params, cfg: WaveNetConfig,
     plain PyTorch (its params train through autograd) and y @ V_cond runs
     inside the stack's kernels; with a speaker the offsets g are computed
     here (g_embed and v_global train through autograd) and added inside
-    the kernels."""
+    the kernels.  The stack computes in bf16 at kernel_size 2 with E = R
+    only: any other model is refused here (it trains on the scan)."""
     from wavenet_tpu_torch.ops.cuda import train_stack
     check_trainable(cfg)
+    if not train_stack.config_taken(cfg):
+        raise ValueError(
+            "the fused stack takes kernel_size 2, causal_channels == "
+            "residual_channels and compute_dtype bfloat16 only; this model "
+            "trains on the scan (forward_logits)")
     x = embed_tokens(params, cfg, tokens, _shifted_tokens(tokens))
     y = _mel_features(params, cfg, tokens.shape[1], mel)
     g = _speaker_offsets(params, cfg, speaker)
@@ -397,11 +489,14 @@ def score_fn(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
 class DecodeState(NamedTuple):
     """Carried state of the fast decoder (arXiv:1611.09482 Fig 2).
 
-    queues: [sum_d, B, R] bf16 compact rings: layer l owns rows
-      [offset_l, offset_l + d_l); its slot at step t is offset_l + t mod d_l,
-      holding layer l's input from step t - d_l (read at t, then
-      overwritten with the current input).
-    prev_token: [B] int32 token at t-1.
+    queues: [sum_d, B, R] compact rings in the compute dtype: layer l owns
+      rows [offset_l, offset_l + d_l (K-1)); at step t it writes its input
+      to slot offset_l + t mod (d_l (K-1)) after reading tap j (j = 1..K-1)
+      at offset_l + (t - j d_l) mod (d_l (K-1)), its input from step
+      t - j d_l (zero before the sequence start).  At K = 2 that is the
+      length-d FIFO: read slot t mod d, then overwrite it.
+    prev_token: [B] int32 token at t-1 (K = 2); [B, K-1] for K > 2, column
+      j-1 holding the token at t-j.
     t: global step (Python int).
     """
     queues: torch.Tensor
@@ -410,21 +505,24 @@ class DecodeState(NamedTuple):
 
 
 def ring_offsets(cfg: WaveNetConfig) -> Tuple[Tuple[int, ...], int]:
-    """Static per-layer ring offsets and the total ring length sum_d."""
+    """Static per-layer ring offsets and the total ring length: layer l's
+    ring is d_l (K-1) rows, the history of its K-1 taps."""
     offs, acc = [], 0
     for d in cfg.dilations:
         offs.append(acc)
-        acc += d
+        acc += d * (cfg.kernel_size - 1)
     return tuple(offs), acc
 
 
 def decode_init(cfg: WaveNetConfig, batch: int, device) -> DecodeState:
     _, sum_d = ring_offsets(cfg)
+    K = cfg.kernel_size
+    prev = (torch.zeros(batch, dtype=torch.int32, device=device) if K == 2
+            else torch.zeros(batch, K - 1, dtype=torch.int32, device=device))
     return DecodeState(
         queues=torch.zeros(sum_d, batch, cfg.residual_channels,
-                           dtype=torch.bfloat16, device=device),
-        prev_token=torch.zeros(batch, dtype=torch.int32, device=device),
-        t=0)
+                           dtype=compute_dtype(cfg), device=device),
+        prev_token=prev, t=0)
 
 
 def decode_step(params: Params, cfg: WaveNetConfig, state: DecodeState,
@@ -434,41 +532,56 @@ def decode_step(params: Params, cfg: WaveNetConfig, state: DecodeState,
     """Advance one sample: consume `token` ([B] int32), return the updated
     state and the logits [B, Q] f32 for the next sample.  cond_t: [B, L, 2R]
     f32 gate contributions of this step (conditioning.project_cond), added
-    after the bias: z = ((x @ W_cur + old @ W_prev) + b) + cond_t[:, l];
+    after the bias: z = ((x @ W_cur + old @ W_prev) + b) + cond_t[:, l]
+    (a K > 2 model adds its taps old_j @ W_prevk[j-2] before the bias);
     gcond: the speaker offsets [L, B, 2R] (or [L, B, 2, R]) f32 of
     global_cond_offsets, added after that: z = z + gcond[l].
 
     Updates state.queues IN PLACE (one [B, R] row per layer) instead of
     copying the [sum_d, B, R] rings every step; callers that need the old
     rings clone them first.  Accepts model-layout params or the kernel
-    layout of ops/cuda/decode_wide.flatten_params (same keys, gate axis
-    folded, matrices in bf16)."""
-    L, R = cfg.num_layers, cfg.residual_channels
+    layout of ops/cuda/decode_common.flatten_params (same keys, gate axis
+    folded)."""
+    L, R, K = cfg.num_layers, cfg.residual_channels, cfg.kernel_size
+    cdt = compute_dtype(cfg)
     B = token.shape[0]
     w_cur = params["w_cur"].reshape(L, R, 2 * R)
     w_prev = params["w_prev"].reshape(L, R, 2 * R)
+    w_prevk = (None if K == 2 else
+               params["w_prevk"].reshape(L, K - 2, R, 2 * R))
     b = params["b"].reshape(L, 2 * R).float()
     b_res, b_skip = params["b_res"].float(), params["b_skip"].float()
     offs, _ = ring_offsets(cfg)
     queues = state.queues
 
-    x = embed_tokens(params, cfg, token, state.prev_token)      # [B, R]
+    if K == 2:
+        x = embed_tokens(params, cfg, token, state.prev_token)  # [B, R]
+    else:
+        x = embed_tokens(params, cfg, token, state.prev_token[:, 0],
+                         state.prev_token[:, 1:].T)
     skip = torch.zeros(B, cfg.skip_channels, device=x.device)
     for l, d in enumerate(cfg.dilations):
-        slot = offs[l] + state.t % d
-        old = queues[slot].float()
-        z = (_dot(x, w_cur[l]) + _dot(old, w_prev[l])) + b[l]   # [B, 2R]
+        ring = d * (K - 1)
+        old = [queues[offs[l] + (state.t - j * d) % ring].float()
+               for j in range(1, K)]                   # taps at t - j d
+        z = _dot(x, w_cur[l], cdt) + _dot(old[0], w_prev[l], cdt)
+        for j in range(K - 2):
+            z = z + _dot(old[j + 1], w_prevk[l, j], cdt)
+        z = z + b[l]                                     # [B, 2R]
         if cond_t is not None:
             z = z + cond_t[:, l]
         if gcond is not None:
             z = z + gcond[l].reshape(B, 2 * R)
-        h = _bf(torch.tanh(z[:, :R]) * torch.sigmoid(z[:, R:]))
-        skip = (skip + _dot(h, params["w_skip"][l])) + b_skip[l]
-        queues[slot] = x.to(torch.bfloat16)     # this layer's INPUT
-        x = _bf((x + _dot(h, params["w_res"][l])) + b_res[l])
+        h = _round(torch.tanh(z[:, :R]) * torch.sigmoid(z[:, R:]), cdt)
+        skip = (skip + _dot(h, params["w_skip"][l], cdt)) + b_skip[l]
+        queues[offs[l] + state.t % ring] = x.to(cdt)   # this layer's INPUT
+        x = _round((x + _dot(h, params["w_res"][l], cdt)) + b_res[l], cdt)
 
     logits = head_logits(params, cfg, skip)
-    return DecodeState(queues, token.to(torch.int32), state.t + 1), logits
+    token = token.to(torch.int32)
+    prev = (token if K == 2 else
+            torch.cat([token[:, None], state.prev_token[:, :-1]], dim=1))
+    return DecodeState(queues, prev, state.t + 1), logits
 
 
 def sample_tokens(logits: torch.Tensor, t: int, seeds: torch.Tensor,
@@ -547,7 +660,6 @@ def generate(params: Params, cfg: WaveNetConfig, num_samples: int,
     derived from it) or [batch] per-row counter-RNG seeds; cond: the
     per-step gate contributions of a mel model (see decode_prime);
     speaker: [batch] int ids of a speaker-conditioned model."""
-    check_supported(cfg)
     if (cond is None) != (cfg.mel is None):
         raise ValueError("cond is required with cfg.mel, and only then")
     if (speaker is None) != (cfg.global_classes is None):

@@ -1,4 +1,5 @@
-"""Whole-loop decode for narrow models (R < 128): the CUDA kernel
+"""Whole-loop decode for narrow models (R < 128, and any bf16 width-2
+width the wide kernel does not take whose block fits): the CUDA kernel
 (csrc/decode.cu) and its wrapper.
 
 Counterpart of wavenet_tpu/ops/pallas/decode.py (its `fits_vmem` and
@@ -47,21 +48,66 @@ MAX_ROWS = 16      # rows per block: one argmax warp per row of 512 threads
 _MAX_SMEM = 227 * 1024
 
 
+# the kernel's plan lives here and nowhere else: csrc/decode.cu takes the
+# segment counts, the partial-sum units and the shared-memory size from
+# wn_decode's arguments
+_THREADS = 512     # threads per block (decode.cu kThreads)
+_MIN_SEG = 8       # shortest K segment a phase splits into
+
+
+def _phase_segs(ndots: int, kmin: int) -> int:
+    """K segments per dot product of a phase with ndots dot products whose
+    shortest K is kmin: doubled while the phase has fewer units than the
+    block has threads and every segment keeps at least _MIN_SEG terms."""
+    s = 1
+    while ndots * s < _THREADS and (kmin + 2 * s - 1) // (2 * s) >= _MIN_SEG:
+        s *= 2
+    return s
+
+
+def plan(R: int, S: int, Q: int, M: int) -> Tuple[int, int, int, int, int]:
+    """The kernel's plan: (K segments per dot product of the z, skip +
+    residual, head 1 and head 2 phases, the partial-sum units of the
+    largest phase)."""
+    nz = 4 * R + (2 * R if M else 0)
+    z, sr = _phase_segs(nz, M if M and M < R else R), _phase_segs(S + R, R)
+    h1, h2 = _phase_segs(S, S), _phase_segs(Q, S)
+    return z, sr, h1, h2, max(nz * z, (S + R) * sr, S * h1, Q * h2)
+
+
+def smem_bytes(bt: int, L: int, R: int, S: int, Q: int, M: int) -> int:
+    """Shared memory of one block at bt rows per block, in the order
+    decode.cu lays it out: f64 [3R + 2S + M + units][bt] (matmul inputs
+    and partial sums), f32 [S + Q][bt] (skip sum, scores), int [3 bt + 2L]
+    (tokens, prevs, seeds, ring offsets, dilations)."""
+    units = plan(R, S, Q, M)[4]
+    return (8 * bt * (3 * R + 2 * S + M + units)
+            + 4 * (bt * (S + Q) + 3 * bt + 2 * L))
+
+
+def _cfg_smem(cfg: WaveNetConfig, bt: int) -> int:
+    M = 0 if cfg.mel is None else cfg.mel.num_mels
+    return smem_bytes(bt, cfg.num_layers, cfg.residual_channels,
+                      cfg.skip_channels, cfg.quantization_channels, M)
+
+
 def supported(cfg: WaveNetConfig) -> bool:
-    """Configs the narrow CUDA kernel serves: width-2 models with
-    R < 128, with or without mel and speaker conditioning (every R, S
-    and M the kernel's K-split dot products take; the presets use
-    R in {32, 64}, the tests R = 16)."""
-    return (cfg.residual_channels < 128 and cfg.kernel_size == 2
-            and cfg.embed_channels == cfg.residual_channels)
+    """Configs the narrow CUDA kernel serves: bf16 width-2 models with
+    E == R whose one-row block fits the shared memory, with or without mel
+    and speaker conditioning.  Its K-split dot products take any R, S and
+    M and its thread plan any width (a strided loop over the units of a
+    phase, one argmax warp per row); the presets use R in {32, 64}, the
+    tests R = 16, and the sampler sends it any width the wide kernel does
+    not take (generate/sampler.py kernel_module)."""
+    return (cfg.kernel_size == 2 and cfg.compute_dtype == "bfloat16"
+            and cfg.embed_channels == cfg.residual_channels
+            and _cfg_smem(cfg, 1) <= _MAX_SMEM)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wn_decode.argtypes = [p] * 24 + [i] * 11 + [f, i, p]
+    lib.wn_decode.argtypes = [p] * 24 + [i] * 11 + [f] + [i] * 7 + [p]
     lib.wn_decode.restype = i
-    lib.wn_decode_smem.argtypes = [i] * 6
-    lib.wn_decode_smem.restype = ctypes.c_size_t
     lib.wn_error_string.argtypes = [i]
     lib.wn_error_string.restype = ctypes.c_char_p
 
@@ -97,7 +143,8 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
         raise ValueError(f"decode_chunk: unsupported device {rings.device}")
     if not supported(cfg):
         raise ValueError("config not served by the narrow decode kernel "
-                         "(needs R < 128, kernel_size 2, no w_embed_proj)")
+                         "(needs kernel_size 2, bf16, no w_embed_proj and "
+                         "a one-row block within the shared memory)")
     y_k, num_forced = kernel_operands(w, cfg, rings, tokens_init, seeds,
                                       forced, y, g, num_steps)
     L, R, S, Q = (cfg.num_layers, cfg.residual_channels, cfg.skip_channels,
@@ -107,12 +154,16 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
     M = 0 if cfg.mel is None else cfg.mel.num_mels
     dev = rings.device
     lib = library()
-    bt = rows_per_block or tile_rows(
-        B, torch.cuda.get_device_properties(dev).multi_processor_count,
-        MAX_ROWS)
+    bt = rows_per_block
+    if bt is None:              # tile_rows' choice, halved until it fits
+        bt = tile_rows(
+            B, torch.cuda.get_device_properties(dev).multi_processor_count,
+            MAX_ROWS)
+        while bt > 1 and _cfg_smem(cfg, bt) > _MAX_SMEM:
+            bt //= 2
     if bt not in (1, 2, 4, 8, 16):
         raise ValueError(f"rows_per_block must be 1, 2, 4, 8 or 16; got {bt}")
-    smem = lib.wn_decode_smem(bt, L, R, S, Q, M)
+    smem = smem_bytes(bt, L, R, S, Q, M)
     if smem > _MAX_SMEM:
         raise ValueError(f"decode kernel needs {smem} bytes of shared "
                          f"memory per block (> {_MAX_SMEM})")
@@ -132,7 +183,8 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
             ptr(rings), ptr(rings_out), ptr(tokens), ptr(carry),
             L, R, S, Q, M, sum_d, B, int(num_steps), int(t0),
             num_forced, int(greedy),
-            0.0 if greedy else float(1.0 / temperature), bt, stream)
+            0.0 if greedy else float(1.0 / temperature), bt,
+            *plan(R, S, Q, M), smem, stream)
         (gc_launches if g is not None else
          mel_launches if M else launches).add()
     raise_on(lib, rc, "wn_decode")

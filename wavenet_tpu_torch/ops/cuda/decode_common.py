@@ -28,11 +28,15 @@ from wavenet_tpu_torch.ops.cuda import build
 
 class DecodeWeights(dict):
     """Model params in the kernels' layout (same key names): embed tables
-    f32 [Q, R]; w_cur/w_prev bf16 [L, R, 2R] (gate axis folded, [in, out]);
-    w_res bf16 [L, R, R]; w_skip bf16 [L, R, S]; head_w1/head_w2 bf16;
-    biases f32 with the gate axis folded (b [L, 2R]); dils int32 [L]; with
-    mel, v_cond bf16 [L, M, 2R]; with speakers, g_embed f32 [C, G] and
-    v_global bf16 [L, G, 2R] (read by speaker_offsets, not the kernels)."""
+    f32 [Q, E]; w_cur/w_prev [L, R, 2R] (gate axis folded, [in, out]);
+    w_res [L, R, R]; w_skip [L, R, S]; head_w1/head_w2; biases f32 with the
+    gate axis folded (b [L, 2R]); dils int32 [L]; with mel, v_cond
+    [L, M, 2R]; with speakers, g_embed f32 [C, G] and v_global [L, G, 2R]
+    (read by speaker_offsets, not the kernels).  Matrices are held in the
+    compute dtype (bf16, the kernels' type; f32 for a float32 model).  A
+    model no kernel takes also carries w_prevk [L, K-2, R, 2R] and
+    embed_prevk f32 [K-2, Q, E] (K > 2) and w_embed_proj [E, R] (E != R)
+    for the plain route."""
 
 
 def flatten_params(params, cfg: WaveNetConfig) -> DecodeWeights:
@@ -40,28 +44,32 @@ def flatten_params(params, cfg: WaveNetConfig) -> DecodeWeights:
     passes through unchanged, so callers may cache the result)."""
     if isinstance(params, DecodeWeights):
         return params
-    wn.check_supported(cfg)
-    L, R = cfg.num_layers, cfg.residual_channels
-    bf, f32 = torch.bfloat16, torch.float32
+    L, R, K = cfg.num_layers, cfg.residual_channels, cfg.kernel_size
+    cdt, f32 = wn.compute_dtype(cfg), torch.float32
     dev = params["w_cur"].device
     w = DecodeWeights(
         embed_cur=params["embed_cur"].to(f32),
         embed_prev=params["embed_prev"].to(f32),
-        w_cur=params["w_cur"].reshape(L, R, 2 * R).to(bf),
-        w_prev=params["w_prev"].reshape(L, R, 2 * R).to(bf),
+        w_cur=params["w_cur"].reshape(L, R, 2 * R).to(cdt),
+        w_prev=params["w_prev"].reshape(L, R, 2 * R).to(cdt),
         b=params["b"].reshape(L, 2 * R).to(f32),
-        w_res=params["w_res"].to(bf), b_res=params["b_res"].to(f32),
-        w_skip=params["w_skip"].to(bf), b_skip=params["b_skip"].to(f32),
-        head_w1=params["head_w1"].to(bf), head_b1=params["head_b1"].to(f32),
-        head_w2=params["head_w2"].to(bf), head_b2=params["head_b2"].to(f32),
+        w_res=params["w_res"].to(cdt), b_res=params["b_res"].to(f32),
+        w_skip=params["w_skip"].to(cdt), b_skip=params["b_skip"].to(f32),
+        head_w1=params["head_w1"].to(cdt), head_b1=params["head_b1"].to(f32),
+        head_w2=params["head_w2"].to(cdt), head_b2=params["head_b2"].to(f32),
         dils=torch.tensor(cfg.dilations, dtype=torch.int32, device=dev))
     if cfg.mel is not None:
         w["v_cond"] = params["v_cond"].reshape(
-            L, cfg.mel.num_mels, 2 * R).to(bf)
+            L, cfg.mel.num_mels, 2 * R).to(cdt)
     if cfg.global_classes is not None:
         w["g_embed"] = params["g_embed"].to(f32)
         w["v_global"] = params["v_global"].reshape(
-            L, cfg.global_channels, 2 * R).to(bf)
+            L, cfg.global_channels, 2 * R).to(cdt)
+    if K > 2:
+        w["w_prevk"] = params["w_prevk"].reshape(L, K - 2, R, 2 * R).to(cdt)
+        w["embed_prevk"] = params["embed_prevk"].to(f32)
+    if cfg.embed_channels != R:
+        w["w_embed_proj"] = params["w_embed_proj"].to(cdt)
     return DecodeWeights({k: v.detach().contiguous() for k, v in w.items()})
 
 
@@ -103,19 +111,23 @@ def decode_chunk_reference(w: DecodeWeights, cfg: WaveNetConfig,
     """Plain PyTorch version of both kernels' `decode_chunk`, built from
     models/wavenet.decode_step, models/conditioning.project_cond and
     ops/rng.py: the same signature, outputs and carry convention, on any
-    device."""
+    device.  It is also the whole decode of the plain route (a model no
+    kernel takes: K > 2, E != R or compute_dtype float32), whose rings are
+    in the compute dtype and whose carry is [B, K]: the next token, then
+    the tokens at t-1..t-(K-1)."""
     B = tokens_init.shape[0]
     check_y(cfg, y, B, num_steps)
     check_g(cfg, g, B)
-    state = wn.DecodeState(rings.clone(), tokens_init[:, 1].to(torch.int32),
-                           int(t0))
+    cdt = wn.compute_dtype(cfg)
+    prev = tokens_init[:, 1] if cfg.kernel_size == 2 else tokens_init[:, 1:]
+    state = wn.DecodeState(rings.clone(), prev.to(torch.int32), int(t0))
     token = tokens_init[:, 0].to(torch.int32)
     num_forced = 0 if forced is None else forced.shape[1]
     out = torch.empty(B, num_steps, dtype=torch.int32, device=rings.device)
     for t in range(num_steps):
         step = state.t
         cond_t = (None if y is None
-                  else conditioning.project_cond(w, y[:, t]))
+                  else conditioning.project_cond(w, y[:, t], cdt))
         state, logits = wn.decode_step(w, cfg, state, token, cond_t=cond_t,
                                        gcond=g)
         nxt = wn.sample_tokens(logits, step, seeds, temperature)
@@ -123,7 +135,7 @@ def decode_chunk_reference(w: DecodeWeights, cfg: WaveNetConfig,
         if step + 1 < num_forced:            # ... then the prime overrides
             nxt = forced[:, step + 1].to(torch.int32)
         token = nxt
-    carry = torch.stack([token, state.prev_token], dim=1)
+    carry = torch.cat([token[:, None], state.prev_token.reshape(B, -1)], 1)
     return out, state.queues, carry
 
 
@@ -158,17 +170,17 @@ def setup_decode(cfg: WaveNetConfig, batch: int, num_samples: int,
                  prime_tokens: Optional[torch.Tensor] = None, seeds=0,
                  device="cuda", w: Optional[DecodeWeights] = None,
                  speaker=None):
-    """Decode set-up shared by the one-shot and streaming drivers of both
-    kernels: zero rings [sum_d, B, R] bf16, the carry [B, 2] (first token:
-    the prime's first, else Q // 2; prev 0), per-row seeds, and the speaker
+    """Decode set-up shared by the one-shot and streaming drivers of every
+    route: zero rings [sum_d, B, R] in the compute dtype (bf16 for the
+    kernels), the carry [B, K] (first token: the prime's first, else
+    Q // 2; the history before it 0), per-row seeds, and the speaker
     offsets g of a speaker model (from w and speaker [B] ids; None
     otherwise).  Returns (rings, carry, seeds, g, P, total_steps), the
     reference's order (wavenet_tpu/ops/pallas/decode.py:495)."""
-    wn.check_supported(cfg)
     P = 0 if prime_tokens is None else prime_tokens.shape[1]
     _, sum_d = wn.ring_offsets(cfg)
     rings = torch.zeros(sum_d, batch, cfg.residual_channels,
-                        dtype=torch.bfloat16, device=device)
+                        dtype=wn.compute_dtype(cfg), device=device)
     if P:
         # token ids index the embed tables inside the kernel: refuse ids
         # from outside that would read past them
@@ -181,7 +193,9 @@ def setup_decode(cfg: WaveNetConfig, batch: int, num_samples: int,
     else:
         first = torch.full((batch,), cfg.quantization_channels // 2,
                            dtype=torch.int32, device=device)
-    carry = torch.stack([first, torch.zeros_like(first)], dim=1)
+    carry = torch.zeros(batch, cfg.kernel_size, dtype=torch.int32,
+                        device=device)
+    carry[:, 0] = first
     seeds = rng.as_row_seeds(seeds, batch, device)
     g = speaker_offsets(w, cfg, speaker, batch, device)
     return rings, carry, seeds, g, P, max(P - 1, 0) + num_samples

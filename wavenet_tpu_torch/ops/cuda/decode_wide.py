@@ -44,13 +44,13 @@ _MAX_SMEM = 227 * 1024
 
 
 def supported(cfg: WaveNetConfig) -> bool:
-    """Configs the wide CUDA kernel serves: width-2 models with R a
+    """Configs the wide CUDA kernel serves: bf16 width-2 models with R a
     multiple of 128 (like the TPU kernel it replaces) and S of 32, with or
-    without mel and speaker conditioning.  R < 128 is the narrow kernel's
-    (ops/cuda/decode.py)."""
+    without mel and speaker conditioning.  Other widths are the narrow
+    kernel's (ops/cuda/decode.py)."""
     R, S = cfg.residual_channels, cfg.skip_channels
     return (R >= 128 and R % 128 == 0 and S % 32 == 0 and cfg.kernel_size == 2
-            and cfg.embed_channels == R)
+            and cfg.compute_dtype == "bfloat16" and cfg.embed_channels == R)
 
 
 def block_threads(cfg: WaveNetConfig) -> int:
@@ -117,8 +117,8 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
         raise ValueError(f"decode_chunk: unsupported device {rings.device}")
     if not supported(cfg):
         raise ValueError("config not served by the wide decode kernel (needs "
-                         "R a multiple of 128, S of 32, kernel_size 2, no "
-                         "w_embed_proj)")
+                         "R a multiple of 128, S of 32, kernel_size 2, bf16, "
+                         "no w_embed_proj)")
     y_k, num_forced = kernel_operands(w, cfg, rings, tokens_init, seeds,
                                       forced, y, g, num_steps)
     L, R, S, Q = (cfg.num_layers, cfg.residual_channels, cfg.skip_channels,

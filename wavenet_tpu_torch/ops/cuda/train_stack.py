@@ -127,10 +127,19 @@ def group_plan(cfg: WaveNetConfig, TT: int) -> List[Tuple[int, int]]:
     return plan_dils(cfg, cfg.dilations, TT)
 
 
+def config_taken(cfg: WaveNetConfig) -> bool:
+    """Whether the stack computes cfg's model at all: kernel_size 2,
+    causal_channels == residual_channels and compute_dtype bfloat16 (the
+    kernels compute in bf16, as the reference's Pallas kernels do).  Every
+    other model trains on the scan (models/wavenet.forward_logits)."""
+    return (cfg.kernel_size == 2 and cfg.compute_dtype == "bfloat16"
+            and cfg.embed_channels == cfg.residual_channels)
+
+
 def supported(cfg: WaveNetConfig, T: int) -> bool:
-    """Whether the fused stack takes (cfg, T): width-2, a tileable T and a
-    feasible group plan (the reference's `supported`)."""
-    if cfg.kernel_size != 2:
+    """Whether the fused stack takes (cfg, T): config_taken, a tileable T
+    and a feasible group plan (the reference's `supported`)."""
+    if not config_taken(cfg):
         return False
     TT = pick_tile(cfg, T)
     return bool(TT) and bool(group_plan(cfg, TT))
@@ -527,6 +536,48 @@ class _GroupApply(torch.autograd.Function):
                 db.reshape(Lg, 2, R),
                 dwrs[..., :R], dbres, dwrs[..., R:],
                 dbskip.expand(Lg, S), dvc)
+
+
+def stack_forward(params, cfg: WaveNetConfig, groups, x: torch.Tensor, fwd,
+                  y=None, g=None):
+    """The whole stack's forward outside autograd, group by group, through
+    `fwd` (group_fwd, the kernel, or group_fwd_reference, the plain
+    version), with the bf16 mel features y of a mel model and the speaker
+    offsets g [L, B, 2, R] of a speaker model: (skip, [(dils, ops, xs, the
+    group's g)]).  The verify tool and chip_smoke.py hold the kernels
+    against the plain versions with it."""
+    B = x.shape[0]
+    skip = torch.zeros(*x.shape[:2], cfg.skip_channels, device=x.device)
+    saved = []
+    for lo, hi in groups:
+        dils = tuple(cfg.dilations[lo:hi])
+        ops = prep_weights(*(params[k][lo:hi] for k in GROUP_KEYS),
+                           None if y is None else params["v_cond"][lo:hi])
+        gg = None if g is None else g[lo:hi].transpose(0, 1).reshape(
+            B, hi - lo, -1).contiguous()
+        skip, x, xs = fwd(x, skip, ops, dils, y, gg)
+        saved.append((dils, ops, xs, gg))
+    return skip, saved
+
+
+def stack_backward(saved, dskip: torch.Tensor, bwd, y=None):
+    """The backward of stack_forward's `saved` through `bwd` (group_bwd or
+    group_bwd_reference): [(name, gradient)] (each group's dg with speaker
+    offsets), dx last, after it the mel features' dy summed over the
+    groups (a mel model)."""
+    dx = torch.zeros(*dskip.shape[:2], saved[0][2].shape[-1],
+                     device=dskip.device)
+    grads, dy = [], None
+    names = ("dwz", "db", "dwrs", "dbres", "dbskip", "dv_cond")
+    for gi, (dils, ops, xs, gg) in reversed(list(enumerate(saved))):
+        dx, *gw = bwd(xs, dskip, dx, ops, dils, y, gg)
+        if gg is not None:
+            grads.append((f"g{gi}.dg", gw.pop()))
+        if y is not None:
+            dy = gw[-1] if dy is None else dy + gw[-1]
+            gw = gw[:-1]
+        grads += [(f"g{gi}.{n}", g) for n, g in zip(names, gw)]
+    return grads + [("dx", dx)] + ([] if y is None else [("dy", dy)])
 
 
 def forward_skip_fused(params, cfg: WaveNetConfig, x: torch.Tensor,
