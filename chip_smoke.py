@@ -39,7 +39,9 @@ Phases (one line of numbers each):
      mean(|skip * ct|) (the loss itself is a cancelling sum near zero),
      every gradient max|d|/max|g| <= 2e-2 (the reference suite's bands),
      two kernel runs bit-identical; kernel and plain ms of the whole
-     stack's forward and backward at both shapes (the table reports B=8);
+     stack's forward and backward at both shapes (the table reports B=8),
+     and the backward's device ms by kernel name at B=8
+     (utils/profiling.kernel_split, torch.profiler);
   5. trained and served: python -m wavenet_tpu_torch.train's main() on
      `full` (synthetic data, B=8, window 8192) for 6 steps with a
      checkpoint at step 3; the counters are read right after that run
@@ -589,14 +591,15 @@ def loss_rel(loss_k: float, loss_p: float, skip_p, ct) -> float:
 
 
 def stack_bound(cfg, groups, B: int, T: int) -> dict:
-    """Least time of the whole stack's forward and backward at [B, T]: the
-    forward's products (bf16 operands) at the bf16 peak; the backward's
-    recompute of z at the bf16 peak plus its four f32 products (dh, dz
-    @ Wz^T, dWz, dWrs) at the f32 peak; with mel, y @ V_cond in the
-    forward and the recompute (bf16 peak) and dV_cond and dy in the
-    backward (f32 peak); against the bytes each must move (input and
-    output activations, y, the speaker offsets g in and dg out as f32, the
-    bf16 layer-input stash, weights).  A speaker adds no products."""
+    """Least time of the whole stack's forward and backward at [B, T],
+    priced as the kernels compute: every product on bf16 tensor cores at
+    the bf16 peak.  The forward's products and the backward's recompute of
+    z (bf16 operands, with mel y @ V_cond too) are one bf16 pass each; the
+    backward's products with an f32 cotangent (dh, dz @ Wz^T, dWz, dWrs,
+    with mel dV_cond and dy) split the f32 operand into three bf16 terms,
+    so each is three bf16 passes.  Against the bytes each must move (input
+    and output activations, y, the speaker offsets g in and dg out as f32,
+    the bf16 layer-input stash, weights).  A speaker adds no products."""
     L, R, S = cfg.num_layers, cfg.residual_channels, cfg.skip_channels
     nm = 0 if cfg.mel is None else cfg.mel.num_mels
     M = B * T
@@ -606,9 +609,8 @@ def stack_bound(cfg, groups, B: int, T: int) -> dict:
     fwd_ops = 2 * M * L * (4 * R * R + R * (R + S) + 2 * R * nm) / PEAK_BF16
     fwd_bytes = (4 * M * R + 4 * M * S + 2 * M * nm + stash + wbytes
                  + gbytes) / PEAK_BYTES
-    bwd_ops = (2 * M * L * (4 * R * R + 2 * R * nm) / PEAK_BF16
-               + 2 * M * L * (2 * R * (R + S) + 8 * R * R + 4 * R * nm)
-               / PEAK_F32)
+    bwd_ops = 2 * M * L * (4 * R * R + 2 * R * nm + 3 * (
+        2 * R * (R + S) + 8 * R * R + 4 * R * nm)) / PEAK_BF16
     bwd_bytes = (stash + 4 * M * S + 4 * M * R + 6 * M * nm + 3 * wbytes
                  + 2 * gbytes) / PEAK_BYTES
     out = {}
@@ -648,6 +650,7 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
     for the forward and backward kernels at the last batch."""
     import numpy as np
     import torch
+    from wavenet_tpu_torch.utils import profiling
     TT = ts.pick_tile(cfg, TS_T)
     groups = ts.group_plan(cfg, TT)
     check(len(groups) == num_groups,
@@ -721,11 +724,17 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
             bwd_p = cuda_ms(lambda: ts.stack_backward(
                 p[3], dsk, ts.group_bwd_reference, y), 3)
             times[B] = (fwd_k, fwd_p, bwd_k, bwd_p, skip_err, grad_err)
-            del k, p
             print(f"phase {phase} train_stack times B={B} T={TS_T}: "
                   f"fwd_kernel_ms={fwd_k} fwd_plain_ms={fwd_p} "
                   f"bwd_kernel_ms={bwd_k} bwd_plain_ms={bwd_p} "
                   f"card={card!r}", flush=True)
+            if B == batches[-1]:
+                split = profiling.kernel_split(lambda: ts.stack_backward(
+                    k[3], dsk, ts.group_bwd, y))
+                print(f"phase {phase} train_stack bwd split B={B} T={TS_T}: "
+                      f"device ms by kernel {json.dumps(split)} "
+                      f"card={card!r}", flush=True)
+            del k, p
     bound = stack_bound(cfg, groups, batches[-1], TS_T)
     fk, fp, bk, bp, skip_err, grad_err = times[batches[-1]]
     return {"fwd": {"max_abs_err": skip_err, "ms": fk, "plain_ms": fp,

@@ -90,12 +90,15 @@ def test_decode_kernel_chunked_equals_one_shot(dev, small):
 @pytest.mark.parametrize("R,S,B,T,dmax", [(128, 256, 2, 256, 16),
                                           (64, 96, 3, 200, 64),
                                           (32, 16, 2, 128, 8),
-                                          (16, 16, 2, 64, 8)])
+                                          (16, 16, 2, 64, 8),
+                                          (20, 12, 2, 200, 8)])
 def test_train_stack_kernels_match_plain(dev, R, S, B, T, dmax):
     """One layer group forward and backward: kernel vs plain, and two
     kernel runs bit for bit (ragged row tiles in the second case, the
     `tiny` preset's widths in the third, a contraction shorter than one
-    staged slice of W in the last)."""
+    staged slice of W in the fourth; in the last, widths that end in a
+    partial k16 slice and a partial n8 tile of the backward's MMAs, with
+    ragged row tiles)."""
     cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
                                 residual_channels=R, skip_channels=S)
     g = torch.Generator().manual_seed(3)
@@ -249,7 +252,8 @@ def test_decode_kernel_mel_equals_plain(dev, num_mels, temp):
 
 @pytest.mark.parametrize("R,S,nm,B,T,dmax", [(128, 256, 80, 2, 256, 16),
                                              (64, 96, 8, 3, 200, 64),
-                                             (32, 16, 16, 2, 64, 8)])
+                                             (32, 16, 16, 2, 64, 8),
+                                             (20, 12, 8, 2, 200, 8)])
 def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     """The mel variants of one layer group's forward and backward: kernel
     vs plain within the reference suite's bands (dv_cond and dy
@@ -289,7 +293,8 @@ def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
 
 @pytest.mark.parametrize("R,S,nm,B,T,dmax", [(128, 256, 0, 2, 256, 16),
                                              (64, 96, 8, 3, 200, 64),
-                                             (32, 16, 0, 3, 1100, 8)])
+                                             (32, 16, 0, 3, 1100, 8),
+                                             (20, 12, 0, 2, 200, 8)])
 def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     """The speaker variants (g [B, Lg, 2R]; with mel in the second case)
     of one layer group's forward and backward: kernel vs plain within the

@@ -1,0 +1,86 @@
+"""The backward stack's plans that live in Python, on the CPU.
+
+* Shared memory: `_bwd_smem` is the one plan of a backward layer block's
+  shared memory (the library takes it as an argument and refuses less
+  than its layout needs), and `_widths_taken` accepts exactly the widths
+  the kernels took before the plan moved there.
+* The bound `chip_smoke.py` prints beside the kernels' times, as the
+  kernels compute the products (three bf16 passes per product with an f32
+  cotangent, at the bf16 peak).
+* The profiler's kernel names, as `chip_smoke.py` prints the backward's
+  split by kernel.
+"""
+
+import os
+import sys
+
+import pytest
+
+from wavenet_tpu_torch import config as tconfig
+from wavenet_tpu_torch.ops.cuda import train_stack as ts
+from wavenet_tpu_torch.utils import profiling
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _taken_before(R, S, nm):
+    """The widths the kernels took with the backward's plan written in
+    both csrc/train_stack.cu (bwd_smem) and Python."""
+    fwd = (2 * 64 * 2 * R + 32 * 128) * 4
+    bwd = (64 * max(2 * R, R + S) + 64 * 2 * R + 32 * 128) * 4
+    return (R % 4 == 0 and S % 4 == 0 and nm % 4 == 0 and nm <= 2 * R
+            and max(fwd, bwd) <= 227 * 1024)
+
+
+@pytest.mark.parametrize("r_lo", range(4, 513, 64))
+def test_widths_taken_are_the_parents(r_lo):
+    """For every R in [r_lo, r_lo + 64), S in {4, 8, ..., 512} and nm in
+    {0, 4, ..., 2R} (R a multiple of 4): taken now exactly when taken
+    before (R = 128, S = 256 at 176 KiB in, R = 256, S = 512 out)."""
+    for R in range(r_lo, r_lo + 64, 4):
+        for S in range(4, 513, 4):
+            for nm in range(0, 2 * R + 1, 4):
+                assert ts._widths_taken(R, S, nm) == _taken_before(
+                    R, S, nm), (R, S, nm)
+    if r_lo <= 128 < r_lo + 64:
+        assert ts._bwd_smem(128, 256) == 176 * 1024
+        assert ts._widths_taken(128, 256, 80)
+    if r_lo <= 256 < r_lo + 64:
+        assert not ts._widths_taken(256, 512)
+
+
+def _stack_bound(preset, num_groups):
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    cfg = getattr(tconfig, preset)()
+    groups = ts.group_plan(cfg, ts.pick_tile(cfg, 8192))
+    assert len(groups) == num_groups
+    return chip_smoke.stack_bound(cfg, groups, 8, 8192)
+
+
+@pytest.mark.parametrize("preset,groups,fwd_ms,bwd_ms", [
+    ("full", 5, 0.608, 3.996), ("full_vocoder", 6, 0.717, 4.755)])
+def test_stack_bound_prices_the_products_on_tensor_cores(preset, groups,
+                                                         fwd_ms, bwd_ms):
+    """B = 8, T = 8192: the backward's bound counts each f32-cotangent
+    product as three bf16 passes at the bf16 peak (it was 18.30 ms at
+    `full` with them at the f32 CUDA-core peak); both bounded by
+    operations."""
+    b = _stack_bound(preset, groups)
+    assert b["fwd"]["bound_ms"] == pytest.approx(fwd_ms, rel=5e-3)
+    assert b["bwd"]["bound_ms"] == pytest.approx(bwd_ms, rel=5e-3)
+    assert b["fwd"]["bound_by"] == b["bwd"]["bound_by"] == "operations"
+    assert b["fwd"]["library_ms"] is None and b["bwd"]["library_ms"] is None
+
+
+def test_kernel_names():
+    assert [profiling.kernel_name(n) for n in (
+        "void (anonymous namespace)::wgrad_kernel<1>(__nv_bfloat16 const*, "
+        "float const*, int, float*)",
+        "void (anonymous namespace)::bwd_layer_kernel(float const*)",
+        "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n")] == [
+        "wgrad_kernel<1>", "bwd_layer_kernel",
+        "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n"]

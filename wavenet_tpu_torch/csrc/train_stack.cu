@@ -56,10 +56,30 @@
 //     fixed-order split-K: each block sums its share of rows into a private
 //     partial, and a second pass adds the partials in split order.  No
 //     float atomics, so two runs give the same bits (exact resume).
-//   * Products are blocked in shared memory and summed with f32 FMAs on the
-//     CUDA cores (bf16 operand values are exact in f32).  That caps the
-//     kernels at the f32 rate; tensor cores (mma.sync / wgmma), TMA and
-//     tiling for them are later work.
+//   * The backward's products that carry an f32 cotangent (dh = dcat @
+//     Wrs^T, dboth = dz @ Wz^T, with mel dy = dz @ V_cond^T, and the
+//     weight gradients dWz = xcat^T dz, dWrs = h^T dcat, dV_cond = y^T dz)
+//     run on the tensor cores: warp-level mma.sync m16n8k16 with bf16
+//     operands and f32 sums.  The reference keeps those cotangents f32
+//     (rounding them to bf16 hurt convergence), so each f32 operand is
+//     split in registers, as its fragment is loaded, into three bf16
+//     terms, hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid),
+//     and each tile takes three MMAs in a fixed order (lo, mid, hi).  The
+//     other operand is bf16-exact, so every partial product is exact and
+//     the sum carries the cotangent's 24 bits.  The tensor cores' own f32
+//     accumulation is not round-to-nearest, so it runs over one staged
+//     slice only (6 MMAs): each slice's sum is added to an f32 total in
+//     registers.  The bf16 operand is
+//     staged by cp.async in two stages; the f32 one stays where the
+//     kernel holds it (the layer kernel's tiles) or is staged as f32 (the
+//     weight gradients'), in layouts whose fragment reads hit distinct
+//     banks.  Three bf16 passes per product put the backward's bound at
+//     ~4.0 ms at `full`, B = 8, T = 8192 (operations at the bf16 peak).
+//   * Still on the CUDA cores, with f32 FMAs over bf16 operands staged as
+//     f32: the forward's products and the backward's recompute of z and
+//     h (gemm_pass, shared by both so that the recomputed h equals the
+//     forward's bit for bit).  Moving them to the tensor cores together
+//     is the next step; TMA, wgmma and warp specialisation come after.
 //
 // The plain PyTorch versions (ops/cuda/train_stack.py:
 // group_fwd_reference, group_bwd_reference) follow the same recipe.
@@ -75,7 +95,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;   // 16 x 16 threads: 4 rows x 8 columns each
+constexpr int kThreads = 256;   // gemm_pass: 16 x 16 threads, 4 rows x 8
+                                // columns each; the MMA passes: 8 warps
 constexpr int kTM = 64;         // rows per block in the row kernels
 constexpr int kKC = 32;         // contraction rows of W staged at a time
 constexpr int kNP = 128;        // output columns per pass
@@ -298,11 +319,209 @@ __global__ void init_carry_kernel(const float* __restrict__ x_in,
 }
 
 // ---------------------------------------------------------------------------
+// tensor-core building blocks of the backward (mma.sync, bf16 in, f32 sum)
+// ---------------------------------------------------------------------------
+
+constexpr int kPL = 72;    // wgrad P_s row stride (bf16): ldmatrix rows on
+                           // distinct banks
+constexpr int kQL = 132;   // wgrad Q_s row stride (f32): B-fragment reads
+                           // on distinct banks
+
+// d += a . b, one m16n8k16 tile: a row-major bf16 [16][16] (4 regs), b
+// column-major bf16 [16][8] (2 regs), c and d f32 [16][8] (4 regs).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Split the f32 pair (x0, x1) into three bf16 pairs, hi + mid + lo: each
+// term is the rounding of what the terms before it left, so the three
+// carry the pair's 24 significand bits (x0 in the low halves).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  x0 -= __low2float(h);
+  x1 -= __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(x0, x1);
+  x0 -= __low2float(m);
+  x1 -= __high2float(m);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(m);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+}
+
+// Asynchronous copies into shared memory; with !ok the destination is
+// zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until every committed group has landed.
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Where column k of row r of an f32 tile with row stride K lies in shared
+// memory: bits 2-4 of k XOR the row's low three bits inside the row's
+// whole 32-column blocks (the tail stays in place), so the eight rows of
+// an A fragment read distinct banks.
+__device__ __forceinline__ int swz(int r, int k, int K) {
+  return k < (K & ~31) ? k ^ ((r & 7) << 2) : k;
+}
+
+// Where column k of row n of a staged [128][32] bf16 slice of W lies: its
+// 16-byte unit k / 8 XOR bits 1-2 of n, so B-fragment reads of eight rows
+// hit distinct banks.
+__device__ __forceinline__ int wsw(int n, int k) {
+  return n * kKC + ((((k >> 3) ^ (n >> 1)) & 3) << 3) + (k & 7);
+}
+
+// One pass of acc = A . W^T over a 64-row by 128-column output tile on the
+// tensor cores.  A: f32 [64][K] in shared memory, laid out by swz; W(n, k)
+// = w[n * ldw + k] bf16, columns n = n0 + c for c < 128, rows n >= N read
+// as zero.  Warp w owns rows 16 (w % 4) + [0, 16) and columns
+// 64 (w / 4) + [0, 64): eight n8 tiles, acc[j] the C fragment of tile j
+// (frag_row / frag_col).  The A fragment is split hi/mid/lo in registers
+// (split3) and each tile takes three MMAs into a per-stage sum added to
+// acc; W is staged as bf16 by cp.async in two stages of [128][32] (W_s:
+// 16 KiB), one barrier a stage.
+// K is a multiple of 4; a last slice past K's whole 32-column blocks is
+// read unswizzled and masked (both operands zero past K).  Starts with a
+// barrier, so the caller's writes to A_s are seen; the caller may write
+// A_s or W_s again only after another barrier.
+__device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
+                                           const bf16* __restrict__ w,
+                                           int ldw, int N, int n0, bf16* W_s,
+                                           float acc[8][4]) {
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int kStage = kNP * kKC;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+  // this thread's copies: slice rows cn + 32 i, columns ck + [0, 4)
+  const int cn = tid >> 3, ck = (tid & 7) * 4;
+  bf16* const cdst = W_s + wsw(cn, ck);   // wsw(cn + 32 i, ck) - 32 i kKC
+  const bf16* const csrc = w + (size_t)(n0 + cn) * ldw + ck;
+  auto stage = [&](int buf, int k0) {
+    const bool kok = k0 + ck < K;
+#pragma unroll
+    for (int i = 0; i < kNP / 32; ++i) {
+      const bool ok = kok && n0 + cn + 32 * i < N;
+      cp_async8(cdst + buf * kStage + i * 32 * kKC,
+                ok ? csrc + (size_t)32 * i * ldw + k0 : w, ok);
+    }
+  };
+  // this thread's fragment reads: A rows r0 and r0 + 8 (both r = g mod 8)
+  // at slice columns a_col[k16][h] = 16 k16 + 8 h + 2 t, swizzled; B row
+  // c0 + 8 j of the slice at columns 8 u + 2 t: b_base + 8 j kKC + b_off[u]
+  const int r0 = (wp & 3) * 16 + g;
+  const float* const a_row = A_s + r0 * K;
+  int a_col[2][2], b_off[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    a_col[u >> 1][u & 1] = (8 * u + 2 * t) ^ (g << 2);
+    b_off[u] = (((u ^ (g >> 1)) & 3) << 3) + 2 * t;
+  }
+  const int b_base = ((wp >> 2) * 64 + g) * kKC;
+  const int ns = (K + kKC - 1) / kKC, nsw = K / kKC;
+  __syncthreads();
+  stage(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait0();
+    __syncthreads();
+    if (s + 1 < ns) {
+      stage((s + 1) & 1, (s + 1) * kKC);
+      cp_async_commit();
+    }
+    const bf16* Wb = W_s + (s & 1) * kStage + b_base;
+    float2 a[2][4];
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int roff = (q & 1) * 8 * K;
+        if (s < nsw) {
+          a[k16][q] = *reinterpret_cast<const float2*>(
+              a_row + roff + s * kKC + a_col[k16][q >> 1]);
+        } else {
+          const int kc = s * kKC + 16 * k16 + 8 * (q >> 1) + 2 * t;
+          a[k16][q] = kc < K ? *reinterpret_cast<const float2*>(
+                                   a_row + roff + kc)
+                             : make_float2(0.f, 0.f);
+        }
+      }
+    float sacc[8][4] = {};   // this stage's sum
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) {
+      if (s * kKC + 16 * k16 >= K) break;
+      uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split3(a[k16][q].x, a[k16][q].y, hi[q], mid[q], lo[q]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t b[2] = {
+            *reinterpret_cast<const uint32_t*>(Wb + j * 8 * kKC +
+                                               b_off[2 * k16]),
+            *reinterpret_cast<const uint32_t*>(Wb + j * 8 * kKC +
+                                               b_off[2 * k16 + 1])};
+        mma_bf16(sacc[j], lo, b);       // fixed order: lo, mid, hi
+        mma_bf16(sacc[j], mid, b);
+        mma_bf16(sacc[j], hi, b);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[j][v] += sacc[j][v];
+  }
+}
+
+// The tile row and column (within the 64 x 128 pass) of element v of the
+// C fragment of n8 tile j in mma_pass_t.
+__device__ __forceinline__ int frag_row(int v) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) +
+         (v >> 1) * 8;
+}
+
+__device__ __forceinline__ int frag_col(int j, int v) {
+  return (threadIdx.x >> 7) * 64 + j * 8 + (threadIdx.x & 3) * 2 + (v & 1);
+}
+
+// ---------------------------------------------------------------------------
 // backward: one layer over all B*T rows
 // ---------------------------------------------------------------------------
 
-// Recompute z and h from the stored layer input, then dh, dz and
-// dboth = dz @ Wz^T.  Writes h (bf16) and dz for the weight gradients,
+// Recompute z and h from the stored layer input (CUDA cores, the
+// forward's code), then dh, dz and dboth = dz @ Wz^T (tensor cores,
+// mma_pass_t).  Writes h (bf16) and dz for the weight gradients,
 // dx_out = dx_in + dboth_cur, and dprev = dboth_prev for the shift pass.
 // With mel (nm > 0) also dy = dz @ V_cond^T, added to dy unless dy_first;
 // with a speaker (gl) the recompute adds the row's offset.
@@ -320,11 +539,12 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
   extern __shared__ float smem[];
   const int R2 = 2 * R, NO = R + S;
   const int la = R2 > NO ? R2 : NO;
-  float* a_s = smem;                  // xcat, y, then dcat [64][R+S]
+  // a_s: xcat, y, then dcat [64][R+S], then dz [64][2R] (both by swz)
+  float* a_s = smem;
   float* z_s = a_s + kTM * la;        // z, then (tanh, sigmoid), then dz
-  float* W_s = z_s + kTM * R2;
+  float* W_s = z_s + kTM * R2;        // f32 [kKC][kNP], then bf16 stages
   const int m0 = blockIdx.x * kTM;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x;
 
   load_xcat(a_s, xs_in, m0, M, T, R, d);
   compute_z(a_s, z_s, W_s, wz, b, R);
@@ -338,24 +558,30 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
     z_s[r * R2 + c] = tf;
     z_s[r * R2 + R + c] = sg;
   }
-  for (int e = tid; e < kTM * NO; e += kThreads) {
-    const int r = e / NO, j = e % NO, m = m0 + r;
-    float v = 0.f;
-    if (m < M)
-      v = j < R ? dx_in[(size_t)m * R + j] : dskip[(size_t)m * S + (j - R)];
-    a_s[r * NO + j] = v;
+  // dcat = [dx | dskip] by cp.async, 4 columns a copy (swz moves whole
+  // groups of 4), zero past row M
+  for (int e = tid; e < kTM * NO / 4; e += kThreads) {
+    const int r = e / (NO / 4), j = (e - r * (NO / 4)) * 4, m = m0 + r;
+    const bool ok = m < M;
+    cp_async16(&a_s[r * NO + swz(r, j, NO)],
+               !ok ? dskip
+               : j < R ? dx_in + (size_t)m * R + j
+                       : dskip + (size_t)m * S + (j - R),
+               ok);
   }
-  float acc[4][8];
+  cp_async_commit();
+  cp_async_wait0();
+  bf16* Wb_s = reinterpret_cast<bf16*>(W_s);
+  float acc[8][4];
   for (int n0 = 0; n0 < R; n0 += kNP) {
-    gemm_pass<true>(a_s, NO, NO, wrs, NO, R, n0, W_s, acc);
+    mma_pass_t(a_s, NO, wrs, NO, R, n0, Wb_s, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, m = m0 + r;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + tx + 16 * j;
+      for (int v = 0; v < 4; ++v) {
+        const int r = frag_row(v), c = n0 + frag_col(j, v), m = m0 + r;
         if (c >= R) continue;
-        const float dh = acc[i][j];
+        const float dh = acc[j][v];
         const float tf = z_s[r * R2 + c], sg = z_s[r * R2 + R + c];
         const float dzf = dh * sg * (1.f - tf * tf);
         const float dzg = dh * tf * sg * (1.f - sg);
@@ -366,41 +592,42 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
           dz_g[(size_t)m * R2 + R + c] = dzg;
         }
       }
-    }
+  }
+  // dz, the A operand of the remaining products, moves to a_s (dcat is
+  // spent) in the swizzled layout
+  __syncthreads();
+  for (int e = tid; e < kTM * R2 / 4; e += kThreads) {
+    const int r = e / (R2 / 4), c = (e - r * (R2 / 4)) * 4;
+    *reinterpret_cast<float4*>(&a_s[r * R2 + swz(r, c, R2)]) =
+        *reinterpret_cast<const float4*>(&z_s[r * R2 + c]);
   }
   for (int n0 = 0; n0 < R2; n0 += kNP) {
-    gemm_pass<true>(z_s, R2, R2, wz, R2, R2, n0, W_s, acc);
+    mma_pass_t(a_s, R2, wz, R2, R2, n0, Wb_s, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty * 4 + i;
-      if (m >= M) continue;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n >= R2) continue;
+      for (int v = 0; v < 4; ++v) {
+        const int m = m0 + frag_row(v), n = n0 + frag_col(j, v);
+        if (m >= M || n >= R2) continue;
         if (n < R) {
           const size_t o = (size_t)m * R + n;
-          dx_out[o] = dx_in[o] + acc[i][j];
+          dx_out[o] = dx_in[o] + acc[j][v];
         } else {
-          dprev[(size_t)m * R + (n - R)] = acc[i][j];
+          dprev[(size_t)m * R + (n - R)] = acc[j][v];
         }
       }
-    }
   }
   for (int n0 = 0; n0 < nm; n0 += kNP) {
-    gemm_pass<true>(z_s, R2, R2, vc, R2, nm, n0, W_s, acc);
+    mma_pass_t(a_s, R2, vc, R2, nm, n0, Wb_s, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty * 4 + i;
-      if (m >= M) continue;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n >= nm) continue;
+      for (int v = 0; v < 4; ++v) {
+        const int m = m0 + frag_row(v), n = n0 + frag_col(j, v);
+        if (m >= M || n >= nm) continue;
         const size_t o = (size_t)m * nm + n;
-        dy[o] = dy_first ? acc[i][j] : dy[o] + acc[i][j];
+        dy[o] = dy_first ? acc[j][v] : dy[o] + acc[j][v];
       }
-    }
   }
 }
 
@@ -418,6 +645,13 @@ __global__ void shift_add_kernel(float* __restrict__ dx,
 // of P(m, i) * Q(m, j).  kMode 0: P = xcat (2R), Q = dz (2R) -> dWz.
 // kMode 1: P = h (R), Q = [dx | dskip] (R + S) -> dWrs.
 // kMode 2: P = y (nm), Q = dz (2R) -> dV_cond.
+// A block owns the [64 x 128] output tile (i0, j0) as C = P^T Q on the
+// tensor cores, the rows m the contraction: P (bf16) and Q (f32) are
+// staged 32 rows at a time by cp.async in two stages, P's A fragments
+// read transposed by ldmatrix, Q's B fragments split hi/mid/lo in
+// registers (split3), each stage's MMAs summed apart and added to acc, one
+// barrier a stage.  Warp w owns all 64 columns i
+// and the columns j0 + 16 w + [0, 16): four m16 by two n8 tiles.
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const bf16* __restrict__ xs, const float* __restrict__ dz,
@@ -425,68 +659,122 @@ wgrad_kernel(const bf16* __restrict__ xs, const float* __restrict__ dz,
              const float* __restrict__ dskip, const bf16* __restrict__ y,
              int M, int T, int R, int S, int nm, int d, int rows_per_split,
              float* __restrict__ part) {
-  __shared__ __align__(16) float P_s[kWM * 64];
-  __shared__ __align__(16) float Q_s[kWM * kNP];
+  __shared__ __align__(16) bf16 P_s[2][kWM * kPL];
+  __shared__ __align__(16) float Q_s[2][kWM * kQL];
   const int NP = kMode == 0 ? 2 * R : kMode == 1 ? R : nm;
   const int NQ = kMode == 1 ? R + S : 2 * R;
   const int i0 = blockIdx.x * 64, j0 = blockIdx.y * kNP;
   const int s = blockIdx.z;
   const int mb = s * rows_per_split;
   const int me = min(M, mb + rows_per_split);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  float acc[4][8];
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[4][2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[a][b][v] = 0.f;
 
-  for (int m0 = mb; m0 < me; m0 += kWM) {
-    __syncthreads();
-    for (int e = tid; e < kWM * 64; e += kThreads) {
-      const int mm = e / 64, ii = e % 64, m = m0 + mm, i = i0 + ii;
-      float v = 0.f;
-      if (m < me && i < NP)
-        v = kMode == 0 ? xcat_at(xs, m, i, T, R, d)
-            : kMode == 1 ? __bfloat162float(h[(size_t)m * R + i])
-                         : __bfloat162float(y[(size_t)m * nm + i]);
-      P_s[e] = v;
-    }
-    for (int e = tid; e < kWM * kNP; e += kThreads) {
-      const int mm = e / kNP, jj = e % kNP, m = m0 + mm, j = j0 + jj;
-      float v = 0.f;
-      if (m < me && j < NQ) {
-        if (kMode != 1)
-          v = dz[(size_t)m * NQ + j];
-        else
-          v = j < R ? dx[(size_t)m * R + j] : dskip[(size_t)m * S + (j - R)];
+  auto stage = [&](int buf, int m0) {
+    for (int e = tid; e < kWM * 16; e += kThreads) {   // 4 bf16 per copy
+      const int mm = e >> 4, ii = (e & 15) * 4, m = m0 + mm, i = i0 + ii;
+      const bf16* src = xs;
+      bool ok = m < me && i < NP;
+      if (ok) {
+        if (kMode == 0) {
+          if (i < R)
+            src = xs + (size_t)m * R + i;
+          else if (m % T < d)
+            ok = false;
+          else
+            src = xs + (size_t)(m - d) * R + (i - R);
+        } else {
+          src = kMode == 1 ? h + (size_t)m * R + i : y + (size_t)m * nm + i;
+        }
       }
-      Q_s[e] = v;
+      cp_async8(&P_s[buf][mm * kPL + ii], src, ok);
     }
+    for (int e = tid; e < kWM * kNP / 4; e += kThreads) {   // 4 f32 per copy
+      const int mm = e >> 5, jj = (e & 31) * 4, m = m0 + mm, j = j0 + jj;
+      const bool ok = m < me && j < NQ;
+      const float* src = dz;
+      if (ok)
+        src = kMode != 1 ? dz + (size_t)m * NQ + j
+              : j < R    ? dx + (size_t)m * R + j
+                         : dskip + (size_t)m * S + (j - R);
+      cp_async16(&Q_s[buf][mm * kQL + jj], src, ok);
+    }
+  };
+
+  const int ns = (me - mb + kWM - 1) / kWM;
+  stage(0, mb);
+  cp_async_commit();
+  for (int st = 0; st < ns; ++st) {
+    cp_async_wait0();
     __syncthreads();
-#pragma unroll 4
-    for (int mm = 0; mm < kWM; ++mm) {
-      const float4 p = *reinterpret_cast<const float4*>(&P_s[mm * 64 + ty * 4]);
-      float q[8];
+    if (st + 1 < ns) {
+      stage((st + 1) & 1, mb + (st + 1) * kWM);
+      cp_async_commit();
+    }
+    const bf16* P = P_s[st & 1];
+    const float* Q = Q_s[st & 1];
+    float sacc[4][2][4] = {};   // this stage's sum
 #pragma unroll
-      for (int j = 0; j < 8; ++j) q[j] = Q_s[mm * kNP + tx + 16 * j];
+    for (int kk = 0; kk < kWM; kk += 16) {
+      uint32_t bh[2][2], bm[2][2], bl[2][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = comp(p, i);
+      for (int nt = 0; nt < 2; ++nt) {
+        const int c = wp * 16 + nt * 8 + g;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv, q[j], acc[i][j]);
+        for (int q = 0; q < 2; ++q) {
+          const int r = kk + q * 8 + 2 * t;
+          split3(Q[r * kQL + c], Q[(r + 1) * kQL + c], bh[nt][q], bm[nt][q],
+                 bl[nt][q]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        // lanes 8 q + r address row kk + 8 (q / 2) + r, columns
+        // 16 mt + 8 (q % 2) + [0, 8) of P_s: the four 8 x 8 blocks of
+        // the A fragment, transposed
+        const int q = lane >> 3;
+        const unsigned addr = (unsigned)__cvta_generic_to_shared(
+            &P[(kk + (q >> 1) * 8 + (lane & 7)) * kPL + mt * 16 +
+               (q & 1) * 8]);
+        uint32_t a[4];
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+            "{%0,%1,%2,%3}, [%4];\n"
+            : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+            : "r"(addr));
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_bf16(sacc[mt][nt], a, bl[nt]);  // fixed order: lo, mid, hi
+          mma_bf16(sacc[mt][nt], a, bm[nt]);
+          mma_bf16(sacc[mt][nt], a, bh[nt]);
+        }
       }
     }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mt][nt][v] += sacc[mt][nt][v];
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ii = i0 + ty * 4 + i;
-    if (ii >= NP) continue;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int jj = j0 + tx + 16 * j;
-      if (jj < NQ) part[((size_t)s * NP + ii) * NQ + jj] = acc[i][j];
-    }
-  }
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int ii = i0 + mt * 16 + g + (v >> 1) * 8;
+        const int jj = j0 + wp * 16 + nt * 8 + 2 * t + (v & 1);
+        if (ii < NP && jj < NQ)
+          part[((size_t)s * NP + ii) * NQ + jj] = acc[mt][nt][v];
+      }
 }
 
 // Column-sum partials of src [B T][N], segmented by batch row: split
@@ -527,7 +815,10 @@ size_t fwd_smem(int R) {
   return (size_t)(2 * kTM * 2 * R + kKC * kNP) * sizeof(float);
 }
 
-size_t bwd_smem(int R, int S) {
+// The least shared memory a backward block's layout needs: a_s [64][la],
+// z_s [64][2R], W_s (16 KiB).  The caller plans the size it passes
+// (ops/cuda/train_stack.py: _bwd_smem); a smaller one is refused.
+size_t bwd_smem_needed(int R, int S) {
   const int la = 2 * R > R + S ? 2 * R : R + S;
   return (size_t)(kTM * la + kTM * 2 * R + kKC * kNP) * sizeof(float);
 }
@@ -606,7 +897,10 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
 // also dg [M / T, Lg, 2R].  Scratch: dxa, dxb, dprev [M, R]; dz [M, 2R];
 // h [M, R] bf16; part [nsplit * max(4R^2, R(R+S), 2R nm)]; bpart
 // [nsplit * max(2R, S)], and with a speaker at least
-// [(M / T) * ceil(T / rows_per_split) * 2R].
+// [(M / T) * ceil(T / rows_per_split) * 2R].  smem: the bytes of shared
+// memory a layer block gets (at least bwd_smem_needed).  R, S and nm are
+// multiples of 4, every f32 operand 16-byte aligned and every bf16 one
+// 8-byte aligned (the cp.async copies).
 int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
                     const bf16* wz, const float* b, const bf16* wrs,
                     const bf16* y, const bf16* vc, const float* g,
@@ -615,13 +909,13 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
                     float* dbres, float* dvc, float* dy, float* dg,
                     float* dxa, float* dxb, float* dprev, float* dz, bf16* h,
                     float* part, float* bpart, int rows_per_split,
-                    int* launched, void* stream) {
+                    int smem, int* launched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
   const int R2 = 2 * R, NO = R + S;
   const int nsplit = (M + rows_per_split - 1) / rows_per_split;
-  const size_t smem = bwd_smem(R, S);
-  if (nm < 0 || nm % 4 || nm > (R2 > NO ? R2 : NO) ||
+  if (smem < 0 || (size_t)smem < bwd_smem_needed(R, S) || R % 4 || S % 4 ||
+      nm < 0 || nm % 4 || nm > (R2 > NO ? R2 : NO) ||
       (nm > 0) != (y && vc && dvc && dy) || (g != nullptr) != (dg != nullptr) ||
       T <= 0 || M % T)
     return (int)cudaErrorInvalidValue;

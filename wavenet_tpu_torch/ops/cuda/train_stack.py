@@ -151,15 +151,18 @@ def _fwd_smem(R: int) -> int:
 
 
 def _bwd_smem(R: int, S: int) -> int:
-    """Shared memory of a backward block (train_stack.cu: bwd_smem)."""
+    """Shared memory of a backward layer block, the one plan of it: f32
+    [64][max(2R, R + S)] (xcat, y, then dcat, then dz) + f32 [64][2R] (z,
+    then dz) + 16 KiB of staged weights; group_bwd passes it to the
+    library, which refuses a size smaller than its layout needs."""
     return (64 * max(2 * R, R + S) + 64 * 2 * R + 32 * 128) * 4
 
 
 def _widths_taken(R: int, S: int, nm: int = 0) -> bool:
     """R, S and the mel count nm multiples of 4 (the kernels read rows of
-    shared memory as float4), nm at most 2R (y rows are staged where xcat
-    was), and a backward tile that fits one block's shared memory
-    (R = 128, S = 256 needs 176 KiB)."""
+    shared memory as float4 and copy rows in groups of 4), nm at most 2R
+    (y rows are staged where xcat was), and a backward tile that fits one
+    block's shared memory (R = 128, S = 256 needs 176 KiB)."""
     return (R % 4 == 0 and S % 4 == 0 and nm % 4 == 0 and nm <= 2 * R
             and max(_fwd_smem(R), _bwd_smem(R, S)) <= _MAX_SMEM)
 
@@ -323,7 +326,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wn_ts_group_fwd.argtypes = [p] * 15 + [i] * 6 + [p, p]
     lib.wn_ts_group_fwd.restype = i
-    lib.wn_ts_group_bwd.argtypes = [p] * 10 + [i] * 6 + [p] * 15 + [i, p, p]
+    lib.wn_ts_group_bwd.argtypes = ([p] * 10 + [i] * 6 + [p] * 15
+                                    + [i, i, p, p])
     lib.wn_ts_group_bwd.restype = i
     lib.wn_ts_colsum.argtypes = [p, i, i, p, p, i, p, p]
     lib.wn_ts_colsum.restype = i
@@ -450,6 +454,14 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
     build.check_tensor("dskip", dskip, (B, T, S), f32, dev)
     build.check_tensor("dx_out", dx_out, (B, T, R), f32, dev)
     nm = _check_ops(ops, Lg, R, S, dev, y, B, T, g)
+    # the backward's cp.async copies read 8 or 16 bytes at a time; fresh
+    # allocations start on such a boundary, a view into one may not
+    for name, t in (("xs", xs), ("dskip", dskip), ("dx_out", dx_out),
+                    ("y", y), ("wz", ops[0]), ("wrs", ops[2]),
+                    ("v_cond", ops[5] if nm else None)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"group_bwd: {name} must start on a 16-byte "
+                             f"boundary")
     nsplit = -(-M // ROWS_PER_SPLIT)
     e = lambda *shape, dtype=f32: torch.empty(*shape, dtype=dtype, device=dev)
     dx_in, dwz, db = e(B, T, R), e(Lg, 2 * R, 2 * R), e(Lg, 2 * R)
@@ -478,7 +490,7 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
             _ptr(dy), _ptr(dg), dxa.data_ptr(),
             dxb.data_ptr(), dprev.data_ptr(), dz.data_ptr(), h.data_ptr(),
             part.data_ptr(), bpart.data_ptr(), ROWS_PER_SPLIT,
-            ctypes.byref(n), stream)
+            _bwd_smem(R, S), ctypes.byref(n), stream)
         if rc == 0:
             rc = lib.wn_ts_colsum(dskip.data_ptr(), M, S, dbskip.data_ptr(),
                                   bpart.data_ptr(), ROWS_PER_SPLIT,

@@ -57,6 +57,36 @@ def _busy_ms(spans: List[Tuple[float, float]]) -> float:
     return total / 1e3
 
 
+def kernel_name(name: str) -> str:
+    """A device event's kernel name without its namespace and argument
+    list, template arguments kept: "void (anonymous
+    namespace)::wgrad_kernel<1>(...)" -> "wgrad_kernel<1>"."""
+    head = name[len("void "):] if name.startswith("void ") else name
+    return head.replace("(anonymous namespace)::", "").split("(", 1)[0]
+
+
+def kernel_split(fn, calls: int = 1) -> Dict[str, float]:
+    """Device ms per call of fn() by kernel name (kernel_name), largest
+    first, recorded by torch.profiler over `calls` calls after one
+    unrecorded call.  fn runs on the card (it synchronises the device)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = kernel_name(e.name)
+        out[k] = out.get(k, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def step_breakdown(trainer, steps: int = 3) -> Dict:
     """Profile `steps` train steps after _WARMUP unprofiled ones."""
     from torch.profiler import ProfilerActivity, profile
