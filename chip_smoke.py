@@ -40,8 +40,8 @@ Phases (one line of numbers each):
      every gradient max|d|/max|g| <= 2e-2 (the reference suite's bands),
      two kernel runs bit-identical; kernel and plain ms of the whole
      stack's forward and backward at both shapes (the table reports B=8),
-     and the backward's device ms by kernel name at B=8
-     (utils/profiling.kernel_split, torch.profiler);
+     and the forward's and the backward's device ms by kernel name at
+     B=8 (utils/profiling.kernel_split, torch.profiler);
   5. trained and served: python -m wavenet_tpu_torch.train's main() on
      `full` (synthetic data, B=8, window 8192) for 6 steps with a
      checkpoint at step 3; the counters are read right after that run
@@ -592,14 +592,16 @@ def loss_rel(loss_k: float, loss_p: float, skip_p, ct) -> float:
 
 def stack_bound(cfg, groups, B: int, T: int) -> dict:
     """Least time of the whole stack's forward and backward at [B, T],
-    priced as the kernels compute: every product on bf16 tensor cores at
-    the bf16 peak.  The forward's products and the backward's recompute of
-    z (bf16 operands, with mel y @ V_cond too) are one bf16 pass each; the
-    backward's products with an f32 cotangent (dh, dz @ Wz^T, dWz, dWrs,
-    with mel dV_cond and dy) split the f32 operand into three bf16 terms,
-    so each is three bf16 passes.  Against the bytes each must move (input
-    and output activations, y, the speaker offsets g in and dg out as f32,
-    the bf16 layer-input stash, weights).  A speaker adds no products."""
+    every product on tensor cores at the bf16 peak.  The forward's
+    products and the backward's recompute of z (bf16 operands, with mel
+    y @ V_cond too) are one bf16 pass each (the kernels sum them exactly
+    on the f64 tensor cores instead, whose peak puts that design's floor
+    ~15x higher; PERF.md §6); the backward's products with an f32
+    cotangent (dh, dz @ Wz^T, dWz, dWrs, with mel dV_cond and dy) split
+    the f32 operand into three bf16 terms, so each is three bf16 passes.
+    Against the bytes each must move (input and output activations, y,
+    the speaker offsets g in and dg out as f32, the bf16 layer-input
+    stash, weights).  A speaker adds no products."""
     L, R, S = cfg.num_layers, cfg.residual_channels, cfg.skip_channels
     nm = 0 if cfg.mel is None else cfg.mel.num_mels
     M = B * T
@@ -729,11 +731,15 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
                   f"bwd_kernel_ms={bwd_k} bwd_plain_ms={bwd_p} "
                   f"card={card!r}", flush=True)
             if B == batches[-1]:
-                split = profiling.kernel_split(lambda: ts.stack_backward(
-                    k[3], dsk, ts.group_bwd, y))
-                print(f"phase {phase} train_stack bwd split B={B} T={TS_T}: "
-                      f"device ms by kernel {json.dumps(split)} "
-                      f"card={card!r}", flush=True)
+                for what, fn in (
+                        ("fwd", lambda: ts.stack_forward(
+                            params, cfg, groups, x, ts.group_fwd, y, g)),
+                        ("bwd", lambda: ts.stack_backward(
+                            k[3], dsk, ts.group_bwd, y))):
+                    print(f"phase {phase} train_stack {what} split B={B} "
+                          f"T={TS_T}: device ms by kernel "
+                          f"{json.dumps(profiling.kernel_split(fn))} "
+                          f"card={card!r}", flush=True)
             del k, p
     bound = stack_bound(cfg, groups, batches[-1], TS_T)
     fk, fp, bk, bp, skip_err, grad_err = times[batches[-1]]

@@ -10,11 +10,12 @@ Decode (the narrow kernel, R < 128, and the wide one): both sides sum
 every dot product exactly (f64) and round once, so each kernel must equal
 the plain version bit for bit, in every variant (unconditional, mel,
 speaker, mel + speaker) and whatever the rows per block.  Training stack
-(unconditional, mel, speaker, mel + speaker): both sides sum bf16-valued
-products in f32 in different orders, so they agree within the reference
-suite's bands (test_pallas_train.py:96-103), and two kernel runs agree bit
-for bit.  chip_smoke.py repeats these checks at the
-`full` preset's widths.
+(unconditional, mel, speaker, mel + speaker): the forward sums its bf16
+products exactly on both sides, so kernel and plain forwards are equal bit
+for bit; the backward's f32-cotangent products sum in f32 in different
+orders, so gradients agree within the reference suite's bands
+(test_pallas_train.py:96-103); two kernel runs agree bit for bit.
+chip_smoke.py repeats these checks at the `full` preset's widths.
 """
 
 import pytest
@@ -91,14 +92,16 @@ def test_decode_kernel_chunked_equals_one_shot(dev, small):
                                           (64, 96, 3, 200, 64),
                                           (32, 16, 2, 128, 8),
                                           (16, 16, 2, 64, 8),
-                                          (20, 12, 2, 200, 8)])
+                                          (20, 12, 2, 200, 8),
+                                          (128, 256, 2, 1024, 128)])
 def test_train_stack_kernels_match_plain(dev, R, S, B, T, dmax):
     """One layer group forward and backward: kernel vs plain, and two
     kernel runs bit for bit (ragged row tiles in the second case, the
     `tiny` preset's widths in the third, a contraction shorter than one
-    staged slice of W in the fourth; in the last, widths that end in a
-    partial k16 slice and a partial n8 tile of the backward's MMAs, with
-    ragged row tiles)."""
+    staged slice of W in the fourth; in the fifth, widths that end in a
+    partial k16 slice and a partial n8 tile of the MMAs, with ragged row
+    tiles and 8-byte copies of xcat; in the last, a `full` group of 8
+    layers, dilations up to 128)."""
     cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
                                 residual_channels=R, skip_channels=S)
     g = torch.Generator().manual_seed(3)
@@ -121,6 +124,8 @@ def test_train_stack_kernels_match_plain(dev, R, S, B, T, dmax):
     assert (ts.fwd_launches.value, ts.bwd_launches.value) == (
         before[0] + Lg + 1, before[1] + 10 * Lg + 2)
     torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
+    # the forward's products are summed exactly on both sides
+    assert all(torch.equal(a, b) for a, b in zip(kf, pf))
     for a, b in zip(kb, pb):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 2e-2 * scale
@@ -283,6 +288,8 @@ def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
                         before[2], before[3])
     assert len(kb) == len(pb) == 8
     torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
+    # the forward's products are summed exactly on both sides
+    assert all(torch.equal(a, b) for a, b in zip(kf, pf))
     for a, b in zip(kb, pb):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 2e-2 * scale
@@ -294,15 +301,19 @@ def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
 @pytest.mark.parametrize("R,S,nm,B,T,dmax", [(128, 256, 0, 2, 256, 16),
                                              (64, 96, 8, 3, 200, 64),
                                              (32, 16, 0, 3, 1100, 8),
-                                             (20, 12, 0, 2, 200, 8)])
+                                             (20, 12, 0, 2, 200, 8),
+                                             (128, 256, 24, 2, 200, 16),
+                                             (64, 96, 20, 3, 200, 64)])
 def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
-    """The speaker variants (g [B, Lg, 2R]; with mel in the second case)
-    of one layer group's forward and backward: kernel vs plain within the
+    """The speaker variants (g [B, Lg, 2R]; with mel where nm > 0) of one
+    layer group's forward and backward: kernel vs plain within the
     reference suite's bands, dg included, two kernel runs bit for bit, and
     (12 + 2 mel) Lg + 2 backward launches counted as speaker launches
     only.  T = 200 and 1100 are not multiples of the 64-row tile (a tile
     spans two batch rows), and T = 1100 gives each batch row two splits
-    of ROWS_PER_SPLIT rows in dg's segmented sum."""
+    of ROWS_PER_SPLIT rows in dg's segmented sum.  nm = 24 and 20 end in
+    a partial k16 step of the mel product, and nm = 20 takes 8-byte
+    copies of y."""
     cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
                                 residual_channels=R, skip_channels=S)
     g = torch.Generator().manual_seed(8)
@@ -331,6 +342,8 @@ def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     assert len(kb) == len(pb) == (9 if nm else 7)
     assert kb[-1].shape == (B, Lg, 2 * R)
     torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
+    # the forward's products are summed exactly on both sides
+    assert all(torch.equal(a, b) for a, b in zip(kf, pf))
     for a, b in zip(kb, pb):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 2e-2 * scale

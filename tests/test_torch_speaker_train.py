@@ -145,8 +145,10 @@ def _bf_st(x):
 @pytest.mark.parametrize("mel", [False, True], ids=["speaker", "mel_speaker"])
 def test_group_bwd_reference_dg_matches_autograd(mel):
     """The written-out backward with g (and y) against autograd of a
-    straight-through copy of the plain forward: dg [B, Lg, 2R], each row's
-    sum of dz over time, and the other gradients beside it."""
+    straight-through copy of the plain forward (its products summed
+    exactly, `_mm`, so the copy's skip equals the plain forward's bit for
+    bit): dg [B, Lg, 2R], each row's sum of dz over time, and the other
+    gradients beside it."""
     R, S, M, B = 16, 16, 8, 3
     dils = (1, 2, 4, 8, 1)
     Lg = len(dils)
@@ -172,12 +174,12 @@ def test_group_bwd_reference_dg_matches_autograd(mel):
     carry, sk = xin, skip
     for l, d in enumerate(dils):
         xb = _bf_st(carry)
-        z = torch.cat([xb, tts._causal(xb, d)], -1) @ wz[l] + b[l]
+        z = tts._mm(torch.cat([xb, tts._causal(xb, d)], -1), wz[l]) + b[l]
         if mel:
-            z = z + y.float() @ ops[5][l].float()
+            z = z + tts._mm(y.float(), ops[5][l])
         z = z + gl[:, l, None]
         h = _bf_st(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]))
-        o = h @ wrs[l]
+        o = tts._mm(h, wrs[l])
         carry = (carry + o[..., :R]) + bres[l]
         sk = (sk + o[..., R:]) + ops[4][l]
     loss = (sk * dskip).sum() + (_bf_st(carry) * dxout).sum()

@@ -1,20 +1,25 @@
-"""The backward stack's plans that live in Python, on the CPU.
+"""The stack kernels' plans that live in Python, on the CPU.
 
-* Shared memory: `_bwd_smem` is the one plan of a backward layer block's
-  shared memory (the library takes it as an argument and refuses less
-  than its layout needs), and `_widths_taken` accepts exactly the widths
-  the kernels took before the plan moved there.
+* Shared memory: `_fwd_smem` and `_bwd_smem` are the one plans of a
+  forward and a backward layer block's shared memory (the library takes
+  each as an argument and refuses less than its layout needs), the
+  wrappers pass them, and `_widths_taken` accepts exactly the widths the
+  kernels took before the plans moved there.
 * The bound `chip_smoke.py` prints beside the kernels' times, as the
   kernels compute the products (three bf16 passes per product with an f32
   cotangent, at the bf16 peak).
-* The profiler's kernel names, as `chip_smoke.py` prints the backward's
-  split by kernel.
+* The profiler's kernel names, as `chip_smoke.py` prints the forward's
+  and the backward's split by kernel.
 """
 
+import contextlib
+import ctypes
 import os
 import sys
+import types
 
 import pytest
+import torch
 
 from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.ops.cuda import train_stack as ts
@@ -49,6 +54,63 @@ def test_widths_taken_are_the_parents(r_lo):
         assert not ts._widths_taken(256, 512)
 
 
+@pytest.mark.parametrize("preset,fwd,bwd", [
+    ("full", 83968, 176 * 1024), ("full_vocoder", 95232, 176 * 1024),
+    ("tiny", 47104, 49152)])
+def test_layer_block_plans_per_preset(preset, fwd, bwd):
+    """The forward block: bf16 tiles [64][K + 8] of xcat (2R), h (R) and,
+    with mel, y (M), and two f64 [16][128] weight stages (32 KiB): 82 KiB
+    at `full`, 93 KiB with mel, so two blocks fit an SM's 227 KiB.  The
+    backward block keeps its parent's size at these widths."""
+    cfg = getattr(tconfig, preset)()
+    R, S = cfg.residual_channels, cfg.skip_channels
+    nm = 0 if cfg.mel is None else cfg.mel.num_mels
+    assert ts._fwd_smem(R, nm) == fwd
+    assert ts._bwd_smem(R, S, nm) == bwd
+    assert ts._bwd_smem(R, S, nm) == (64 * max(2 * R, R + S) + 64 * 2 * R
+                                      + 32 * 128) * 4
+    if preset != "tiny":
+        assert 2 * ts._fwd_smem(R, nm) <= 232448
+
+
+class _Lib:
+    """Records the arguments of the library's entry points."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("nm", [0, 24])
+def test_wrappers_pass_the_plans(monkeypatch, nm):
+    """group_fwd and group_bwd hand the library `_fwd_smem(R, nm)` and
+    `_bwd_smem(R, S, nm)`, the argument before the launch count (traced
+    with the library and the stream stubbed, on meta tensors)."""
+    R, S, B, T, dils = 20, 12, 2, 16, (1, 2)
+    lib = _Lib()
+    monkeypatch.setattr(ts, "_prepare", lambda x, S, dils, what, y=None: (
+        lib, tuple(x.shape), (ctypes.c_int * len(dils))(*dils)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    e = lambda *shape, dtype=torch.float32: torch.empty(
+        *shape, dtype=dtype, device="meta")
+    bf = torch.bfloat16
+    ops = (e(2, 2 * R, 2 * R, dtype=bf), e(2, 2 * R), e(2, R, R + S, dtype=bf),
+           e(2, R), e(2, S)) + ((e(2, nm, 2 * R, dtype=bf),) if nm else ())
+    y = e(B, T, nm, dtype=bf) if nm else None
+    _, _, xs = ts.group_fwd(e(B, T, R), e(B, T, S), ops, dils, y)
+    assert lib.calls["wn_ts_group_fwd"][-3] == ts._fwd_smem(R, nm)
+    ts.group_bwd(xs, e(B, T, S), e(B, T, R), ops, dils, y)
+    assert lib.calls["wn_ts_group_bwd"][-3] == ts._bwd_smem(R, S, nm)
+
+
 def _stack_bound(preset, num_groups):
     sys.path.insert(0, ROOT)
     try:
@@ -81,6 +143,8 @@ def test_kernel_names():
         "void (anonymous namespace)::wgrad_kernel<1>(__nv_bfloat16 const*, "
         "float const*, int, float*)",
         "void (anonymous namespace)::bwd_layer_kernel(float const*)",
+        "void (anonymous namespace)::fwd_layer_kernel(__nv_bfloat16 const*, "
+        "float*, __nv_bfloat16*, float*, float const*, float*, int)",
         "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n")] == [
-        "wgrad_kernel<1>", "bwd_layer_kernel",
+        "wgrad_kernel<1>", "bwd_layer_kernel", "fwd_layer_kernel",
         "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n"]

@@ -28,6 +28,8 @@
 // S = 256, B = 8, T = 8192) the forward is ~0.6 TFLOP and the backward
 // ~1.5 TFLOP of dense products over B*T = 65,536 rows, against ~0.8 GB of
 // activations per direction; that is far above the H100's balance point.
+// Summed exactly (below), the forward's products take ~9 ms at the f64
+// tensor cores' peak (67 TFLOP/s).
 //
 // What the design does about it, and what it leaves for later:
 //   * The TPU walks time tiles of one batch row in sequence on one core and
@@ -41,9 +43,9 @@
 //     instead of recomputing the group.
 //   * The transposed causal shift (dx[t] += dprev[t + d]) reads rows that
 //     another block writes, so it is its own elementwise pass.
-//   * The mel term is one more block product in each layer kernel: the
-//     tile's y rows are staged in the shared buffer that xcat leaves free
-//     after z, so shared memory does not grow.  dy is summed over the
+//   * The mel term is one more block product in each layer kernel, summed
+//     in its own accumulator and added after the bias; the tile's y rows
+//     are staged beside xcat.  dy is summed over the
 //     group's layers in reverse order by a read-modify-write in the layer
 //     kernel's epilogue: one block owns a row per launch, so there are no
 //     atomics and the order is fixed.
@@ -56,30 +58,53 @@
 //     fixed-order split-K: each block sums its share of rows into a private
 //     partial, and a second pass adds the partials in split order.  No
 //     float atomics, so two runs give the same bits (exact resume).
-//   * The backward's products that carry an f32 cotangent (dh = dcat @
-//     Wrs^T, dboth = dz @ Wz^T, with mel dy = dz @ V_cond^T, and the
-//     weight gradients dWz = xcat^T dz, dWrs = h^T dcat, dV_cond = y^T dz)
-//     run on the tensor cores: warp-level mma.sync m16n8k16 with bf16
-//     operands and f32 sums.  The reference keeps those cotangents f32
+//   * Every product runs on the tensor cores, warp-level mma.sync.
+//   * Products of two bf16 operands (mma_pass: the forward's z = xcat @ Wz,
+//     y @ V_cond and h @ [W_res | W_skip], and the backward's recompute of z)
+//     are summed exactly: m16n8k4 MMAs on the f64 tensor cores, where every
+//     bf16 product is exact and so is their sum (mma_pass), rounded to f32
+//     once.  The plain version sums the same products in float64, so the two
+//     give the same bits.  An f32 sum in any other order than the plain
+//     version's would not, and the stack's bf16 roundings of h and of each
+//     layer's input carry such last-bit differences through 40 layers into a
+//     skip sum ~2% apart (utils/stack_drift.py): the reference suite's bands
+//     hold only for equal forwards.  The A operand is a bf16 tile staged by
+//     cp.async straight from device memory (xcat, y) or written from
+//     registers (h), widened to f64 as its fragments are read; W stays in its
+//     stored k-major layout, loaded a stage ahead into registers and widened
+//     once into two f64 stages of 16 rows; both in layouts whose fragment
+//     reads hit distinct banks.  z and the gate are one device function
+//     (z_gate) for both layer kernels: each warp holds z_f and z_g of the
+//     same 32 gate columns, applies the gate in registers and hands tanh and
+//     sigmoid to its kernel's epilogue (the forward keeps h for its output
+//     product, the backward stores them for dz), so z never goes through
+//     shared memory and the recomputed h equals the forward's bit for bit.  A
+//     forward block needs 82 KiB of shared memory at `full` (93 KiB with
+//     mel): two blocks per SM.
+//   * The backward's products that carry an f32 cotangent (mma_pass_t:
+//     dh = dcat @ Wrs^T, dboth = dz @ Wz^T, with mel dy = dz @ V_cond^T,
+//     and the weight gradients dWz = xcat^T dz, dWrs = h^T dcat, dV_cond
+//     = y^T dz) run as m16n8k16 MMAs with bf16 operands and f32 sums.
+//     The reference keeps those cotangents f32
 //     (rounding them to bf16 hurt convergence), so each f32 operand is
 //     split in registers, as its fragment is loaded, into three bf16
 //     terms, hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid),
 //     and each tile takes three MMAs in a fixed order (lo, mid, hi).  The
 //     other operand is bf16-exact, so every partial product is exact and
-//     the sum carries the cotangent's 24 bits.  The tensor cores' own f32
-//     accumulation is not round-to-nearest, so it runs over one staged
-//     slice only (6 MMAs): each slice's sum is added to an f32 total in
-//     registers.  The bf16 operand is
+//     the sum carries the cotangent's 24 bits.  The tensor cores' own
+//     f32 accumulation is not round-to-nearest, so each pass sums one
+//     staged slice of the contraction at a time in a fresh accumulator
+//     and adds it to an f32 total in registers.  The bf16 operand is
 //     staged by cp.async in two stages; the f32 one stays where the
 //     kernel holds it (the layer kernel's tiles) or is staged as f32 (the
-//     weight gradients'), in layouts whose fragment reads hit distinct
-//     banks.  Three bf16 passes per product put the backward's bound at
-//     ~4.0 ms at `full`, B = 8, T = 8192 (operations at the bf16 peak).
-//   * Still on the CUDA cores, with f32 FMAs over bf16 operands staged as
-//     f32: the forward's products and the backward's recompute of z and
-//     h (gemm_pass, shared by both so that the recomputed h equals the
-//     forward's bit for bit).  Moving them to the tensor cores together
-//     is the next step; TMA, wgmma and warp specialisation come after.
+//     weight gradients').  Three bf16 passes per product put the
+//     backward's bound at ~4.0 ms at `full`, B = 8, T = 8192 (operations
+//     at the bf16 peak).
+//   * What is left: one launch per layer moves the layer's activations
+//     through device memory, ~235 MB per layer of the forward at `full`,
+//     B = 8, T = 8192 (x in, the f32 carry and skip in and out, the stash
+//     out), ~2.8 ms of the stack at 3.35 TB/s, in each block's epilogue,
+//     which overlaps the MMAs of the other block on its SM only.
 //
 // The plain PyTorch versions (ops/cuda/train_stack.py:
 // group_fwd_reference, group_bwd_reference) follow the same recipe.
@@ -95,231 +120,15 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;   // gemm_pass: 16 x 16 threads, 4 rows x 8
-                                // columns each; the MMA passes: 8 warps
+constexpr int kThreads = 256;   // 8 warps
 constexpr int kTM = 64;         // rows per block in the row kernels
 constexpr int kKC = 32;         // contraction rows of W staged at a time
 constexpr int kNP = 128;        // output columns per pass
+constexpr int kStage = kKC * kNP;   // bf16 elements of one W stage
 constexpr int kWM = 32;         // rows staged at a time in the weight grads
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// xcat[m][i]: the layer input at row m (i < R) or its causal partner at
-// m - d (i >= R), zero before the start of the row's sequence.
-__device__ __forceinline__ float xcat_at(const bf16* __restrict__ xs, int m,
-                                         int i, int T, int R, int d) {
-  if (i < R) return __bfloat162float(xs[(size_t)m * R + i]);
-  if (m % T < d) return 0.f;
-  return __bfloat162float(xs[(size_t)(m - d) * R + (i - R)]);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int s) {
-  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
-}
-
-// One pass of a block product: acc[i][j] = sum_k A(r, k) * W(k, n) for the
-// thread's rows r = 4 ty + i of the 64-row tile A_s (shared, row stride
-// lda) and columns n = n0 + tx + 16 j.  W(k, n) is w[k * ldw + n], or
-// w[n * ldw + k] when kTrans; columns n >= N read as zero.  K and lda are
-// multiples of 4 (float4 reads of A_s); the last stage of W may be partial.
-// Starts with a barrier, so the caller's writes to A_s are seen.
-template <bool kTrans>
-__device__ __forceinline__ void gemm_pass(const float* A_s, int lda, int K,
-                                          const bf16* __restrict__ w, int ldw,
-                                          int N, int n0, float* W_s,
-                                          float acc[4][8]) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kKC) {
-    const int kc = K - k0 < kKC ? K - k0 : kKC;
-    __syncthreads();
-    for (int e = tid; e < kKC * kNP; e += kThreads) {
-      int kk, nn;
-      if (kTrans) {
-        kk = e % kKC;
-        nn = e / kKC;
-      } else {
-        kk = e / kNP;
-        nn = e % kNP;
-      }
-      const int n = n0 + nn;
-      float v = 0.f;
-      if (n < N && kk < kc)
-        v = __bfloat162float(kTrans ? w[(size_t)n * ldw + k0 + kk]
-                                    : w[(size_t)(k0 + kk) * ldw + n]);
-      W_s[kk * kNP + nn] = v;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; kk += 4) {
-      float4 a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            &A_s[(ty * 4 + i) * lda + k0 + kk]);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        float wv[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) wv[j] = W_s[(kk + s) * kNP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = comp(a[i], s);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, wv[j], acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-// Stage the 64-row tile of xcat (row stride 2R) in shared memory.
-__device__ __forceinline__ void load_xcat(float* a_s, const bf16* xs, int m0,
-                                          int M, int T, int R, int d) {
-  const int R2 = 2 * R;
-  for (int e = threadIdx.x; e < kTM * R2; e += kThreads) {
-    const int r = e / R2, i = e % R2, m = m0 + r;
-    a_s[e] = m < M ? xcat_at(xs, m, i, T, R, d) : 0.f;
-  }
-}
-
-// z = xcat @ Wz + b into z_s [64][2R].
-__device__ __forceinline__ void compute_z(const float* a_s, float* z_s,
-                                          float* W_s, const bf16* wz,
-                                          const float* b, int R) {
-  const int R2 = 2 * R, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[4][8];
-  for (int n0 = 0; n0 < R2; n0 += kNP) {
-    gemm_pass<false>(a_s, R2, R2, wz, R2, R2, n0, W_s, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n < R2) z_s[(ty * 4 + i) * R2 + n] = acc[i][j] + b[n];
-      }
-  }
-  __syncthreads();
-}
-
-// z += y @ V_cond (after the bias, the reference's order): the tile's y
-// rows [64][nm] are staged in a_s, which compute_z leaves free.  nm is a
-// multiple of 4 and at most 2R.
-__device__ __forceinline__ void add_cond(float* a_s, float* z_s, float* W_s,
-                                         const bf16* __restrict__ y,
-                                         const bf16* __restrict__ vc, int m0,
-                                         int M, int nm, int R) {
-  const int R2 = 2 * R, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int e = threadIdx.x; e < kTM * nm; e += kThreads) {
-    const int r = e / nm, m = m0 + r;
-    a_s[e] = m < M ? __bfloat162float(y[(size_t)m * nm + e % nm]) : 0.f;
-  }
-  float acc[4][8];
-  for (int n0 = 0; n0 < R2; n0 += kNP) {
-    gemm_pass<false>(a_s, nm, nm, vc, R2, R2, n0, W_s, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n < R2) z_s[(ty * 4 + i) * R2 + n] += acc[i][j];
-      }
-  }
-  __syncthreads();
-}
-
-// z += g[m / T] (after the mel term, the reference's order): gl is the
-// layer's offsets, row b at gl + b * gs.  A thread owns columns and walks
-// the tile's rows, reading an offset from device memory only where a new
-// batch row starts: an index division and a device-memory load per element
-// would cost more than the add.
-__device__ __forceinline__ void add_gc(float* z_s, const float* __restrict__ gl,
-                                       int gs, int m0, int M, int T, int R) {
-  const int R2 = 2 * R, rows = min(kTM, M - m0);
-  for (int c = threadIdx.x; c < R2; c += kThreads) {
-    int b = m0 / T, t = m0 % T;
-    float gv = gl[(size_t)b * gs + c];
-    for (int r = 0; r < rows; ++r, ++t) {
-      if (t == T) {
-        t = 0;
-        gv = gl[(size_t)(++b) * gs + c];
-      }
-      z_s[r * R2 + c] += gv;
-    }
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// forward: one layer over all B*T rows
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
-                 bf16* __restrict__ xs_out, float* __restrict__ x_out,
-                 const float* skip_in, float* skip_out,
-                 const bf16* __restrict__ wz, const float* __restrict__ b,
-                 const bf16* __restrict__ wrs, const float* __restrict__ bres,
-                 const float* __restrict__ bskip, const bf16* __restrict__ y,
-                 const bf16* __restrict__ vc, const float* __restrict__ gl,
-                 int gs, int M, int T, int R, int S, int nm, int d) {
-  extern __shared__ float smem[];
-  const int R2 = 2 * R, NO = R + S;
-  float* a_s = smem;                  // xcat [64][2R], y [64][nm], h [64][R]
-  float* z_s = a_s + kTM * R2;        // z [64][2R]
-  float* W_s = z_s + kTM * R2;        // [kKC][kNP]
-  const int m0 = blockIdx.x * kTM;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  load_xcat(a_s, xs_in, m0, M, T, R, d);
-  compute_z(a_s, z_s, W_s, wz, b, R);
-  if (nm) add_cond(a_s, z_s, W_s, y, vc, m0, M, nm, R);
-  if (gl) add_gc(z_s, gl, gs, m0, M, T, R);
-  for (int e = tid; e < kTM * R; e += kThreads) {
-    const int r = e / R, c = e % R;
-    a_s[e] = round_bf16(tanhf(z_s[r * R2 + c]) * sigmoidf(z_s[r * R2 + R + c]));
-  }
-  float acc[4][8];
-  for (int n0 = 0; n0 < NO; n0 += kNP) {
-    gemm_pass<false>(a_s, R, R, wrs, NO, NO, n0, W_s, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty * 4 + i;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n >= NO) continue;
-        if (n < R) {
-          const size_t o = (size_t)m * R + n;
-          const float x = (carry[o] + acc[i][j]) + bres[n];
-          carry[o] = x;
-          xs_out[o] = __float2bfloat16_rn(x);
-          if (x_out) x_out[o] = round_bf16(x);
-        } else {
-          const size_t o = (size_t)m * S + (n - R);
-          skip_out[o] = (skip_in[o] + acc[i][j]) + bskip[n - R];
-        }
-      }
-    }
-  }
-}
-
-__global__ void init_carry_kernel(const float* __restrict__ x_in,
-                                  float* __restrict__ carry,
-                                  bf16* __restrict__ xs0, size_t n) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  carry[e] = x_in[e];
-  xs0[e] = __float2bfloat16_rn(x_in[e]);
-}
-
-// ---------------------------------------------------------------------------
-// tensor-core building blocks of the backward (mma.sync, bf16 in, f32 sum)
+// tensor-core building blocks
 // ---------------------------------------------------------------------------
 
 constexpr int kPL = 72;    // wgrad P_s row stride (bf16): ldmatrix rows on
@@ -385,6 +194,369 @@ __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// ---------------------------------------------------------------------------
+// products of two bf16 operands, summed exactly: the forward and the
+// recompute of z
+// ---------------------------------------------------------------------------
+
+// Row stride (elements) of a bf16 A tile with K contraction columns: K
+// plus 8, so that the eight rows a fragment load reads start on distinct
+// banks.
+__host__ __device__ __forceinline__ int tile_ld(int K) { return K + 8; }
+
+// Contraction rows of W per f64 stage (two stages of [kKD][128] f64): 16
+// in the forward (32 KiB) and where the backward's f32 tiles leave room,
+// else 8 (16 KiB, the space mma_pass_t's two bf16 stages take).
+constexpr int kKD = 16, kKDs = 8;
+constexpr size_t kWD = 2 * kKD * kNP * sizeof(double);
+static_assert(kKDs * sizeof(double) == kKC * sizeof(bf16), "W stage sizes");
+
+// Where element (k, c) of a staged [kKD][128] f64 slice of W (k-major, as
+// stored) lies: column c XOR 4 (k mod 4), so the four rows of a B-fragment
+// load hit distinct banks and four neighbouring columns stay together.
+__device__ __forceinline__ int wsd(int k, int c) {
+  return k * kNP + (c ^ ((k & 3) << 2));
+}
+
+// The bf16 value whose bits are h (the low 16) as a double, exactly: a
+// normal number by moving its fields (integer operations), zero, a
+// subnormal, an infinity or a NaN by a conversion.
+__device__ __forceinline__ double bf2d(uint32_t h) {
+  const uint32_t mag = h & 0x7fffu;
+  if (mag - 0x80u >= 0x7f00u) return (double)__uint_as_float(h << 16);
+  return __hiloint2double(
+      (int)(((h & 0x8000u) << 16) | ((mag << 13) + 0x38000000u)), 0);
+}
+
+// d += a . b, one m16n8k4 f64 tile: a [16][4] (rows g and g + 8 at column
+// t of lane 4 g + t), b [4][8] (row t, column g), c [16][8] (rows g and
+// g + 8 at columns 2t, 2t + 1).
+__device__ __forceinline__ void mma_f64(double c[4], double a0, double a1,
+                                        double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The stage column of n8 tile j of this thread's warp in mma_pass: warp w
+// owns columns 64 (w / 4) + [0, 64); with kGate, tiles 0-3 are columns
+// 32 (w / 4) + [0, 32) of the pass's first half (z_f) and tiles 4-7 the
+// same columns of its second half (z_g).
+template <bool kGate>
+__device__ __forceinline__ int pass_col(int j) {
+  const int wc = threadIdx.x >> 7;
+  return kGate ? (j >> 2) * 64 + wc * 32 + (j & 3) * 8 : wc * 64 + j * 8;
+}
+
+// One pass of out = A . W over a 64-row by 128-column output tile on the
+// f64 tensor cores, both operands bf16: every product is exact in f64, and
+// so is their sum while the terms lie within ~2^37 of each other (a bf16
+// product carries 16 significand bits; beyond that f64 rounds 29 bits
+// below f32's last), rounded to f32 once.  Any such summation gives the
+// same f32, whatever its order, so the plain version (a float64 product
+// rounded to float32) gives the same bits; an f32 sum in another order
+// than the plain version's would not, and a 40-layer stack carries such
+// last-bit differences into its bf16 roundings (utils/stack_drift.py).
+// A: [64][tile_ld(K)] bf16 in shared memory (stage_rows), widened to f64
+// as its fragments are read.  W(k, n) = w[k * ldw + n]: stage column c is
+// W's column n0 + c, or with kGate n0 + c for c < 64 and n1 + c - 64
+// above; it reads as zero where n0 + c (kGate: n0 + c % 64) reaches lim.
+// K is a multiple of 4.  Warp w owns rows 16 (w % 4) + [0, 16) and eight
+// n8 tiles at stage columns pass_col(j), out[j] the C fragment of tile j.
+// W is widened to f64 once, as it is staged: each thread loads its share
+// of the next stage into registers while the warps multiply the current
+// one, then stores it widened into the other of two stages of [kD][128]
+// f64 (W_s, laid out by wsd), one barrier a stage.
+// Waits for the caller's committed copies and starts with a barrier, so
+// the caller's writes to A_s are seen; the caller may write A_s or W_s
+// again only after another barrier.
+template <bool kGate, int kD>
+__device__ __forceinline__ void mma_pass(const bf16* A_s, int K,
+                                         const bf16* __restrict__ w, int ldw,
+                                         int n0, int n1, int lim, double* W_s,
+                                         float out[8][4]) {
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  double acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0.0;
+  // this thread's share of a stage: rows sk + 8 i, columns sc + [0, 4)
+  constexpr int kN = kD / 8;
+  const int sk = tid >> 5, sc = (tid & 31) * 4, scc = kGate ? sc & 63 : sc;
+  const bool col_ok = n0 + scc < lim;
+  const bf16* const src = w + (kGate && sc >= 64 ? n1 : n0) + scc;
+  double* const dst = W_s + wsd(sk, sc);     // wsd(sk + 8 i, sc) - 8 i kNP
+  uint2 pre[kN];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int k = k0 + sk + 8 * i;
+      pre[i] = col_ok && k < K
+                   ? *reinterpret_cast<const uint2*>(src + (size_t)k * ldw)
+                   : make_uint2(0u, 0u);
+    }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      double* d = dst + (buf * kD + 8 * i) * kNP;
+      *reinterpret_cast<double2*>(d) =
+          make_double2(bf2d(pre[i].x & 0xffffu), bf2d(pre[i].x >> 16));
+      *reinterpret_cast<double2*>(d + 2) =
+          make_double2(bf2d(pre[i].y & 0xffffu), bf2d(pre[i].y >> 16));
+    }
+  };
+  // this thread's A elements: rows g and g + 8 of the warp's slab at
+  // column t of each k4 step; its B elements: row t of each k4 step at
+  // column g of each n8 tile
+  const int ld = tile_ld(K);
+  const uint16_t* a_row = reinterpret_cast<const uint16_t*>(A_s) +
+                          (((tid >> 5) & 3) * 16 + g) * ld + t;
+  int b_col[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) b_col[j] = (pass_col<kGate>(j) + g) ^ (t << 2);
+  const double* const b_row = W_s + t * kNP;
+  const int ns = (K + kD - 1) / kD;
+  cp_async_wait0();
+  __syncthreads();
+  fetch(0);
+  put(0);
+  for (int s = 0; s < ns; ++s) {
+    __syncthreads();
+    if (s + 1 < ns) fetch((s + 1) * kD);
+    const double* Wb = b_row + (s & 1) * kD * kNP;
+#pragma unroll
+    for (int kk = 0; kk < kD; kk += 4) {
+      const int k = s * kD + kk;
+      if (k >= K) break;
+      const double a0 = bf2d(a_row[k]), a1 = bf2d(a_row[8 * ld + k]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mma_f64(acc[j], a0, a1, Wb[kk * kNP + b_col[j]]);
+    }
+    if (s + 1 < ns) put((s + 1) & 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) out[j][v] = (float)acc[j][v];
+}
+
+// Stage rows [m0, m0 + 64) of a bf16 operand with K columns (a multiple
+// of kC) into dst [64][tile_ld(K)] by cp.async, kC columns a copy (8: 16
+// bytes, where every source chunk is 16-byte aligned; else 4): src(m, k)
+// is the address of columns [k, k + kC) of row m, or null for zeros.
+// Rows past M are zero.  Not committed.
+template <int kC, class Src>
+__device__ __forceinline__ void stage_rows(bf16* dst, int K, int m0, int M,
+                                           const bf16* base, Src src) {
+  const int ld = tile_ld(K), nc = K / kC;
+  for (int e = threadIdx.x; e < kTM * nc; e += kThreads) {
+    const int r = e / nc, k = (e - r * nc) * kC, m = m0 + r;
+    const bf16* p = m < M ? src(m, k) : nullptr;
+    if (kC == 8)
+      cp_async16(dst + r * ld + k, p ? p : base, p != nullptr);
+    else
+      cp_async8(dst + r * ld + k, p ? p : base, p != nullptr);
+  }
+}
+
+// The tile's xcat = [x | x[t - d]] (zero for t % T < d) from the layer
+// input xs [M][R] bf16.
+__device__ __forceinline__ void stage_xcat(bf16* dst,
+                                           const bf16* __restrict__ xs,
+                                           int m0, int M, int T, int R,
+                                           int d) {
+  auto src = [=](int m, int k) -> const bf16* {
+    if (k < R) return xs + (size_t)m * R + k;
+    return m % T < d ? nullptr : xs + (size_t)(m - d) * R + (k - R);
+  };
+  if (R % 8 == 0)
+    stage_rows<8>(dst, 2 * R, m0, M, xs, src);
+  else
+    stage_rows<4>(dst, 2 * R, m0, M, xs, src);
+}
+
+// The tile's mel features y [M][nm] bf16.
+__device__ __forceinline__ void stage_y(bf16* dst, const bf16* __restrict__ y,
+                                        int m0, int M, int nm) {
+  auto src = [=](int m, int k) -> const bf16* {
+    return y + (size_t)m * nm + k;
+  };
+  if (nm % 8 == 0)
+    stage_rows<8>(dst, nm, m0, M, y, src);
+  else
+    stage_rows<4>(dst, nm, m0, M, y, src);
+}
+
+// z and the gate over the tile, one function for both layer kernels, so
+// the backward's recomputed h equals the forward's bit for bit:
+//   z  = (xcat @ Wz + b) [+ y @ V_cond] [+ g[m / T]]    (f32, this order)
+//   epi(r, c, tanh(z_f), sigmoid(z_g)) at tile row r and gate columns
+//   c, c + 1 (c < R; float2 pairs), each pair once.
+// xc_s / y_s: the tile's xcat and (nm > 0) y, staged and committed.  A
+// pass takes 64 gate columns [c0, c0 + 64): its two halves are their z_f
+// and z_g columns (mma_pass<true>), so every thread holds both z of its
+// gate columns and z stays in registers.  The mel term is summed in its
+// own accumulator; gl: the layer's speaker offsets (row b at gl + b gs).
+template <int kD, class Epi>
+__device__ __forceinline__ void z_gate(const bf16* xc_s, const bf16* y_s,
+                                       double* W_s,
+                                       const bf16* __restrict__ wz,
+                                       const float* __restrict__ b,
+                                       const bf16* __restrict__ vc,
+                                       const float* __restrict__ gl, int gs,
+                                       int m0, int M, int T, int R, int nm,
+                                       Epi epi) {
+  const int R2 = 2 * R, lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);   // and r0 + 8
+  const int cb = (lane & 3) * 2;
+  for (int c0 = 0; c0 < R; c0 += kNP / 2) {
+    float z[8][4];
+    mma_pass<true, kD>(xc_s, R2, wz, R2, c0, R + c0, R, W_s, z);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + pass_col<true>(j & 3) + cb, n = (j >> 2) * R + c;
+      if (c >= R) continue;
+      const float2 bv = *reinterpret_cast<const float2*>(b + n);
+      z[j][0] += bv.x;
+      z[j][1] += bv.y;
+      z[j][2] += bv.x;
+      z[j][3] += bv.y;
+    }
+    if (nm) {
+      float zy[8][4];
+      mma_pass<true, kD>(y_s, nm, vc, R2, c0, R + c0, R, W_s, zy);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) z[j][v] += zy[j][v];
+    }
+    if (gl) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + r0 + 8 * h;
+        if (m >= M) continue;
+        const float* gr = gl + (size_t)(m / T) * gs;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = c0 + pass_col<true>(j & 3) + cb;
+          if (c >= R) continue;
+          const float2 gv =
+              *reinterpret_cast<const float2*>(gr + (j >> 2) * R + c);
+          z[j][2 * h] += gv.x;
+          z[j][2 * h + 1] += gv.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + pass_col<true>(j) + cb;
+      if (c >= R) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        epi(r0 + 8 * h, c,
+            make_float2(tanhf(z[j][2 * h]), tanhf(z[j][2 * h + 1])),
+            make_float2(sigmoidf(z[j + 4][2 * h]),
+                        sigmoidf(z[j + 4][2 * h + 1])));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one layer over all B*T rows
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 2)
+fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
+                 bf16* __restrict__ xs_out, float* __restrict__ x_out,
+                 const float* skip_in, float* skip_out,
+                 const bf16* __restrict__ wz, const float* __restrict__ b,
+                 const bf16* __restrict__ wrs, const float* __restrict__ bres,
+                 const float* __restrict__ bskip, const bf16* __restrict__ y,
+                 const bf16* __restrict__ vc, const float* __restrict__ gl,
+                 int gs, int M, int T, int R, int S, int nm, int d) {
+  extern __shared__ float smem[];
+  const int NO = R + S, ldh = tile_ld(R);
+  bf16* xc_s = reinterpret_cast<bf16*>(smem);   // xcat [64][tile_ld(2R)]
+  bf16* h_s = xc_s + kTM * tile_ld(2 * R);      // h [64][tile_ld(R)]
+  bf16* y_s = h_s + kTM * ldh;                  // y [64][tile_ld(nm)]
+  double* W_s = reinterpret_cast<double*>(y_s + kTM * (nm ? tile_ld(nm) : 0));
+  const int m0 = blockIdx.x * kTM;
+  stage_xcat(xc_s, xs_in, m0, M, T, R, d);
+  if (nm) stage_y(y_s, y, m0, M, nm);
+  cp_async_commit();
+  z_gate<kKD>(xc_s, y_s, W_s, wz, b, vc, gl, gs, m0, M, T, R, nm,
+         [&](int r, int c, float2 tf, float2 sg) {
+           *reinterpret_cast<__nv_bfloat162*>(h_s + r * ldh + c) =
+               __floats2bfloat162_rn(tf.x * sg.x, tf.y * sg.y);
+         });
+  // o = h @ [W_res | W_skip]; the C fragments' column pairs as float2.
+  // Every carry and skip element is read before any is written: skip_out
+  // may be skip_in, so a store would hold back the loads after it.
+  const int lane = threadIdx.x & 31, cb = (lane & 3) * 2;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  float acc[8][4];
+  for (int n0 = 0; n0 < NO; n0 += kNP) {
+    mma_pass<false, kKD>(h_s, R, wrs, NO, n0, 0, NO, W_s, acc);
+    float2 in[8][2];   // the carry (n < R) or skip (n >= R) at each pair
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + pass_col<false>(j) + cb;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + r0 + 8 * h;
+        in[j][h] = m >= M || n >= NO ? make_float2(0.f, 0.f)
+                   : n < R ? *reinterpret_cast<const float2*>(
+                                 carry + (size_t)m * R + n)
+                           : *reinterpret_cast<const float2*>(
+                                 skip_in + (size_t)m * S + (n - R));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + pass_col<false>(j) + cb;
+      if (n >= NO) continue;
+      const float2 bv = *reinterpret_cast<const float2*>(
+          n < R ? bres + n : bskip + (n - R));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + r0 + 8 * h;
+        if (m >= M) continue;
+        const float2 v = make_float2((in[j][h].x + acc[j][2 * h]) + bv.x,
+                                     (in[j][h].y + acc[j][2 * h + 1]) + bv.y);
+        if (n < R) {
+          const size_t o = (size_t)m * R + n;
+          const __nv_bfloat162 xb = __floats2bfloat162_rn(v.x, v.y);
+          *reinterpret_cast<float2*>(carry + o) = v;
+          *reinterpret_cast<__nv_bfloat162*>(xs_out + o) = xb;
+          if (x_out)
+            *reinterpret_cast<float2*>(x_out + o) = __bfloat1622float2(xb);
+        } else {
+          *reinterpret_cast<float2*>(skip_out + (size_t)m * S + (n - R)) = v;
+        }
+      }
+    }
+  }
+}
+
+__global__ void init_carry_kernel(const float* __restrict__ x_in,
+                                  float* __restrict__ carry,
+                                  bf16* __restrict__ xs0, size_t n) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  carry[e] = x_in[e];
+  xs0[e] = __float2bfloat16_rn(x_in[e]);
+}
+
+
+// ---------------------------------------------------------------------------
+// products with an f32 cotangent: the backward
+// ---------------------------------------------------------------------------
+
 // Where column k of row r of an f32 tile with row stride K lies in shared
 // memory: bits 2-4 of k XOR the row's low three bits inside the row's
 // whole 32-column blocks (the tail stays in place), so the eight rows of
@@ -419,7 +591,6 @@ __device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
                                            float acc[8][4]) {
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  constexpr int kStage = kNP * kKC;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -519,12 +690,27 @@ __device__ __forceinline__ int frag_col(int j, int v) {
 // backward: one layer over all B*T rows
 // ---------------------------------------------------------------------------
 
-// Recompute z and h from the stored layer input (CUDA cores, the
-// forward's code), then dh, dz and dboth = dz @ Wz^T (tensor cores,
-// mma_pass_t).  Writes h (bf16) and dz for the weight gradients,
-// dx_out = dx_in + dboth_cur, and dprev = dboth_prev for the shift pass.
-// With mel (nm > 0) also dy = dz @ V_cond^T, added to dy unless dy_first;
-// with a speaker (gl) the recompute adds the row's offset.
+// Bytes of the bf16 tiles of xcat and y (z_gate) in a backward block.
+__host__ __device__ __forceinline__ size_t bwd_tile_bytes(int R, int nm) {
+  return (size_t)kTM * (tile_ld(2 * R) + (nm ? tile_ld(nm) : 0)) *
+         sizeof(bf16);
+}
+
+// Bytes of a backward block's a_s: f32 [64][max(2R, R + S)] (dcat, dz),
+// or the bf16 tiles where those are larger.
+__host__ __device__ __forceinline__ size_t bwd_tiles(int R, int S, int nm) {
+  const int la = 2 * R > R + S ? 2 * R : R + S;
+  const size_t f = (size_t)kTM * la * sizeof(float);
+  const size_t t = bwd_tile_bytes(R, nm);
+  return f > t ? f : t;
+}
+
+// Recompute z and h from the stored layer input (z_gate, the forward's
+// code), then dh, dz and dboth = dz @ Wz^T (mma_pass_t).  Writes h (bf16)
+// and dz for the weight gradients, dx_out = dx_in + dboth_cur, and
+// dprev = dboth_prev for the shift pass.  With mel (nm > 0) also
+// dy = dz @ V_cond^T, added to dy unless dy_first; with a speaker (gl)
+// the recompute adds the row's offset.
 __global__ void __launch_bounds__(kThreads)
 bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  const float* __restrict__ dx_in,
@@ -538,26 +724,37 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  int S, int nm, int d) {
   extern __shared__ float smem[];
   const int R2 = 2 * R, NO = R + S;
-  const int la = R2 > NO ? R2 : NO;
-  // a_s: xcat, y, then dcat [64][R+S], then dz [64][2R] (both by swz)
+  // a_s: the bf16 tiles of xcat and y, then dcat [64][R+S], then dz
+  // [64][2R] (both f32, by swz); z_s: (tanh, sigmoid), then dz; then the
+  // two W stages
   float* a_s = smem;
-  float* z_s = a_s + kTM * la;        // z, then (tanh, sigmoid), then dz
-  float* W_s = z_s + kTM * R2;        // f32 [kKC][kNP], then bf16 stages
+  float* z_s = a_s + bwd_tiles(R, S, nm) / sizeof(float);
+  bf16* Wb_s = reinterpret_cast<bf16*>(z_s + kTM * R2);
+  bf16* xc_s = reinterpret_cast<bf16*>(a_s);
+  bf16* y_s = xc_s + kTM * tile_ld(R2);
   const int m0 = blockIdx.x * kTM;
   const int tid = threadIdx.x;
 
-  load_xcat(a_s, xs_in, m0, M, T, R, d);
-  compute_z(a_s, z_s, W_s, wz, b, R);
-  if (nm) add_cond(a_s, z_s, W_s, y, vc, m0, M, nm, R);
-  if (gl) add_gc(z_s, gl, gs, m0, M, T, R);
-  for (int e = tid; e < kTM * R; e += kThreads) {
-    const int r = e / R, c = e % R, m = m0 + r;
-    const float tf = tanhf(z_s[r * R2 + c]);
-    const float sg = sigmoidf(z_s[r * R2 + R + c]);
-    if (m < M) h_g[(size_t)m * R + c] = __float2bfloat16_rn(tf * sg);
-    z_s[r * R2 + c] = tf;
-    z_s[r * R2 + R + c] = sg;
-  }
+  stage_xcat(xc_s, xs_in, m0, M, T, R, d);
+  if (nm) stage_y(y_s, y, m0, M, nm);
+  cp_async_commit();
+  auto epi = [&](int r, int c, float2 tf, float2 sg) {
+    *reinterpret_cast<float2*>(z_s + r * R2 + c) = tf;
+    *reinterpret_cast<float2*>(z_s + r * R2 + R + c) = sg;
+    if (m0 + r < M)
+      *reinterpret_cast<__nv_bfloat162*>(h_g + (size_t)(m0 + r) * R + c) =
+          __floats2bfloat162_rn(tf.x * sg.x, tf.y * sg.y);
+  };
+  // the deep f64 W stages where a_s has room past the tiles, else W_s
+  const size_t tiles = bwd_tile_bytes(R, nm);
+  if (bwd_tiles(R, S, nm) >= tiles + kWD)
+    z_gate<kKD>(xc_s, y_s,
+                reinterpret_cast<double*>(reinterpret_cast<char*>(a_s) + tiles),
+                wz, b, vc, gl, gs, m0, M, T, R, nm, epi);
+  else
+    z_gate<kKDs>(xc_s, y_s, reinterpret_cast<double*>(Wb_s), wz, b, vc, gl,
+                 gs, m0, M, T, R, nm, epi);
+  __syncthreads();   // xcat and y are spent: dcat's copies overwrite them
   // dcat = [dx | dskip] by cp.async, 4 columns a copy (swz moves whole
   // groups of 4), zero past row M
   for (int e = tid; e < kTM * NO / 4; e += kThreads) {
@@ -571,7 +768,6 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
   }
   cp_async_commit();
   cp_async_wait0();
-  bf16* Wb_s = reinterpret_cast<bf16*>(W_s);
   float acc[8][4];
   for (int n0 = 0; n0 < R; n0 += kNP) {
     mma_pass_t(a_s, NO, wrs, NO, R, n0, Wb_s, acc);
@@ -811,16 +1007,23 @@ inline unsigned blocks_for(size_t n, int per) {
   return (unsigned)((n + per - 1) / per);
 }
 
-size_t fwd_smem(int R) {
-  return (size_t)(2 * kTM * 2 * R + kKC * kNP) * sizeof(float);
+// The least shared memory a forward block's layout needs: the bf16 tiles
+// of xcat, h and (nm > 0) y, and two W stages (16 KiB).  The caller plans
+// the size it passes (ops/cuda/train_stack.py: _fwd_smem); a smaller one
+// is refused.
+size_t fwd_smem_needed(int R, int nm) {
+  return (size_t)kTM * (tile_ld(2 * R) + tile_ld(R) + (nm ? tile_ld(nm) : 0)) *
+             sizeof(bf16) +
+         kWD;
 }
 
-// The least shared memory a backward block's layout needs: a_s [64][la],
-// z_s [64][2R], W_s (16 KiB).  The caller plans the size it passes
-// (ops/cuda/train_stack.py: _bwd_smem); a smaller one is refused.
-size_t bwd_smem_needed(int R, int S) {
-  const int la = 2 * R > R + S ? 2 * R : R + S;
-  return (size_t)(kTM * la + kTM * 2 * R + kKC * kNP) * sizeof(float);
+// The least shared memory a backward block's layout needs: a_s, the
+// larger of f32 [64][max(2R, R + S)] and the bf16 tiles of xcat and y
+// (bwd_tiles), z_s [64][2R] and two W stages (16 KiB), as
+// ops/cuda/train_stack.py: _bwd_smem plans it.
+size_t bwd_smem_needed(int R, int S, int nm) {
+  return bwd_tiles(R, S, nm) + (size_t)kTM * 2 * R * sizeof(float) +
+         2 * kStage * sizeof(bf16);
 }
 
 // The error of the last launch, if any; else the launch is counted in *n.
@@ -857,22 +1060,31 @@ extern "C" {
 // receives every layer's input (and the group output last); carry [M, R]
 // is f32 scratch.  With mel, y [M, nm] and vc [Lg, nm, 2R] (bf16), nm a
 // multiple of 4 and at most 2R; else null and nm = 0.  With a speaker, g
-// [M / T, Lg, 2R] f32 (each batch row's offsets); else null.
+// [M / T, Lg, 2R] f32 (each batch row's offsets); else null.  smem: the
+// bytes of shared memory a layer block gets (at least fwd_smem_needed).
+// R, S and nm are multiples of 4, and the bf16 operands xs, wz, wrs, y and
+// vc 8-byte aligned (16 where R or nm is a multiple of 8): the cp.async
+// copies.
 int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
                     float* x_out, bf16* xs, float* carry, const bf16* wz,
                     const float* b, const bf16* wrs, const float* bres,
                     const float* bskip, const bf16* y, const bf16* vc,
                     const float* g, const int* dils, int Lg, int M, int T,
-                    int R, int S, int nm, int* launched, void* stream) {
+                    int R, int S, int nm, int smem, int* launched,
+                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
-  const size_t smem = fwd_smem(R);
-  if (nm < 0 || nm % 4 || nm > 2 * R || (nm > 0) != (y != nullptr) ||
+  if (smem < 0 || (size_t)smem < fwd_smem_needed(R, nm) || R % 4 || S % 4 ||
+      nm < 0 || nm % 4 || nm > 2 * R || (nm > 0) != (y != nullptr) ||
       (nm > 0) != (vc != nullptr) || T <= 0 || M % T)
     return (int)cudaErrorInvalidValue;
   int rc = (int)cudaFuncSetAttribute(
-      fwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc) return rc;
+  // two blocks per SM: ask for the largest shared-memory carveout
+  rc = (int)cudaFuncSetAttribute(fwd_layer_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
   if (rc) return rc;
   init_carry_kernel<<<blocks_for(MR, 256), 256, 0, st>>>(x_in, carry, xs, MR);
   if ((rc = counted(launched))) return rc;
@@ -914,8 +1126,8 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
   const size_t MR = (size_t)M * R;
   const int R2 = 2 * R, NO = R + S;
   const int nsplit = (M + rows_per_split - 1) / rows_per_split;
-  if (smem < 0 || (size_t)smem < bwd_smem_needed(R, S) || R % 4 || S % 4 ||
-      nm < 0 || nm % 4 || nm > (R2 > NO ? R2 : NO) ||
+  if (smem < 0 || (size_t)smem < bwd_smem_needed(R, S, nm) || R % 4 ||
+      S % 4 || nm < 0 || nm % 4 || nm > R2 ||
       (nm > 0) != (y && vc && dvc && dy) || (g != nullptr) != (dg != nullptr) ||
       T <= 0 || M % T)
     return (int)cudaErrorInvalidValue;

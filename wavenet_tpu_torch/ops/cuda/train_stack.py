@@ -14,9 +14,10 @@ and the Mosaic fences, all of which exist for the TPU's compiler.
 Numerics (the reference's fused recipe, train_stack.py:352-419, 512-514):
 the residual stream is carried in f32 through a layer group and rounded to
 bf16 once, at the group's output; matrix operands are bf16 values summed
-in f32; every cotangent inside the stack stays f32.  So the group
-boundaries are part of the numerics, and the port plans its groups with
-the reference's own arithmetic.
+in f32 (the forward's products, and the backward's recompute of them,
+summed exactly and rounded to f32 once: `_mm`); every cotangent inside the
+stack stays f32.  So the group boundaries are part of the numerics, and
+the port plans its groups with the reference's own arithmetic.
 
 Routing is by the tensors' device: the plain versions run only for CPU
 tensors; for CUDA tensors the wrappers launch the kernels or raise.
@@ -145,26 +146,43 @@ def supported(cfg: WaveNetConfig, T: int) -> bool:
     return bool(TT) and bool(group_plan(cfg, TT))
 
 
-def _fwd_smem(R: int) -> int:
-    """Shared memory of a forward block (train_stack.cu: fwd_smem)."""
-    return (2 * 64 * 2 * R + 32 * 128) * 4
+# two stages of a weight's rows: f64 [16][128] in the forward, bf16
+# [32][128] in the backward
+_W_FWD, _W_BWD = 2 * 16 * 128 * 8, 2 * 32 * 128 * 2
 
 
-def _bwd_smem(R: int, S: int) -> int:
-    """Shared memory of a backward layer block, the one plan of it: f32
-    [64][max(2R, R + S)] (xcat, y, then dcat, then dz) + f32 [64][2R] (z,
-    then dz) + 16 KiB of staged weights; group_bwd passes it to the
-    library, which refuses a size smaller than its layout needs."""
-    return (64 * max(2 * R, R + S) + 64 * 2 * R + 32 * 128) * 4
+def _tile(K: int) -> int:
+    """Bytes of a layer block's bf16 operand tile with K columns: 64 rows
+    of K + 8 elements (train_stack.cu: tile_ld); none for K = 0."""
+    return 64 * (K + 8) * 2 if K else 0
+
+
+def _fwd_smem(R: int, nm: int = 0) -> int:
+    """Shared memory of a forward layer block, the one plan of it: bf16
+    tiles of xcat (2R columns), h (R) and, with mel, y (nm), and the
+    staged weights; group_fwd passes it to the library, which refuses a
+    size smaller than its layout needs (82 KiB at `full`, 93 KiB with
+    mel: two blocks per SM)."""
+    return _tile(2 * R) + _tile(R) + _tile(nm) + _W_FWD
+
+
+def _bwd_smem(R: int, S: int, nm: int = 0) -> int:
+    """Shared memory of a backward layer block, the one plan of it: the
+    larger of f32 [64][max(2R, R + S)] (dcat, then dz) and the bf16 tiles
+    of xcat and y (the recompute of z), + f32 [64][2R] (tanh and sigmoid,
+    then dz) + the staged weights; group_bwd passes it to the library,
+    which refuses a size smaller than its layout needs."""
+    return (max(64 * max(2 * R, R + S) * 4, _tile(2 * R) + _tile(nm))
+            + 64 * 2 * R * 4 + _W_BWD)
 
 
 def _widths_taken(R: int, S: int, nm: int = 0) -> bool:
-    """R, S and the mel count nm multiples of 4 (the kernels read rows of
-    shared memory as float4 and copy rows in groups of 4), nm at most 2R
-    (y rows are staged where xcat was), and a backward tile that fits one
-    block's shared memory (R = 128, S = 256 needs 176 KiB)."""
+    """R, S and the mel count nm multiples of 4 (the kernels copy rows in
+    groups of 4 and read shared memory as float4), nm at most 2R, and
+    layer blocks that fit one block's shared memory (the backward's at
+    R = 128, S = 256 needs 176 KiB)."""
     return (R % 4 == 0 and S % 4 == 0 and nm % 4 == 0 and nm <= 2 * R
-            and max(_fwd_smem(R), _bwd_smem(R, S)) <= _MAX_SMEM)
+            and max(_fwd_smem(R, nm), _bwd_smem(R, S, nm)) <= _MAX_SMEM)
 
 
 def _num_mels(cfg: WaveNetConfig) -> int:
@@ -232,6 +250,18 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w of bf16-valued operands, summed exactly and rounded to f32
+    once, as the kernels sum them: every product of two bf16 values is
+    exact in float64, and so is their sum while the terms lie within
+    ~2^37 of each other.  Any such summation rounds to the same f32, so
+    the kernel forward equals this one bit for bit; two f32 sums in
+    different orders would drift ~2% apart over 40 layers (the bf16
+    roundings of h and of each layer's input carry their last-bit
+    differences), outside the reference suite's bands."""
+    return (a.double() @ w.double()).float()
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -248,13 +278,13 @@ def group_fwd_reference(x, skip, ops, dils: Sequence[int], y=None, g=None):
     for l, d in enumerate(dils):
         xb = xs[-1].float()
         xcat = torch.cat([xb, _causal(xb, d)], dim=-1)
-        z = xcat @ wz[l].float() + b[l]
+        z = _mm(xcat, wz[l]) + b[l]
         if y is not None:
-            z = z + y.float() @ ops[5][l].float()
+            z = z + _mm(y, ops[5][l])
         if g is not None:
             z = z + g[:, l, None]
         h = _bf(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]))
-        o = h @ wrs[l].float()
+        o = _mm(h, wrs[l])
         carry = (carry + o[..., :R]) + bres[l]
         skip = (skip + o[..., R:]) + bskip[l]
         xs.append(carry.to(torch.bfloat16))
@@ -289,9 +319,9 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
         d = dils[l]
         xb = xs[l].float()
         xcat = torch.cat([xb, _causal(xb, d)], dim=-1)
-        z = xcat @ wz[l].float() + b[l]
+        z = _mm(xcat, wz[l]) + b[l]
         if y is not None:
-            z = z + yf @ vc[l].float()
+            z = z + _mm(yf, vc[l])
         if g is not None:
             z = z + g[:, l, None]
         tf, sg = torch.tanh(z[..., :R]), torch.sigmoid(z[..., R:])
@@ -324,7 +354,7 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wn_ts_group_fwd.argtypes = [p] * 15 + [i] * 6 + [p, p]
+    lib.wn_ts_group_fwd.argtypes = [p] * 15 + [i] * 7 + [p, p]
     lib.wn_ts_group_fwd.restype = i
     lib.wn_ts_group_bwd.argtypes = ([p] * 10 + [i] * 6 + [p] * 15
                                     + [i, i, p, p])
@@ -378,6 +408,15 @@ def _prepare(x: torch.Tensor, S: int, dils, what: str, y=None):
     return lib, (B, T, R), (ctypes.c_int * len(dils))(*dils)
 
 
+def _check_aligned(what: str, named) -> None:
+    """The kernels' cp.async copies read 8 or 16 bytes at a time; fresh
+    allocations start on such a boundary, a view into one may not."""
+    for name, t in named:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte "
+                             f"boundary")
+
+
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} failed: CUDA error {rc} "
@@ -417,6 +456,8 @@ def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None,
     build.check_tensor("x", x, (B, T, R), f32, dev)
     build.check_tensor("skip", skip, (B, T, S), f32, dev)
     nm = _check_ops(ops, Lg, R, S, dev, y, B, T, g)
+    _check_aligned("group_fwd", (("y", y), ("wz", ops[0]), ("wrs", ops[2]),
+                                 ("v_cond", ops[5] if nm else None)))
     skip_out = torch.empty_like(skip)
     x_out = torch.empty_like(x)
     xs = torch.empty(Lg + 1, B, T, R, dtype=torch.bfloat16, device=dev)
@@ -429,7 +470,8 @@ def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None,
             x_out.data_ptr(), xs.data_ptr(), carry.data_ptr(),
             *(o.data_ptr() for o in ops[:5]), _ptr(y),
             _ptr(ops[5] if nm else None), _ptr(g), ctypes.addressof(dils_c),
-            Lg, B * T, T, R, S, nm, ctypes.byref(n), stream)
+            Lg, B * T, T, R, S, nm, _fwd_smem(R, nm), ctypes.byref(n),
+            stream)
     _counters(nm, g, fwd=True).add(n.value)
     _raise_on(lib, rc, "wn_ts_group_fwd")
     return skip_out, x_out, xs
@@ -454,14 +496,10 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
     build.check_tensor("dskip", dskip, (B, T, S), f32, dev)
     build.check_tensor("dx_out", dx_out, (B, T, R), f32, dev)
     nm = _check_ops(ops, Lg, R, S, dev, y, B, T, g)
-    # the backward's cp.async copies read 8 or 16 bytes at a time; fresh
-    # allocations start on such a boundary, a view into one may not
-    for name, t in (("xs", xs), ("dskip", dskip), ("dx_out", dx_out),
-                    ("y", y), ("wz", ops[0]), ("wrs", ops[2]),
-                    ("v_cond", ops[5] if nm else None)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"group_bwd: {name} must start on a 16-byte "
-                             f"boundary")
+    _check_aligned("group_bwd", (("xs", xs), ("dskip", dskip),
+                                 ("dx_out", dx_out), ("y", y),
+                                 ("wz", ops[0]), ("wrs", ops[2]),
+                                 ("v_cond", ops[5] if nm else None)))
     nsplit = -(-M // ROWS_PER_SPLIT)
     e = lambda *shape, dtype=f32: torch.empty(*shape, dtype=dtype, device=dev)
     dx_in, dwz, db = e(B, T, R), e(Lg, 2 * R, 2 * R), e(Lg, 2 * R)
@@ -490,7 +528,7 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
             _ptr(dy), _ptr(dg), dxa.data_ptr(),
             dxb.data_ptr(), dprev.data_ptr(), dz.data_ptr(), h.data_ptr(),
             part.data_ptr(), bpart.data_ptr(), ROWS_PER_SPLIT,
-            _bwd_smem(R, S), ctypes.byref(n), stream)
+            _bwd_smem(R, S, nm), ctypes.byref(n), stream)
         if rc == 0:
             rc = lib.wn_ts_colsum(dskip.data_ptr(), M, S, dbskip.data_ptr(),
                                   bpart.data_ptr(), ROWS_PER_SPLIT,
