@@ -15,7 +15,7 @@ params_from_numpy.
 
 Routing: generate_auto and generate_stream send R < 128 to ops/cuda/decode
 and R = 128 to ops/cuda/decode_wide; on a CUDA device a width neither
-kernel takes raises before any kernel or plain version is reached.
+kernel takes goes to the plain route, as the reference's scan.
 """
 
 import jax
@@ -227,11 +227,15 @@ def test_generate_routes_on_width(monkeypatch, R):
 
 
 def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
-    """On a CUDA device R = 192 and R = 128 with S = 48 (widths the wide
-    kernel refuses; the narrow one takes them since it takes any width
-    whose block fits) raise before any decode_chunk, kernel or plain, is
-    reached once Q = 30000 makes the narrow block too large for 227 KiB;
-    on the CPU the plain version still decodes them."""
+    """Widths neither kernel takes decode through the plain route on a
+    CUDA device, as the reference falls back to its scan (formerly they
+    raised): R = 192 and R = 128 with S = 48 (widths the wide kernel
+    refuses) at Q = 30000, where the narrow block exceeds 227 KiB.  The
+    route is decided for device "cuda" and the decode then runs on the
+    CPU (kernel_module is wrapped, so nothing is allocated on a card):
+    neither kernel module's decode_chunk nor plain version is called, the
+    plain route's decode_chunk is, and its tokens equal the CPU decode's.
+    Widths a kernel takes stay on it."""
     spies = [_Spy(tdec.decode_chunk), _Spy(twide.decode_chunk),
              _Spy(tdec.decode_chunk_reference),
              _Spy(twide.decode_chunk_reference)]
@@ -240,20 +244,39 @@ def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
                            (tdec, "decode_chunk_reference", spies[2]),
                            (twide, "decode_chunk_reference", spies[3])):
         monkeypatch.setattr(mod, name, spy)
+    plain = _Spy(sampler.PLAIN.decode_chunk)
+    monkeypatch.setattr(sampler.PLAIN, "decode_chunk", plain)
+    decide = sampler.kernel_module
+    routes = []
+
+    def on_cuda(cfg, device):          # the decision a CUDA device gets
+        routes.append(decide(cfg, "cuda"))
+        return routes[-1]
+
     for R, S in ((192, 32), (128, 48)):
         tc = tconfig.WaveNetConfig(num_blocks=1, max_dilation=2,
                                    residual_channels=R, skip_channels=S,
                                    quantization_channels=30000)
         params = twn.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-        for call in (lambda: sampler.generate_auto(params, tc, 4,
-                                                   device="cuda"),
-                     lambda: next(sampler.generate_stream(
-                         params, tc, 4, device="cuda"))):
-            with pytest.raises(ValueError, match="no decode kernel"):
-                call()
-        assert not any(s.calls for s in spies)
-        assert sampler.generate_auto(params, tc, 4,
-                                     device="cpu").shape == (1, 4)
-        assert spies[0].calls == 1
-        for s in spies:
-            s.calls = 0
+        assert not tdec.supported(tc) and not twide.supported(tc)
+        want = sampler.generate_auto(params, tc, 4, device="cpu")
+        assert (spies[0].calls, plain.calls) == (1, 0)  # CPU: narrow plain
+        spies[0].calls = spies[2].calls = 0
+        monkeypatch.setattr(sampler, "kernel_module", on_cuda)
+        got = sampler.generate_auto(params, tc, 4, device="cpu")
+        streamed = next(sampler.generate_stream(params, tc, 4,
+                                                device="cpu"))
+        monkeypatch.setattr(sampler, "kernel_module", decide)
+        assert routes == [sampler.PLAIN] * 2
+        assert not any(s.calls for s in spies) and plain.calls == 2
+        assert torch.equal(got, want) and torch.equal(streamed, want)
+        routes.clear()
+        plain.calls = 0
+    # widths a kernel takes keep it on the card (the wide one up to the
+    # widest it took before, R = 5760)
+    for R, S, mod in ((128, 32, twide), (256, 96, twide), (3200, 256, twide),
+                      (4096, 32, twide), (5760, 32, twide), (64, 128, tdec),
+                      (192, 32, tdec), (128, 48, tdec)):
+        tc = tconfig.WaveNetConfig(num_blocks=1, max_dilation=2,
+                                   residual_channels=R, skip_channels=S)
+        assert decide(tc, "cuda") is mod and decide(tc, "cpu") is mod

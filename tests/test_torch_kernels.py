@@ -9,7 +9,8 @@ they run with:
 Decode (the narrow kernel, R < 128, and the wide one): both sides sum
 every dot product exactly (f64) and round once, so each kernel must equal
 the plain version bit for bit, in every variant (unconditional, mel,
-speaker, mel + speaker) and whatever the rows per block.  Training stack
+speaker, mel + speaker), whatever the rows per block (narrow) and the
+cluster size and rows per cluster (wide).  Training stack
 (unconditional, mel, speaker, mel + speaker): the forward sums its bf16
 products exactly on both sides, so kernel and plain forwards are equal bit
 for bit; the backward's f32-cotangent products sum in f32 in different
@@ -17,6 +18,8 @@ orders, so gradients agree within the reference suite's bands
 (test_pallas_train.py:96-103); two kernel runs agree bit for bit.
 chip_smoke.py repeats these checks at the `full` preset's widths.
 """
+
+import itertools
 
 import pytest
 import torch
@@ -86,6 +89,116 @@ def test_decode_kernel_chunked_equals_one_shot(dev, small):
     before = pwide.launches.value
     pwide.decode_chunk(w, cfg, rings, carry, 0, s, 3, 1.0)
     assert pwide.launches.value == before + 1
+
+
+@pytest.mark.parametrize("temp", [0.0, 1.0])
+@pytest.mark.parametrize("R", [128, 256])
+@pytest.mark.parametrize("batch", [1, 3, 4, 9])
+def test_wide_decode_cluster_plans_equal_plain(dev, batch, R, temp):
+    """The cluster split (ops/cuda/decode_wide.py plan_clusters) changes no
+    row: every cluster size, rows-per-cluster and exchange (all-reduce,
+    scatter) plan forced through the keywords gives the plain version's
+    tokens, rings and carry, primed and free-running (ragged last tiles at
+    B = 3, 9)."""
+    cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=16,
+                                residual_channels=R, skip_channels=96)
+    g = torch.Generator().manual_seed(21)
+    w = pwide.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    prime = torch.randint(0, 256, (batch, 5), dtype=torch.int32,
+                          generator=g).to(dev)
+    for forced in (None, prime):
+        rings, carry, s, _, _, _ = pwide.setup_decode(cfg, batch, 40, forced,
+                                                   seeds=3, device=dev)
+        p = pwide.decode_chunk_reference(w, cfg, rings, carry, 0, s, 40,
+                                         temp, forced)
+        ran = 0
+        for C, rows, scatter in ((None, None, None), (16, 1, False),
+                                 (16, 1, True), (16, 4, False),
+                                 (16, 4, True), (16, 8, True), (8, 2, False),
+                                 (8, 2, True), (4, 8, True), (2, 1, False),
+                                 (2, 1, True)):
+            if C is not None and pwide.smem_bytes(
+                    rows, C, pwide.THREADS, False, scatter,
+                    cfg) > 227 * 1024:
+                continue          # R = 256: 16 CTAs x 4 rows all-reduced
+            k = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 40, temp,
+                                   forced, cluster=C, rows_per_cluster=rows,
+                                   scatter=scatter)
+            for a, b in zip(k, p):
+                assert torch.equal(a, b), (C, rows, scatter)
+            ran += 1
+        assert ran >= 10
+
+
+def test_wide_decode_shares_in_place_equal_plain(dev, monkeypatch):
+    """With the shares read in place (the plan for widths whose stage
+    buffers do not fit, forced here by a smaller budget), the kernel
+    equals the plain version too, with a speaker."""
+    cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=8,
+                                residual_channels=128, skip_channels=64,
+                                global_classes=5)
+    g = torch.Generator().manual_seed(22)
+    w = pwide.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    monkeypatch.setattr(pwide, "_MAX_SMEM", 20_000)
+    assert not pwide.plan_clusters(
+        3, cfg, lambda plan: pwide.max_clusters(cfg, plan)).stage
+    rings, carry, s, gc, _, _ = pwide.setup_decode(
+        cfg, 3, 30, seeds=4, device=dev, w=w, speaker=[0, 4, 2])
+    k = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 30, 1.0, g=gc)
+    p = pwide.decode_chunk_reference(w, cfg, rings, carry, 0, s, 30, 1.0,
+                                     g=gc)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_wide_decode_layout_mirrors(dev):
+    """plan_clusters' byte count (smem_bytes) and pack_shares' block
+    length (share_elems) equal the library's own."""
+    lib = pwide.library()
+    for base in (tconfig.full(), tconfig.full_vocoder(),
+                 tconfig.WaveNetConfig(residual_channels=384,
+                                       skip_channels=96,
+                                       quantization_channels=255)):
+        for cfg in (base, base.replace(global_classes=7)):
+            M = 0 if cfg.mel is None else cfg.mel.num_mels
+            for C in (2, 8, 16):
+                assert lib.wn_decode_wide_share(
+                    C, cfg.residual_channels, cfg.skip_channels,
+                    M) == pwide.share_elems(C, cfg)
+                for rows, stage, scatter in itertools.product(
+                        (1, 4), (0, 1), (0, 1)):
+                    assert lib.wn_decode_wide_smem(
+                        rows, C, pwide.THREADS, stage, scatter,
+                        int(cfg.global_classes is not None),
+                        cfg.num_layers, cfg.residual_channels,
+                        cfg.skip_channels, cfg.quantization_channels,
+                        M) == pwide.smem_bytes(rows, C, pwide.THREADS,
+                                               bool(stage), bool(scatter),
+                                               cfg)
+
+
+@pytest.mark.parametrize("R,S,M", [(5760, 32, 0), (4096, 256, 0),
+                                   (3072, 64, 80)])
+def test_wide_decode_widest_widths_equal_plain(dev, R, S, M):
+    """The widest widths the one-block kernel took before the cluster
+    design plan the scatter exchange (its buffers do not grow with C x R)
+    and equal the plain version bit for bit, sampled, with a speaker."""
+    cfg = tconfig.WaveNetConfig(
+        num_blocks=1, max_dilation=2, residual_channels=R, skip_channels=S,
+        quantization_channels=256, global_classes=3,
+        mel=tconfig.MelConfig(num_mels=M) if M else None)
+    assert pwide.plan_clusters(
+        2, cfg, lambda p: pwide.max_clusters(cfg, p)).scatter
+    g = torch.Generator().manual_seed(23)
+    w = pwide.flatten_params(wn.init_params(cfg, g, dev), cfg)
+    rings, carry, s, gc, _, _ = pwide.setup_decode(
+        cfg, 2, 6, seeds=5, device=dev, w=w, speaker=[1, 2])
+    y = (torch.randn(2, 6, M, generator=g).to(dev) if M else None)
+    k = pwide.decode_chunk(w, cfg, rings, carry, 0, s, 6, 1.0, y=y, g=gc)
+    p = pwide.decode_chunk_reference(w, cfg, rings, carry, 0, s, 6, 1.0,
+                                     y=y, g=gc)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("R,S,B,T,dmax", [(128, 256, 2, 256, 16),

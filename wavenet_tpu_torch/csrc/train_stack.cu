@@ -114,6 +114,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_exact.cuh"
 #include "gate.cuh"
 
 namespace {
@@ -216,16 +217,6 @@ static_assert(kKDs * sizeof(double) == kKC * sizeof(bf16), "W stage sizes");
 // load hit distinct banks and four neighbouring columns stay together.
 __device__ __forceinline__ int wsd(int k, int c) {
   return k * kNP + (c ^ ((k & 3) << 2));
-}
-
-// The bf16 value whose bits are h (the low 16) as a double, exactly: a
-// normal number by moving its fields (integer operations), zero, a
-// subnormal, an infinity or a NaN by a conversion.
-__device__ __forceinline__ double bf2d(uint32_t h) {
-  const uint32_t mag = h & 0x7fffu;
-  if (mag - 0x80u >= 0x7f00u) return (double)__uint_as_float(h << 16);
-  return __hiloint2double(
-      (int)(((h & 0x8000u) << 16) | ((mag << 13) + 0x38000000u)), 0);
 }
 
 // d += a . b, one m16n8k4 f64 tile: a [16][4] (rows g and g + 8 at column

@@ -12,12 +12,13 @@ between its kernels and its XLA scan:
     multiple of 32;
   * the plain route (PLAIN: decode_common.decode_chunk_reference on any
     device) for a model that no reference kernel takes, kernel_size > 2,
-    causal_channels != residual_channels or compute_dtype float32: the
+    causal_channels != residual_channels or compute_dtype float32, and for
+    a bf16 width-2 model whose widths neither port kernel takes: the
     counterpart of the reference's scan (generate_auto's last branch and
-    _stream_scan).
+    _stream_scan), which the reference also falls back to when neither of
+    its kernels fits.
 A kernel module's decode_chunk takes its CUDA kernel for tensors on the
-card and the plain PyTorch version for tensors on the CPU; on the card a
-width the reference's kernels take but neither port kernel does raises.
+card and the plain PyTorch version for tensors on the CPU.
 Every route carries the same rings and carry from launch to launch and keys
 its RNG by the global step, so chunked decode equals one-shot bit for bit.
 A mel-conditioned model takes y, its upsampled features on the decode
@@ -50,21 +51,18 @@ def kernel_module(cfg: WaveNetConfig, device):
     """The route that decodes cfg: PLAIN for a model no reference kernel
     takes (kernel_size > 2, E != R, compute_dtype float32); else
     ops/cuda/decode_wide for R a multiple of 128 with S a multiple of 32,
-    and ops/cuda/decode for every other width.  On the CPU a kernel module
-    runs its plain version, so any width decodes there; on the card a
-    width whose route has no kernel raises ValueError."""
-    R, S = cfg.residual_channels, cfg.skip_channels
+    and ops/cuda/decode for every other width.  On the card a width that
+    neither kernel takes (the narrow one's block does not fit) goes to
+    PLAIN too, as the reference falls back to its scan
+    (wavenet_tpu/generate/sampler.py generate_auto); on the CPU a kernel
+    module runs its plain version, so any width decodes there."""
+    R = cfg.residual_channels
     if (cfg.kernel_size != 2 or cfg.embed_channels != R
             or wn.compute_dtype(cfg) != torch.bfloat16):
         return PLAIN
     mod = pwide if pwide.supported(cfg) else pnarrow
     if torch.device(device).type == "cuda" and not mod.supported(cfg):
-        raise ValueError(
-            f"no decode kernel takes residual_channels={R}, skip_channels="
-            f"{S}, quantization_channels={cfg.quantization_channels} (the "
-            f"wide kernel takes R a multiple of 128 with S a multiple of "
-            f"32, the narrow one any width whose one-row block fits 227 KiB "
-            f"of shared memory)")
+        return PLAIN
     return mod
 
 

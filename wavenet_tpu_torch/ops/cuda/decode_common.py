@@ -275,12 +275,12 @@ def kernel_operands(w: DecodeWeights, cfg: WaveNetConfig,
 
 
 def tile_rows(batch: int, num_sms: int, max_rows: int = 8) -> int:
-    """Batch rows per thread block (a power of two up to max_rows): one row
-    per block while the blocks fit the card's SMs, so batches spread over
-    SMs (a block's step time is bound by its SM's rate of f64 FMAs and
-    bf16 -> f64 weight conversions, and grows with its rows); larger
-    batches share each weight load over more rows per block.  A row's
-    result does not depend on the choice."""
+    """Batch rows per thread block of the narrow kernel (a power of two up
+    to max_rows; the wide kernel's plan is decode_wide.plan_clusters): one
+    row per block while the blocks fit the card's SMs, so batches spread
+    over SMs (a block's step time grows with its rows); larger batches
+    share each weight load over more rows per block.  A row's result does
+    not depend on the choice."""
     bt = 1
     while bt < max_rows and -(-batch // bt) > num_sms:
         bt *= 2

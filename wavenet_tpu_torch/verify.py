@@ -25,8 +25,9 @@ across families):
                  kernel's refusals (R = 128 with S = 80, R = 192); then
                  the scan_route_divergence counterpart (measured).
   decode_wide    csrc/decode_wide.cu: the same variants, batch-tiled at
-                 B = 264 (two rows per block), plus the `full` and
-                 `full_vocoder` presets (the reference's check 7).
+                 B = 264 (4 rows per cluster, 66 clusters in turns),
+                 plus the `full` and `full_vocoder` presets (the
+                 reference's check 7).
   scan_k3        check 8: a K = 3, f32 model on the plain route on the
                  card; the ring decoder teacher-forced equals
                  forward_logits within 1e-4, fast == naive greedy.
