@@ -136,13 +136,20 @@ def test_narrow_shared_memory_accounting():
     (its values at two widths, by hand: fastgen_bench at one row per block
     and R = 192, S = 64, Q = 256 at 16 rows), and a width whose block
     cannot fit is refused."""
-    # fastgen_bench: units = max(z 256 x 2, skip/res 192 x 4, head 128 x 4,
-    # 256 x 2) = 768; 8 bytes x (3R + 2S + units) + 4 x (S + Q + 3 + 2L)
+    # fastgen_bench: f64 rows x, old (one 64-row block each), h, relu(skip)
+    # and s1 (two each); f32 gate sums [64][6], skip sums, scores; ints
+    # (3 + 2L); 3 mbarriers; two staged layer blobs (16 gate groups x 2
+    # blocks x 2 columns + 48 skip/res groups, 256 weights each, then the
+    # f32 biases) and the resident head (32 + 64 groups x 2 blocks)
+    blob = 2 * ((16 * 2 * 2 + 48) * 256 + 2 * (3 * 64 + 128))
+    head = 2 * ((32 * 2 + 64 * 2) * 256 + 2 * (128 + 256))
     assert tdec.smem_bytes(1, 20, 64, 128, 256, 0) == \
-        8 * (192 + 256 + 768) + 4 * (384 + 3 + 40)
+        8 * 64 * 7 + 4 * (64 * 6 + 128 + 256) + 176 + 32 + 2 * blob + head
+    # R = 192 at 16 rows: blobs read in place, the head resident
+    head = 2 * ((16 + 64) * 256 + 2 * (64 + 256))
     assert tdec.smem_bytes(16, 2, 192, 64, 256, 0) == \
-        8 * 16 * (576 + 128 + 768) + 4 * (16 * 320 + 48 + 4)
+        8 * 16 * 64 * 11 + 4 * 16 * (192 * 6 + 64 + 256) + 208 + 32 + head
     huge = tconfig.WaveNetConfig(num_blocks=1, max_dilation=2,
                                  residual_channels=16, skip_channels=16,
-                                 quantization_channels=30000)
+                                 quantization_channels=60000)
     assert not tdec.supported(huge)

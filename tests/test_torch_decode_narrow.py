@@ -16,19 +16,29 @@ params_from_numpy.
 Routing: generate_auto and generate_stream send R < 128 to ops/cuda/decode
 and R = 128 to ops/cuda/decode_wide; on a CUDA device a width neither
 kernel takes goes to the plain route, as the reference's scan.
+
+On the card (`gpu`, skipped without one): the kernel against the plain
+version, bit for bit, where its staging meets the rings (every layer at
+d = 1, one layer only), at ragged batch tiles and every rows per block.
+The card's machine has no JAX, so these run there with
+
+    python -m pytest tests/test_torch_decode_narrow.py --noconftest -m gpu
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from wavenet_tpu import config as jconfig
-from wavenet_tpu.models import conditioning as jcond
-from wavenet_tpu.models import wavenet as jwn
-from wavenet_tpu.ops import rng as jrng
-from wavenet_tpu.ops.pallas import decode as jdec
+try:                     # the reference side (absent on the card's machine)
+    import jax
+    import jax.numpy as jnp
+    from wavenet_tpu import config as jconfig
+    from wavenet_tpu.models import conditioning as jcond
+    from wavenet_tpu.models import wavenet as jwn
+    from wavenet_tpu.ops import rng as jrng
+    from wavenet_tpu.ops.pallas import decode as jdec
+except ImportError:
+    jax = None
 from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.generate import sampler
 from wavenet_tpu_torch.models import wavenet as twn
@@ -230,7 +240,7 @@ def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
     """Widths neither kernel takes decode through the plain route on a
     CUDA device, as the reference falls back to its scan (formerly they
     raised): R = 192 and R = 128 with S = 48 (widths the wide kernel
-    refuses) at Q = 30000, where the narrow block exceeds 227 KiB.  The
+    refuses) at Q = 60000, where the narrow block exceeds 227 KiB.  The
     route is decided for device "cuda" and the decode then runs on the
     CPU (kernel_module is wrapped, so nothing is allocated on a card):
     neither kernel module's decode_chunk nor plain version is called, the
@@ -256,7 +266,7 @@ def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
     for R, S in ((192, 32), (128, 48)):
         tc = tconfig.WaveNetConfig(num_blocks=1, max_dilation=2,
                                    residual_channels=R, skip_channels=S,
-                                   quantization_channels=30000)
+                                   quantization_channels=60000)
         params = twn.init_params(tc, torch.Generator().manual_seed(0), "cpu")
         assert not tdec.supported(tc) and not twide.supported(tc)
         want = sampler.generate_auto(params, tc, 4, device="cpu")
@@ -280,3 +290,80 @@ def test_width_no_kernel_takes_raises_on_cuda(monkeypatch):
         tc = tconfig.WaveNetConfig(num_blocks=1, max_dilation=2,
                                    residual_channels=R, skip_channels=S)
         assert decide(tc, "cuda") is mod and decide(tc, "cpu") is mod
+
+
+# ---------------------------------------------------------------------------
+# On the card.
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# configs whose ring slots the kernel's staging could read too early: every
+# layer at d = 1 (a slot is read one step after its write), one layer at
+# d = 1 (the next layer is the same layer, one step on), and `tiny`
+CARD = {"d1": dict(num_blocks=4, max_dilation=1, residual_channels=64,
+                   skip_channels=128),
+        "d1_one_layer": dict(num_blocks=1, max_dilation=1,
+                             residual_channels=64, skip_channels=128),
+        "tiny": dict(num_blocks=1, max_dilation=128, residual_channels=32,
+                     skip_channels=16)}
+
+
+def _card_cfg(name, variant):
+    kw = dict(CARD[name])
+    if "mel" in variant:
+        kw["mel"] = tconfig.MelConfig(num_mels=80, hop_length=16,
+                                      win_length=64, fmax=4000.0,
+                                      upsample_factors=(4, 4))
+    if "speaker" in variant:
+        kw.update(global_classes=5, global_channels=8)
+    return tconfig.WaveNetConfig(**kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["plain", "mel", "speaker",
+                                     "mel_speaker"])
+@pytest.mark.parametrize("name", sorted(CARD))
+def test_narrow_kernel_equals_plain_on_the_card(dev, name, variant):
+    """Tokens, rings and carry equal to the plain version's, greedy and
+    sampled, free-running and primed, at B = 1, 4 and 65 (a ragged last
+    tile), at every rows per block (1-16); chunked == one-shot."""
+    cfg = _card_cfg(name, variant)
+    gen = torch.Generator().manual_seed(len(name) + len(variant))
+    w = tdec.flatten_params(twn.init_params(cfg, gen, dev), cfg)
+    M = 0 if cfg.mel is None else cfg.mel.num_mels
+    N = 24
+    for batch in (1, 4, 65):
+        prime = torch.randint(0, 256, (batch, 5), dtype=torch.int32,
+                              generator=gen).to(dev)
+        y = (torch.randn(batch, N, M, generator=gen) * 3).to(dev) if M \
+            else None
+        sp = (torch.randint(0, 5, (batch,), generator=gen)
+              if cfg.global_classes else None)
+        for temp, forced in ((0.0, None), (1.0, None), (1.0, prime)):
+            rings, carry, s, g, _, _ = tdec.setup_decode(
+                cfg, batch, N, forced, seeds=3, device=dev, w=w,
+                speaker=sp)
+            want = tdec.decode_chunk_reference(w, cfg, rings, carry, 0, s,
+                                               N, temp, forced, y=y, g=g)
+            for bt in (None, 1, 2, 4, 8, 16):
+                got = tdec.decode_chunk(w, cfg, rings, carry, 0, s, N, temp,
+                                        forced, y=y, g=g, rows_per_block=bt)
+                for what, a, b in zip(("tokens", "rings", "carry"), got,
+                                      want):
+                    assert torch.equal(a, b), (batch, temp, bt, what)
+        r, c, toks, t0 = rings, carry, [], 0
+        for n in (1, 10, 13):
+            tk, r, c = tdec.decode_chunk(
+                w, cfg, r, c, t0, s, n, 1.0,
+                y=None if y is None else y[:, t0:t0 + n], g=g)
+            toks.append(tk)
+            t0 += n
+        one = tdec.decode_chunk(w, cfg, rings, carry, 0, s, N, 1.0, y=y,
+                                g=g)
+        assert torch.equal(torch.cat(toks, 1), one[0])
+        assert torch.equal(r, one[1]) and torch.equal(c, one[2])

@@ -629,11 +629,11 @@ def test_narrow_decode_widened_widths_equal_plain(dev, R, S):
 @pytest.mark.parametrize("R,S,Q,M", [(16, 16, 256, 0), (64, 128, 256, 80),
                                      (128, 80, 256, 0), (192, 64, 64, 8)])
 def test_narrow_decode_plans_equal_plain(dev, R, S, Q, M):
-    """The kernel launched with decode.py's plan (segment counts, units
-    and shared memory from plan and smem_bytes, at widths whose phases
-    split differently, with and without mel) equals the plain version bit
-    for bit at every tile size whose block fits 227 KiB; a larger one is
-    refused before launch."""
+    """The kernel launched with decode.py's plan (staged or in-place
+    blobs, the head resident or not, the shared-memory offsets, from plan
+    and smem_bytes, at widths whose plans differ, with and without mel)
+    equals the plain version bit for bit at every tile size whose block
+    fits 227 KiB; a larger one is refused before launch."""
     mel = None if not M else _mel_cfg(M).mel
     cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=4,
                                 residual_channels=R, skip_channels=S,
@@ -658,7 +658,7 @@ def test_narrow_decode_plans_equal_plain(dev, R, S, Q, M):
         k = pnarrow.decode_chunk(w, cfg, rings, carry, 0, s, steps, 1.0,
                                  y=y, rows_per_block=bt)
         for a, b in zip(k, p):
-            assert torch.equal(a, b), (bt, pnarrow.plan(R, S, Q, M))
+            assert torch.equal(a, b), (bt, pnarrow.plan(bt, 1, R, S, Q, M))
 
 
 def test_probe_kernels_equal_their_plain_versions(dev):

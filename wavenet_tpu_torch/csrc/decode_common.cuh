@@ -11,11 +11,12 @@
 // kernel may split one sum over several accumulators, threads or partial
 // sums in any order.  W is [K, N] bf16 row-major ([in, out]); the input is
 // held in shared memory as inT [K][BT] (BT batch rows), bf16 values stored
-// as f64 (converted once when written).  Each weight is widened to f64 once
-// per use: with kInt by integer operations (bf16_exact.cuh: bf2d, the wide
-// kernel), else by a float -> double conversion, which runs at a quarter
-// of the f64 FMA rate (the narrow kernel's loop, kept as it was until its
-// redesign).
+// as f64 (converted once when written).  dot_part (the wide kernel's)
+// widens each weight once per use by integer operations (bf16_exact.cuh
+// bf2d).  The narrow kernel (decode.cu) has its own lane loops over packed
+// weights and widens by the float -> double conversion, which measured
+// faster there than bf2d; it shares the rounding, the input rows' loads and
+// the argmax.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,18 +52,13 @@ __device__ __forceinline__ void load_rows(const double* p, double v[BT]) {
 // of kHalf ends with single loads.
 constexpr int kHalf = 16;
 
-template <bool kInt>
-__device__ __forceinline__ double widen(__nv_bfloat16 w) {
-  return kInt ? bf2d_v(w) : (double)__bfloat162float(w);
-}
-
-template <int BT, int NA, bool kInt>
+template <int BT, int NA>
 __device__ __forceinline__ void fma_batch(double (&acc)[NA][BT],
                                           const __nv_bfloat16 (&wk)[kHalf],
                                           const double* inT, int k0) {
 #pragma unroll
   for (int j = 0; j < kHalf; ++j) {
-    const double wj = widen<kInt>(wk[j]);
+    const double wj = bf2d_v(wk[j]);
     double v[BT];
     load_rows<BT>(inT + (k0 + j) * BT, v);
 #pragma unroll
@@ -78,7 +74,7 @@ __device__ __forceinline__ void load_batch(__nv_bfloat16 (&wk)[kHalf],
 }
 
 // sum[r] = sum over k in [kb, ke) of inT[k][r] * W[k][o], exact in f64.
-template <int BT, bool kInt = false>
+template <int BT>
 __device__ __forceinline__ void dot_part(const __nv_bfloat16* __restrict__ W,
                                          int kb, int ke, int N, int o,
                                          const double* inT, double sum[BT]) {
@@ -95,18 +91,18 @@ __device__ __forceinline__ void dot_part(const __nv_bfloat16* __restrict__ W,
     load_batch(wa, w, k, N);
     while (ke - k >= 2 * kHalf) {
       load_batch(wb, w, k + kHalf, N);
-      fma_batch<BT, NA, kInt>(acc, wa, inT, k);
+      fma_batch<BT, NA>(acc, wa, inT, k);
       if (ke - k >= 3 * kHalf) load_batch(wa, w, k + 2 * kHalf, N);
-      fma_batch<BT, NA, kInt>(acc, wb, inT, k + kHalf);
+      fma_batch<BT, NA>(acc, wb, inT, k + kHalf);
       k += 2 * kHalf;
     }
     if (ke - k >= kHalf) {
-      fma_batch<BT, NA, kInt>(acc, wa, inT, k);
+      fma_batch<BT, NA>(acc, wa, inT, k);
       k += kHalf;
     }
   }
   for (; k < ke; ++k) {
-    const double wj = widen<kInt>(w[(size_t)k * N]);
+    const double wj = bf2d_v(w[(size_t)k * N]);
 #pragma unroll
     for (int r = 0; r < BT; ++r) acc[0][r] = fma(inT[k * BT + r], wj, acc[0][r]);
   }

@@ -445,7 +445,7 @@ __device__ __forceinline__ void dot_units(const Job& a, const Job& b,
     if constexpr (kStaged)
       dot_staged<BT>(W, kb, ke, ld, col, in, sum);
     else
-      dot_part<BT, true>(W, kb, ke, ld, col, in, sum);
+      dot_part<BT>(W, kb, ke, ld, col, in, sum);
 #pragma unroll
     for (int r = 0; r < BT; ++r) part[u * BT + r] = sum[r];
   }
@@ -706,8 +706,7 @@ decode_wide_kernel(const DecodeArgs a) {
         } else if constexpr (kStage) {
           dot_staged<BT>(skip ? ws : wr, 0, hc, skip ? S : R, col, hT, p);
         } else {
-          dot_part<BT, true>(skip ? ws : wr, 0, hc, skip ? S : R, col, hT,
-                             p);
+          dot_part<BT>(skip ? ws : wr, 0, hc, skip ? S : R, col, hT, p);
         }
         // skip: to the CTA that owns the column; residual: to every CTA,
         // or (scatter) to the one that owns it

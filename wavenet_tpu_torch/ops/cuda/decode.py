@@ -15,7 +15,11 @@ on TPU lanes; the port keeps [sum_d, B, R] for both kernels, so the plain
 version, the set-up and the streaming driver are one.  The TPU's VMEM plan
 (the time chunk, VMEM_BUDGET, batch tiles as separate launches) has no
 counterpart: the CUDA kernel takes any num_steps >= 1, any batch and any
-prime length, in tiles of up to 16 rows per thread block.
+prime length, in tiles of up to 16 rows per thread block.  Its plan is
+`plan` (each layer's weights staged in shared memory or read in place,
+the head's resident or not, the shared-memory layout), and `pack_layers`
+lays each layer's weights and biases out as one blob in the order the
+kernel's lanes read them.
 
 Routing is by the tensors' device and nothing else: `decode_chunk` runs the
 plain version (`decode_chunk_reference`) only for CPU tensors; for CUDA
@@ -25,7 +29,7 @@ tensors it launches the kernel or raises.  There is no fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,69 +48,221 @@ launches = build.LaunchCounter()
 mel_launches = build.LaunchCounter()
 gc_launches = build.LaunchCounter()
 
-MAX_ROWS = 16      # rows per block: one argmax warp per row of 512 threads
+# the most rows per block the default tile takes: 16 rows spill registers
+# and measured slower than 8 rows run in two turns (PERF.md)
+TILE_ROWS = 8
 _MAX_SMEM = 227 * 1024
 
-
-# the kernel's plan lives here and nowhere else: csrc/decode.cu takes the
-# segment counts, the partial-sum units and the shared-memory size from
-# wn_decode's arguments
-_THREADS = 512     # threads per block (decode.cu kThreads)
-_MIN_SEG = 8       # shortest K segment a phase splits into
+# the lanes' mapping, fixed in csrc/decode.cu: lanes splitting one unit's K
+# range, units a warp owns at once, K rows of one block (8 a lane), a
+# channel's gate sums per row
+SEG, UNITS, BLK, SLOTS = 8, 4, 64, 6
 
 
-def _phase_segs(ndots: int, kmin: int) -> int:
-    """K segments per dot product of a phase with ndots dot products whose
-    shortest K is kmin: doubled while the phase has fewer units than the
-    block has threads and every segment keeps at least _MIN_SEG terms."""
-    s = 1
-    while ndots * s < _THREADS and (kmin + 2 * s - 1) // (2 * s) >= _MIN_SEG:
-        s *= 2
-    return s
+class Plan(NamedTuple):
+    """One launch's plan, in the order of csrc/decode.cu's `Plan` (the
+    kernel takes it as ints and computes none of it): whether the layer
+    blobs are staged in shared memory (else read in place) and the head
+    blob resident; element offsets of
+    phase B's weights and of the f32 biases in a layer blob and its
+    length, the same of W2's weights in the head blob; byte offsets of
+    the shared-memory arrays (f64 x/old/y, h, relu(skip), s1; f32 gate
+    sums, skip sums, scores, speaker offsets; the ints; three mbarriers;
+    two stage buffers; the head) and their total."""
+    stage: int
+    head_res: int
+    wb: int
+    bias: int
+    blk: int
+    h2: int
+    hbias: int
+    hblk: int
+    x: int
+    h: int
+    s: int
+    s1: int
+    z: int
+    skip: int
+    score: int
+    gs: int
+    tok: int
+    mbar: int
+    stg: int
+    head: int
+    smem: int
 
 
-def plan(R: int, S: int, Q: int, M: int) -> Tuple[int, int, int, int, int]:
-    """The kernel's plan: (K segments per dot product of the z, skip +
-    residual, head 1 and head 2 phases, the partial-sum units of the
-    largest phase)."""
-    nz = 4 * R + (2 * R if M else 0)
-    z, sr = _phase_segs(nz, M if M and M < R else R), _phase_segs(S + R, R)
-    h1, h2 = _phase_segs(S, S), _phase_segs(Q, S)
-    return z, sr, h1, h2, max(nz * z, (S + R) * sr, S * h1, Q * h2)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def smem_bytes(bt: int, L: int, R: int, S: int, Q: int, M: int) -> int:
-    """Shared memory of one block at bt rows per block, in the order
-    decode.cu lays it out: f64 [3R + 2S + M + units][bt] (matmul inputs
-    and partial sums), f32 [S + Q][bt] (skip sum, scores), int [3 bt + 2L]
-    (tokens, prevs, seeds, ring offsets, dilations)."""
-    units = plan(R, S, Q, M)[4]
-    return (8 * bt * (3 * R + 2 * S + M + units)
-            + 4 * (bt * (S + Q) + 3 * bt + 2 * L))
+def _blobs(R: int, S: int, Q: int, M: int) -> Tuple[int, ...]:
+    """Element offsets (bf16) in the blobs pack_layers lays out: a layer's
+    phase A weights (per group of UNITS channels: W_cur, W_prev, V_cond
+    blocks x 2 columns x 32 lanes x 8), phase B's at wb ([W_skip | W_res]
+    columns), then its biases as f32 at `bias` (b, b_skip, b_res), blk in all; the
+    head's W1 groups, W2's at h2, then b1 and b2 as f32 at hbias, hblk in
+    all; lengths padded to 16 bytes.  Returns (wb, bias, blk, h2, hbias,
+    hblk)."""
+    nbR, nbS, nbM = _cdiv(R, BLK), _cdiv(S, BLK), _cdiv(M, BLK)
+    wb = _cdiv(R, UNITS) * (2 * nbR + nbM) * 2 * 256
+    bias = wb + _cdiv(S + R, UNITS) * nbR * 256
+    blk = _cdiv(bias + 2 * (3 * R + S), 8) * 8
+    h2 = _cdiv(S, UNITS) * nbS * 256
+    hbias = h2 + _cdiv(Q, UNITS) * nbS * 256
+    hblk = _cdiv(hbias + 2 * (S + Q), 8) * 8
+    return wb, bias, blk, h2, hbias, hblk
+
+
+def _layout(bt: int, L: int, R: int, S: int, Q: int, M: int, gc: bool,
+            stage: bool, head_res: bool) -> Plan:
+    wb, bias, blk, h2, hbias, hblk = _blobs(R, S, Q, M)
+    nbR, nbS, nbM = _cdiv(R, BLK), _cdiv(S, BLK), _cdiv(M, BLK)
+    off, at = 0, {}
+    for name, n in (("x", 8 * bt * BLK * (2 * nbR + nbM)),
+                    ("h", 8 * bt * BLK * nbR), ("s", 8 * bt * BLK * nbS),
+                    ("s1", 8 * bt * BLK * nbS), ("z", 4 * R * SLOTS * bt),
+                    ("skip", 4 * S * bt), ("score", 4 * Q * bt),
+                    ("gs", 4 * bt * 2 * R if gc else 0),
+                    ("tok", 4 * (3 * bt + 2 * L)), ("mbar", 8 * 3),
+                    ("stg", 2 * 2 * blk if stage else 0),
+                    ("head", 2 * hblk if head_res else 0)):
+        at[name] = off
+        off += _cdiv(n, 16) * 16
+    return Plan(int(stage), int(head_res), wb, bias, blk, h2, hbias, hblk,
+                **at, smem=off)
+
+
+# the plans in the order they are tried: (staged, head resident)
+PLANS = ((1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def plan(bt: int, L: int, R: int, S: int, Q: int, M: int,
+         gc: bool = False) -> Plan:
+    """The kernel's plan at bt rows per block: the first of PLANS that
+    fits 227 KiB: the layer blobs staged (two buffers) with the head
+    resident, else without it, else read in place.  (A plan whose smem
+    exceeds 227 KiB does not fit at all: the wrapper refuses it.)"""
+    for stage, head_res in PLANS:
+        p = _layout(bt, L, R, S, Q, M, gc, stage, head_res)
+        if p.smem <= _MAX_SMEM:
+            return p
+    return p
+
+
+def smem_bytes(bt: int, L: int, R: int, S: int, Q: int, M: int,
+               gc: bool = False) -> int:
+    """Shared memory of one block at bt rows per block (plan's `smem`):
+    f64 [K][bt] rows of x/old/y, h, relu(skip) and s1, each zero-padded to
+    whole blocks of BLK rows; f32 gate sums [R][SLOTS][bt], skip sums
+    [S][bt], scores [Q][bt] and, with a speaker, offsets [bt][2R]; ints
+    (tokens, prevs, seeds, ring offsets, dilations); three mbarriers; two
+    layer blobs and the head blob where they fit."""
+    return plan(bt, L, R, S, Q, M, gc).smem
 
 
 def _cfg_smem(cfg: WaveNetConfig, bt: int) -> int:
     M = 0 if cfg.mel is None else cfg.mel.num_mels
     return smem_bytes(bt, cfg.num_layers, cfg.residual_channels,
-                      cfg.skip_channels, cfg.quantization_channels, M)
+                      cfg.skip_channels, cfg.quantization_channels, M,
+                      cfg.global_classes is not None)
 
 
 def supported(cfg: WaveNetConfig) -> bool:
     """Configs the narrow CUDA kernel serves: bf16 width-2 models with
-    E == R whose one-row block fits the shared memory, with or without mel
-    and speaker conditioning.  Its K-split dot products take any R, S and
-    M and its thread plan any width (a strided loop over the units of a
-    phase, one argmax warp per row); the presets use R in {32, 64}, the
-    tests R = 16, and the sampler sends it any width the wide kernel does
-    not take (generate/sampler.py kernel_module)."""
+    E == R whose one-row block fits the shared memory (its blobs read in
+    place where they do not fit beside it), with or without mel and
+    speaker conditioning.  Its lanes take any R, S, Q and M; the presets
+    use R in {32, 64}, the tests R = 16, and the sampler sends it any
+    width the wide kernel does not take (generate/sampler.py
+    kernel_module)."""
     return (cfg.kernel_size == 2 and cfg.compute_dtype == "bfloat16"
             and cfg.embed_channels == cfg.residual_channels
             and _cfg_smem(cfg, 1) <= _MAX_SMEM)
 
 
+def _lane_pack(W: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """W [L, K, N] -> [L, G, nb, C, 32 * 8]: for group g, K block b and
+    column c, lane q * SEG + s's 8 weights W[k][cols[g, q, c]] at its rows
+    k = BLK b + 16 j + 2 s + e (value 2 j + e), zero past K and for a
+    column index N."""
+    L, K, N = W.shape
+    nb = _cdiv(K, BLK)
+    Wz = W.new_zeros(L, nb * BLK, N + 1)
+    Wz[:, :K, :N] = W
+    b = torch.arange(nb)[:, None, None]
+    s = torch.arange(SEG)[None, :, None]
+    v = torch.arange(8)[None, None, :]
+    k = (BLK * b + 16 * (v // 2) + 2 * s + v % 2).reshape(-1).to(W.device)
+    G, U, C = cols.shape
+    out = Wz[:, k][..., cols.reshape(-1).to(W.device)]
+    out = out.reshape(L, nb, SEG, 8, G, U, C)
+    return out.permute(0, 4, 1, 6, 5, 2, 3).reshape(L, G, nb, C, U * SEG * 8)
+
+
+def _units(n: int, cols) -> torch.Tensor:
+    """[G, UNITS, C] column indices of n units in groups of UNITS: cols(u),
+    the C columns of unit u (for u >= n, the zero column)."""
+    G = _cdiv(n, UNITS)
+    return torch.tensor([[cols(u) for u in range(g * UNITS, (g + 1) * UNITS)]
+                         for g in range(G)], dtype=torch.long)
+
+
+def _f32_as_bf16(*xs) -> torch.Tensor:
+    return torch.cat([x.float() for x in xs], -1).contiguous().view(
+        torch.bfloat16)
+
+
+def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros(*x.shape[:-1], n - x.shape[-1])], -1)
+
+
+def pack_layers(w: DecodeWeights, cfg: WaveNetConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pack [L, blk], head [hblk]) bf16: each layer's weights and biases
+    in one contiguous blob in the order the kernel's lanes read them (a
+    stage is one copy), and the head's likewise (`_blobs`).  Every value
+    is a copy of one in w (f32 bits as bf16 pairs)."""
+    L, R, S, Q = (cfg.num_layers, cfg.residual_channels, cfg.skip_channels,
+                  cfg.quantization_channels)
+    M = 0 if cfg.mel is None else cfg.mel.num_mels
+    _, _, blk, _, _, hblk = _blobs(R, S, Q, M)
+    gate = _units(R, lambda c: [c, R + c] if c < R else [2 * R, 2 * R])
+    parts = [_lane_pack(w["w_cur"], gate), _lane_pack(w["w_prev"], gate)]
+    if M:
+        parts.append(_lane_pack(w["v_cond"], gate))
+    a = torch.cat(parts, 2).reshape(L, -1)
+    sr = _lane_pack(torch.cat([w["w_skip"], w["w_res"]], -1),
+                    _units(S + R, lambda u: [min(u, S + R)])).reshape(L, -1)
+    bias = _f32_as_bf16(w["b"], w["b_skip"], w["b_res"])
+    pack = _pad(torch.cat([a, sr, bias], -1), blk)
+    h1 = _lane_pack(w["head_w1"][None], _units(S, lambda u: [min(u, S)]))
+    h2 = _lane_pack(w["head_w2"][None], _units(Q, lambda u: [min(u, Q)]))
+    head = _pad(torch.cat([h1.reshape(-1), h2.reshape(-1), _f32_as_bf16(
+        w["head_b1"], w["head_b2"])]), hblk)
+    return pack.contiguous(), head.contiguous()
+
+
+# the keys whose values pack_layers copies
+_PACKED = ("w_cur", "w_prev", "v_cond", "w_skip", "w_res", "b", "b_res",
+           "b_skip", "head_w1", "head_b1", "head_w2", "head_b2")
+
+
+def packed_layers(w: DecodeWeights, cfg: WaveNetConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pack_layers(w, cfg), kept on w (a DecodeWeights) and made anew when
+    a packed tensor is replaced or updated in place."""
+    key = tuple((w[k].data_ptr(), w[k]._version) for k in _PACKED if k in w)
+    cache = getattr(w, "__dict__", {})
+    hit = cache.get("_narrow_pack")
+    if hit is None or hit[0] != key:
+        hit = cache["_narrow_pack"] = (key, pack_layers(w, cfg))
+    return hit[1]
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wn_decode.argtypes = [p] * 24 + [i] * 11 + [f] + [i] * 7 + [p]
+    lib.wn_decode.argtypes = [p] * 14 + [i] * 11 + [f, i, p, i, p]
     lib.wn_decode.restype = i
     lib.wn_error_string.argtypes = [i]
     lib.wn_error_string.restype = ctypes.c_char_p
@@ -155,18 +311,21 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
     dev = rings.device
     lib = library()
     bt = rows_per_block
+    gc = g is not None
     if bt is None:              # tile_rows' choice, halved until it fits
         bt = tile_rows(
             B, torch.cuda.get_device_properties(dev).multi_processor_count,
-            MAX_ROWS)
-        while bt > 1 and _cfg_smem(cfg, bt) > _MAX_SMEM:
+            TILE_ROWS)
+        while bt > 1 and smem_bytes(bt, L, R, S, Q, M, gc) > _MAX_SMEM:
             bt //= 2
     if bt not in (1, 2, 4, 8, 16):
         raise ValueError(f"rows_per_block must be 1, 2, 4, 8 or 16; got {bt}")
-    smem = smem_bytes(bt, L, R, S, Q, M)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"decode kernel needs {smem} bytes of shared "
+    pl = plan(bt, L, R, S, Q, M, gc)
+    if pl.smem > _MAX_SMEM:
+        raise ValueError(f"decode kernel needs {pl.smem} bytes of shared "
                          f"memory per block (> {_MAX_SMEM})")
+    pack, head = packed_layers(w, cfg)
+    plan_ints = (ctypes.c_int * len(pl))(*pl)
     tokens = torch.empty(B, num_steps, dtype=torch.int32, device=dev)
     rings_out = torch.empty_like(rings)
     carry = torch.empty(B, 2, dtype=torch.int32, device=dev)
@@ -175,18 +334,13 @@ def decode_chunk(w: DecodeWeights, cfg: WaveNetConfig, rings: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wn_decode(
             ptr(seeds), ptr(tokens_init), ptr(forced),
-            ptr(w["embed_cur"]), ptr(w["embed_prev"]), ptr(w["w_cur"]),
-            ptr(w["w_prev"]), ptr(w["b"]), ptr(w["w_res"]), ptr(w["b_res"]),
-            ptr(w["w_skip"]), ptr(w["b_skip"]), ptr(w["head_w1"]),
-            ptr(w["head_b1"]), ptr(w["head_w2"]), ptr(w["head_b2"]),
-            ptr(w["dils"]), ptr(y_k), ptr(w.get("v_cond")), ptr(g),
-            ptr(rings), ptr(rings_out), ptr(tokens), ptr(carry),
-            L, R, S, Q, M, sum_d, B, int(num_steps), int(t0),
-            num_forced, int(greedy),
-            0.0 if greedy else float(1.0 / temperature), bt,
-            *plan(R, S, Q, M), smem, stream)
-        (gc_launches if g is not None else
-         mel_launches if M else launches).add()
+            ptr(w["embed_cur"]), ptr(w["embed_prev"]), ptr(pack), ptr(head),
+            ptr(w["dils"]), ptr(y_k), ptr(g), ptr(rings), ptr(rings_out),
+            ptr(tokens), ptr(carry), L, R, S, Q, M, sum_d, B,
+            int(num_steps), int(t0), num_forced, int(greedy),
+            0.0 if greedy else float(1.0 / temperature), bt, plan_ints,
+            len(pl), stream)
+        (gc_launches if gc else mel_launches if M else launches).add()
     raise_on(lib, rc, "wn_decode")
     return tokens, rings_out, carry
 

@@ -1,23 +1,32 @@
-"""Where a step of the wide decode kernel goes: the kernel timed with one
-part of its work taken out at a time.
+"""Where a step of a decode kernel goes: the kernel timed with one part of
+its work taken out at a time.
 
-    python -m wavenet_tpu_torch.utils.decode_phases [--steps 256]
+    python -m wavenet_tpu_torch.utils.decode_phases [--kernel wide|narrow]
+        [--steps 256]
 
-On the card, builds csrc/decode_wide.cu as it is and in variants, each
+On the card, builds the kernel's source as it is and in variants, each
 built with one part of a layer's work taken out by a -D flag that the
 kernel reads (WN_PHASE_NO_...; the variants' tokens are wrong by design;
-each keeps the exchange's protocol, so none can wait forever), and times
-them at the `full` preset's widths, B = 4, with 16 CTAs per cluster: one
-row per cluster by either exchange (all-reduce, scatter), then all four
-rows in one by the scatter, in turns (two rounds).  Prints one JSON line per variant and plan, then the
-card: a variant's time below the kernel's is what that part costs the
-step.
+each keeps the kernel's protocol, so none can wait forever), and times
+them in turns (two rounds).  Prints one JSON line per variant and plan,
+then the card: a variant's time below the kernel's is what that part
+costs the step.
 
+`--kernel wide` (csrc/decode_wide.cu) at the `full` preset's widths,
+B = 4, with 16 CTAs per cluster: one row per cluster by either exchange
+(all-reduce, scatter), then all four rows in one by the scatter.
 Variants: `no_exchange` (no partial sums or x slices sent, no wait for
 them), `no_z` (the z phase's products), `no_skip_res` (the skip and
 residual products), `no_copies` (the staging of later layers),
 `skeleton` (all of them: what remains is barriers, epilogues, the head
 and the loop).
+
+`--kernel narrow` (csrc/decode.cu) at the `fastgen_bench` preset's
+widths, B = 64, at the default rows per block.  Variants: `no_ring` (the
+ring read of `old` and the write of x), `no_z`, `no_skip_res`,
+`no_epilogue_loads` (the biases and speaker offsets the epilogues add),
+`skeleton` (all of them); and `no_copies` (no staging of the next
+layer), timed beside them.
 """
 
 from __future__ import annotations
@@ -33,37 +42,56 @@ import torch
 from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops.cuda import build
+from wavenet_tpu_torch.ops.cuda import decode as pn
 from wavenet_tpu_torch.ops.cuda import decode_wide as pw
 
-# the macro that takes each part out (csrc/decode_wide.cu)
+# the macro that takes each part out, by kernel
 PARTS = {"no_exchange": "WN_PHASE_NO_EXCHANGE", "no_z": "WN_PHASE_NO_Z",
          "no_skip_res": "WN_PHASE_NO_SKIP_RES",
          "no_copies": "WN_PHASE_NO_COPIES"}
-# (CTAs, rows) per cluster, scatter exchange
+NARROW_PARTS = {"no_ring": "WN_PHASE_NO_RING", "no_z": "WN_PHASE_NO_Z",
+                "no_skip_res": "WN_PHASE_NO_SKIP_RES",
+                "no_epilogue_loads": "WN_PHASE_NO_EPILOGUE_LOADS"}
+# the narrow kernel's other build, timed beside the parts: the staging
+# copies left out
+NARROW_ALTERNATIVES = {"no_copies": ["-DWN_PHASE_NO_COPIES"]}
+# wide: (CTAs, rows) per cluster, scatter exchange; narrow: rows per
+# block (None: the default, tile_rows' choice)
 PLANS = ((16, 1, False), (16, 1, True), (16, 4, True))
+NARROW_PLANS = (None,)
+# (source, module, preset, batch) by kernel
+KERNELS = {"wide": ("decode_wide.cu", pw, tconfig.full, 4),
+           "narrow": ("decode.cu", pn, tconfig.fastgen_bench, 64)}
 
 
-def variants() -> dict:
+def parts(kernel: str = "wide") -> dict:
+    return PARTS if kernel == "wide" else NARROW_PARTS
+
+
+def variants(kernel: str = "wide") -> dict:
     """{name: the -D flags of its build}: the kernel, each part taken out
-    alone, and all of them (the skeleton)."""
+    alone, and all of them (the skeleton); for the narrow kernel also its
+    alternatives."""
     out = {"kernel": []}
-    for name, macro in PARTS.items():
+    for name, macro in parts(kernel).items():
         out[name] = ["-D" + macro]
-    out["skeleton"] = ["-D" + m for m in PARTS.values()]
+    out["skeleton"] = ["-D" + m for m in parts(kernel).values()]
+    if kernel == "narrow":
+        out.update(NARROW_ALTERNATIVES)
     return out
 
 
-def build_all(flags: dict) -> dict:
+def build_all(flags: dict, kernel: str = "wide") -> dict:
     """One library per variant under the build directory (one nvcc each,
     all started together)."""
+    source, mod, _, _ = KERNELS[kernel]
     libs, procs = {}, {}
-    src = build.CSRC / "decode_wide.cu"
+    d = build.BUILD_DIR / "decode_phases" / kernel
+    d.mkdir(parents=True, exist_ok=True)
     for name, extra in flags.items():
-        d = build.BUILD_DIR / "decode_phases"
-        d.mkdir(parents=True, exist_ok=True)
         out = d / f"{name}.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *extra, "-o", str(out),
-               str(src)]
+               str(build.CSRC / source)]
         procs[name] = (out, subprocess.Popen(cmd, stderr=subprocess.PIPE,
                                              text=True))
     for name, (out, proc) in procs.items():
@@ -71,19 +99,24 @@ def build_all(flags: dict) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed building {name}:\n{err}")
         libs[name] = ctypes.CDLL(str(out))
-        pw._bind(libs[name])
+        mod._bind(libs[name])
     return libs
 
 
-def time_step(lib, w, cfg, rings, carry, seeds, steps: int,
-              plan) -> float:
+def plan_kwargs(kernel: str, plan) -> dict:
+    if kernel == "wide":
+        return {"cluster": plan[0], "rows_per_cluster": plan[1],
+                "scatter": plan[2]}
+    return {"rows_per_block": plan}
+
+
+def time_step(mod, lib, w, cfg, rings, carry, seeds, steps: int,
+              kw: dict) -> float:
     """ms per decode step of one launch of `steps` steps (CUDA events)."""
-    pw.library = lambda: lib
-    kw = {"cluster": plan[0], "rows_per_cluster": plan[1],
-          "scatter": plan[2]}
+    mod.library = lambda: lib
 
     def run():
-        pw.decode_chunk(w, cfg, rings, carry, 0, seeds, steps, 1.0, **kw)
+        mod.decode_chunk(w, cfg, rings, carry, 0, seeds, steps, 1.0, **kw)
     run()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -97,35 +130,38 @@ def time_step(lib, w, cfg, rings, carry, seeds, steps: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="wide")
     ap.add_argument("--steps", type=int, default=256)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("decode_phases: needs a CUDA device", file=sys.stderr)
         return 1
-    flags = variants()
-    libs = build_all(flags)
+    kernel = args.kernel
+    _, mod, preset, batch = KERNELS[kernel]
+    plans = PLANS if kernel == "wide" else NARROW_PLANS
+    flags = variants(kernel)
+    libs = build_all(flags, kernel)
     dev = torch.device("cuda")
-    cfg = tconfig.full()
-    w = pw.flatten_params(wn.init_params(cfg, torch.Generator()
-                                         .manual_seed(0), dev), cfg)
-    rings, carry, seeds, _, _, _ = pw.setup_decode(
-        cfg, 4, args.steps, seeds=[1, 8, 15, 22], device=dev)
+    cfg = preset()
+    w = mod.flatten_params(wn.init_params(cfg, torch.Generator()
+                                          .manual_seed(0), dev), cfg)
+    rings, carry, seeds, _, _, _ = mod.setup_decode(
+        cfg, batch, args.steps, seeds=list(range(1, 1 + batch)), device=dev)
     card = torch.cuda.get_device_name(0)
-    library = pw.library
-    times = {(n, p): [] for n in flags for p in PLANS}
+    library = mod.library
+    times = {(n, p): [] for n in flags for p in plans}
     try:
         for _ in range(2):
             for name in flags:
-                for plan in PLANS:
+                for plan in plans:
                     times[(name, plan)].append(time_step(
-                        libs[name], w, cfg, rings, carry, seeds, args.steps,
-                        plan))
+                        mod, libs[name], w, cfg, rings, carry, seeds,
+                        args.steps, plan_kwargs(kernel, plan)))
     finally:
-        pw.library = library
+        mod.library = library
     for (name, plan), ms in times.items():
-        print(json.dumps({"variant": name, "cluster": plan[0],
-                          "rows_per_cluster": plan[1], "scatter": plan[2],
-                          "batch": 4,
+        print(json.dumps({"kernel": kernel, "variant": name,
+                          **plan_kwargs(kernel, plan), "batch": batch,
                           "ms_per_step": ms, "card": card}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
