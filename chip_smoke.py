@@ -15,7 +15,9 @@ the narrow decode kernel (phases 10-12), speaker-conditioned models
 through both decode kernels' speaker variants (phase 13), and a
 speaker-conditioned `full` trained through the train_stack kernels'
 speaker variants (phase 14), then the port's verify tool with its probe
-kernels (phase 15).  Any failed check
+kernels (phase 15), and the entry points a user calls at `full`: the
+train CLI sampling and tracing as it trains, the generate and score CLIs
+(phase 16).  Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -118,13 +120,29 @@ Phases (one line of numbers each):
      kernel must have launched on that path; then the four probe kernels
      (csrc/probes.cu) against their plain versions here, each timed with
      its plain version and its bound; P2 and torch.tanh in turns, 25
-     rounds: their medians and ranges.
-The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15) set
+     rounds: their medians and ranges;
+ 16. the entry points at `full`: train.main (synthetic data, B=8, window
+     8192, EMA 0.999) for 16 steps with a checkpoint every 4 steps,
+     --sample-every 8 --sample-seconds 0.25 and --profile-dir: its losses,
+     final params and EMA equal to the same run without sampling and
+     tracing bit for bit, the stack kernels' counts equal to their
+     formula, the wide decode kernel launched once a sample and no other
+     decode kernel, two samples of 4,000 samples, the stack kernels in
+     the trace of steps 10-15, the three kept checkpoints in place when
+     main() returns; the ms per step with no fetch and no save, with the
+     metrics fetched every step, and with a save every step, blocking and
+     asynchronous (utils/profiling.host_costs); then the generate CLI
+     (0.5 s, batch 4, seed 7) through the wide kernel only, its four wavs
+     equal to the facade's generate_wav bit for bit, --stream 0.1 equal
+     to them, --no-ema different; and the score CLI over the four wavs at
+     --chunk 4096, each within 1e-4 bits per sample of one pass.
+The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16) set
 every kernel's count to 0 right before and read them right after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -152,6 +170,11 @@ NARROW_B, TILES = 64, (1, 2, 4, 8, 16)   # phase 10 batch, rows per block
 HAZARD_B, HAZARD_STEPS = 65, 256          # phase 10: ragged tile, d = 1
 SPEAKERS, SPK_STEPS, SPK_SECONDS = 109, 256, 0.1   # phase 13
 GATE_ROUNDS = 25                 # phase 15: P2 and torch.tanh in turns
+# phase 16: train.main steps, checkpoint and sample intervals, sample length
+ENTRY_STEPS, ENTRY_CKPT_EVERY, SAMPLE_EVERY, SAMPLE_SECONDS = 16, 4, 8, 0.25
+SAVE_COST_STEPS = 4              # phase 16: steps a save mode is timed over
+GEN_SECONDS, GEN_BATCH, GEN_SEED, GEN_STREAM = 0.5, 4, 7, 0.1
+SCORE_CHUNK, SCORE_TOL = 4096, 1e-4
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -1139,6 +1162,163 @@ def phase_verify(probes, dev, card: str) -> tuple:
     return numbers, counts
 
 
+def _wav_bytes(paths) -> list:
+    out = []
+    for path in paths:
+        with open(path, "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def phase_entry_points(ts, dev, card: str, preset: str = "full") -> dict:
+    """Phase 16: the train CLI with --sample-every and --profile-dir at
+    `full`, the cost of a save every step (blocking and asynchronous), the
+    generate CLI (one shot, --stream, --no-ema) against the facade, and
+    the score CLI against one pass over each clip.  Returns the launches
+    of the stack kernels and the wide decode kernel on these paths."""
+    import numpy as np
+    import torch
+    from wavenet_tpu_torch import score, train
+    from wavenet_tpu_torch.audio.dataset import AudioDataset
+    from wavenet_tpu_torch.generate import __main__ as generate
+    from wavenet_tpu_torch.generate.sampler import batch_paths
+    from wavenet_tpu_torch.models.api import WaveNet
+    from wavenet_tpu_torch.training.trainer import Trainer
+    from wavenet_tpu_torch.utils import profiling
+    phase_t = time.monotonic()
+    device = str(dev)
+    common = ["--preset", preset, "--synthetic", "--device", device,
+              "--batch-size", str(TS_TRAIN_B), "--log-every", "1",
+              "--override", f"train_window={TS_T}",
+              "--override", "ema_decay=0.999", "--steps", str(ENTRY_STEPS),
+              "--ckpt-every", str(ENTRY_CKPT_EVERY)]
+    cfg = train.build_config(train.parse_args(common))
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, prof = (os.path.join(tmp, n) for n in ("a", "b", "prof"))
+        train.main(common + ["--ckpt", a, "--metrics-file", a + ".jsonl"])
+        reset_counts()                           # the training path starts here
+        t = time.monotonic()
+        train.main(common + [
+            "--ckpt", b, "--metrics-file", b + ".jsonl", "--sample-every",
+            str(SAMPLE_EVERY), "--sample-seconds", str(SAMPLE_SECONDS),
+            "--profile-dir", prof])
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t
+        kept = sorted(n for n in os.listdir(b) if n.startswith("ckpt_"))
+        fwd, bwd, dec = ("train_stack.fwd_launches",
+                         "train_stack.bwd_launches", "decode_wide.launches")
+        counts = check_only([fwd, bwd, dec], "phase 16 training")
+        ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
+        L, samples = cfg.num_layers, ENTRY_STEPS // SAMPLE_EVERY
+        check((counts[fwd], counts[bwd], counts[dec])
+              == (ENTRY_STEPS * (L + ng), ENTRY_STEPS * (10 * L + 2 * ng),
+                  samples),
+              f"phase 16 training launched {counts}")
+        la, lb = _losses(a + ".jsonl"), _losses(b + ".jsonl")
+        check(sorted(la) == list(range(1, ENTRY_STEPS + 1)) and la == lb,
+              f"losses with sampling and tracing {lb} differ from {la}")
+        last = f"ckpt_{ENTRY_STEPS:08d}.pt"
+        pa = torch.load(os.path.join(a, last), weights_only=True)
+        pb = torch.load(os.path.join(b, last), weights_only=True)
+        check(all(torch.equal(pa[tree][k], pb[tree][k])
+                  for tree in ("params", "ema") for k in pa[tree]),
+              "params or EMA with sampling and tracing differ")
+        want_kept = [f"ckpt_{s:08d}.pt" for s in range(
+            ENTRY_STEPS - 2 * ENTRY_CKPT_EVERY, ENTRY_STEPS + 1,
+            ENTRY_CKPT_EVERY)]
+        check(kept == want_kept, f"kept checkpoints {kept}, not {want_kept}")
+        n_sample = int(SAMPLE_SECONDS * cfg.sample_rate)
+        for step in range(SAMPLE_EVERY, ENTRY_STEPS + 1, SAMPLE_EVERY):
+            with open(os.path.join(b, f"sample_step{step}.wav"), "rb") as f:
+                got = _wav_samples(f.read(), cfg.sample_rate)
+            check(got.shape == (n_sample,),
+                  f"sample_step{step}.wav has {got.shape[0]} samples")
+        with open(os.path.join(prof, "trace_steps10-15.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        traced = [k for k in ("fwd_layer_kernel", "bwd_layer_kernel",
+                              "wgrad_kernel", "colsum_kernel")
+                  if any(k in n for n in names)]
+        check(len(traced) == 4, f"the trace holds only {traced}")
+        steps_traced = sorted(n for n in names if n.startswith("train_step_"))
+
+        ds = AudioDataset.synthetic(cfg, num_clips=8, clip_seconds=4.0)
+        with tempfile.TemporaryDirectory() as ck:
+            costs = profiling.host_costs(
+                Trainer(cfg, ds, checkpoint_dir=ck, device=dev),
+                SAVE_COST_STEPS)
+
+        g = os.path.join(tmp, "gen")
+        gen = ["--ckpt", b, "--seconds", str(GEN_SECONDS), "--batch",
+               str(GEN_BATCH), "--seed", str(GEN_SEED), "--device", device]
+        reset_counts()                           # the generate CLI starts here
+        t = time.monotonic()
+        toks = generate.main(gen + ["--out", os.path.join(g, "g.wav")])
+        torch.cuda.synchronize()
+        gen_s = time.monotonic() - t
+        gen_n = check_only([dec], "phase 16 generate")[dec]
+        n = int(GEN_SECONDS * cfg.sample_rate)
+        check(toks.shape == (GEN_BATCH, n), f"generate gave {toks.shape}")
+        cli = _wav_bytes(batch_paths(os.path.join(g, "g.wav"), GEN_BATCH))
+        model = WaveNet.from_checkpoint(b, device=dev)
+        model.generate_wav(os.path.join(g, "f.wav"), GEN_SECONDS,
+                           batch=GEN_BATCH, seed=GEN_SEED)
+        check(_wav_bytes(batch_paths(os.path.join(g, "f.wav"), GEN_BATCH))
+              == cli, "the generate CLI's wavs differ from the facade's")
+        check(np.array_equal(toks, model.generate(
+            seconds=GEN_SECONDS, batch=GEN_BATCH, seed=GEN_SEED).cpu()
+            .numpy()), "the generate CLI's tokens differ from the facade's")
+        reset_counts()
+        generate.main(gen + ["--out", os.path.join(g, "s.wav"), "--stream",
+                             str(GEN_STREAM)])
+        stream_n = check_only([dec], "phase 16 generate --stream")[dec]
+        check(_wav_bytes(batch_paths(os.path.join(g, "s.wav"), GEN_BATCH))
+              == cli, "--stream wavs differ from the one-shot ones")
+        reset_counts()
+        generate.main(gen + ["--out", os.path.join(g, "raw.wav"),
+                             "--no-ema"])
+        raw_n = check_only([dec], "phase 16 generate --no-ema")[dec]
+        raw = _wav_bytes(batch_paths(os.path.join(g, "raw.wav"), GEN_BATCH))
+        check(all(r != c for r, c in zip(raw, cli)),
+              "--no-ema gave the EMA model's audio")
+
+        t = time.monotonic()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            agg = score.main(batch_paths(os.path.join(g, "g.wav"), GEN_BATCH)
+                             + ["--ckpt", b, "--chunk", str(SCORE_CHUNK),
+                                "--json", "--device", device])
+        score_s = time.monotonic() - t
+        files = json.loads(out.getvalue().strip().splitlines()[-1])["files"]
+        check(len(files) == GEN_BATCH, f"scored {len(files)} files")
+        from wavenet_tpu_torch.audio import mulaw
+        from wavenet_tpu_torch.audio.io import read_wav
+        errs = []
+        for r in files:
+            w, _ = read_wav(r["file"], cfg.sample_rate)
+            one = float(model.score(tokens=mulaw.encode_np(w)[None])[0])
+            errs.append(abs(r["bits_per_sample"] - one))
+        check(max(errs) <= SCORE_TOL,
+              f"chunked scores off one pass by {max(errs)} > {SCORE_TOL}")
+    print(f"phase 16 entry points: train.main {preset} B={TS_TRAIN_B} "
+          f"T={TS_T} "
+          f"steps={ENTRY_STEPS} ckpt_every={ENTRY_CKPT_EVERY} sample_every="
+          f"{SAMPLE_EVERY} sample_seconds={SAMPLE_SECONDS} with "
+          f"--profile-dir: losses_equal_without=True params_equal=True "
+          f"kept={kept} seconds={train_s} launches={counts} "
+          f"traced_kernels={traced} traced_steps={steps_traced} | "
+          f"ms per step at B={TS_TRAIN_B} ({SAVE_COST_STEPS} steps a mode): "
+          f"{costs} | generate {GEN_SECONDS}s x{GEN_BATCH} seed={GEN_SEED}: "
+          f"seconds={gen_s} wide_launches={gen_n} equal_to_facade=True "
+          f"stream={GEN_STREAM}s launches={stream_n} equal=True no_ema "
+          f"launches={raw_n} differs=True | score chunk={SCORE_CHUNK} "
+          f"files={len(files)} bits_per_sample={agg} max_err_vs_one_pass="
+          f"{max(errs)} seconds={score_s} | phase_seconds="
+          f"{time.monotonic() - phase_t} card={card!r}", flush=True)
+    return {"train_stack_fwd": counts[fwd], "train_stack_bwd": counts[bwd],
+            "decode_wide_sampling": counts[dec], "decode_wide_generate":
+            gen_n}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1163,7 +1343,7 @@ def main() -> int:
 
     card = nvidia_smi()
     dev = torch.device("cuda", 0)
-    t = time.monotonic()
+    t = run_t = time.monotonic()
     build.load_all(["decode_wide", "train_stack", "decode", "probes"])
     for mod in (pwide, ts, pnarrow, probes):
         mod.library()
@@ -1235,6 +1415,9 @@ def main() -> int:
     gc_trained = phase_train(ts, pwide, dev, card, phase=14, speakers=True)
 
     probe_nums, verify_counts = phase_verify(probes, dev, card)
+    phase_entry_points(ts, dev, card)
+    print(f"chip_smoke: every phase passed in {time.monotonic() - run_t} s",
+          flush=True)
 
     src = "wavenet_tpu_torch/csrc/"
     pallas = "wavenet_tpu/ops/pallas/"

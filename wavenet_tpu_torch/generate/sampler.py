@@ -2,7 +2,8 @@
 token -> audio.
 
 Counterparts of wavenet_tpu/generate/sampler.py's generate_auto,
-generate_stream, generate_naive and tokens_to_waveform.  Both decoders
+generate_stream, generate_naive, tokens_to_waveform, batch_paths and
+generate_wav.  Both decoders
 take one of three routes, named by kernel_module, as the reference routes
 between its kernels and its XLA scan:
   * the narrow whole-loop kernel (ops/cuda/decode.py, the reference's
@@ -28,8 +29,9 @@ speaker-conditioned model takes speaker, its [B] int ids.
 
 from __future__ import annotations
 
+import os
 import types
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -201,3 +203,44 @@ def generate_naive(params, cfg: WaveNetConfig, num_samples: int,
 def tokens_to_waveform(tokens: torch.Tensor, cfg: WaveNetConfig) -> np.ndarray:
     """int32 mu-law tokens -> float32 waveform in [-1, 1] on the host."""
     return mulaw.decode(tokens, cfg.quantization_channels).cpu().numpy()
+
+
+def batch_paths(out_path: str, batch: int) -> List[str]:
+    """out.wav -> [out_0.wav, ...] for batch > 1 (an extensionless path
+    gets .wav); the one naming rule of batched wav output, the
+    reference's."""
+    if batch == 1:
+        return [out_path]
+    root, ext = os.path.splitext(out_path)
+    ext = ext or ".wav"
+    return [f"{root}_{i}{ext}" for i in range(batch)]
+
+
+def write_wavs(out_path: str, tokens: torch.Tensor,
+               cfg: WaveNetConfig) -> np.ndarray:
+    """Write each row of [batch, T] tokens as a 16-bit wav (batch_paths
+    names them); returns the [batch, T] float32 waveform."""
+    # imported here: audio.io pulls in scipy.signal (seconds), which the
+    # decode path (serving's first request included) must not wait for
+    from wavenet_tpu_torch.audio.io import write_wav
+    wave = tokens_to_waveform(tokens, cfg)
+    for i, path in enumerate(batch_paths(out_path, wave.shape[0])):
+        write_wav(path, wave[i], cfg.sample_rate)
+    return wave
+
+
+@torch.no_grad()
+def generate_wav(params, cfg: WaveNetConfig, out_path: str, seconds: float,
+                 batch: int = 1, temperature: float = 1.0, seeds=0,
+                 device="cuda", **decode_kw) -> np.ndarray:
+    """Sample `seconds` of audio through generate_auto (the kernel that
+    decodes cfg) and write wav file(s) (batch_paths); returns the
+    [batch, T] waveform.  params: model params (nested, or the trainer's
+    flat leaves, gradients or not) or DecodeWeights on `device`; seeds:
+    an int (per-row seeds derived from it) or [batch] row seeds;
+    decode_kw (prime_tokens=, y=, speaker=) pass through to
+    generate_auto."""
+    toks = generate_auto(params, cfg, int(seconds * cfg.sample_rate),
+                         batch=batch, temperature=temperature, seeds=seeds,
+                         device=device, **decode_kw)
+    return write_wavs(out_path, toks, cfg)

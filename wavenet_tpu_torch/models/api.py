@@ -123,6 +123,20 @@ class WaveNet(nn.Module):
                       and ema is not None) else raw["params"]
         return cls(cfg, unflatten_tree(use))
 
+    def replace_config(self, **kw) -> "WaveNet":
+        """A model with non-architectural config fields overridden
+        (fused_stack, batch_size, ...), sharing these params (not a copy;
+        each model keeps its own decode layout, rebuilt when a param
+        changes).  Architecture fields are refused: the params were built
+        for their current values (the checkpoint's guard list)."""
+        from wavenet_tpu_torch.training.checkpoint import CheckpointManager
+        bad = [k for k in kw if k in CheckpointManager._ARCH_FIELDS]
+        if bad:
+            raise ValueError(
+                f"architecture fields {bad} cannot be replaced on a live "
+                f"model (params were built for the current values)")
+        return WaveNet(self.cfg.replace(**kw), self.params)
+
     def save(self, directory: str, step: int = 0) -> None:
         """Write these params as a loadable checkpoint (config JSON beside
         it) without a Trainer, with a freshly initialized optimizer state:
@@ -139,7 +153,8 @@ class WaveNet(nn.Module):
                  "opt_state": make_optimizer(self.cfg).init(params),
                  "ema": None}
         CheckpointManager(directory, self.cfg).save(
-            step, state, IteratorState(seed=self.cfg.seed, step=0))
+            step, state, IteratorState(seed=self.cfg.seed, step=0),
+            wait=True)
 
     # ---- model surface ----
 
@@ -249,6 +264,17 @@ class WaveNet(nn.Module):
         for toks in gen:
             yield mulaw.decode(toks, self.cfg.quantization_channels
                                ).cpu().numpy()
+
+    def generate_wav(self, path: str, seconds: float, mel=None,
+                     prime_tokens=None, **kw) -> np.ndarray:
+        """Sample `seconds` of audio and write wav file(s) (path, or
+        path_<i>.wav for batch > 1); the arguments of generate() (batch=,
+        seed=, seeds=, temperature=, speaker=, mel=, y=).  Returns the
+        [batch, T] float32 waveform."""
+        from wavenet_tpu_torch.generate.sampler import write_wavs
+        toks = self.generate(seconds=seconds, mel=mel,
+                             prime_tokens=prime_tokens, **kw)
+        return write_wavs(path, toks, self.cfg)
 
     def vocode(self, waveform, temperature: float = 1.0, seed: int = 0):
         """Re-synthesize audio through the model: log-mel features of

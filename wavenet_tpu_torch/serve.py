@@ -6,6 +6,7 @@ written by the port's trainer (EMA weights when the run kept them):
 
   python -m wavenet_tpu_torch.serve --npz model.npz --device cuda --port 8000
   python -m wavenet_tpu_torch.serve --ckpt runs/full --device cuda
+  python -m wavenet_tpu_torch.serve --ckpt runs/full --step 500 --no-ema
   curl -X POST localhost:8000/synthesize \
        -d '{"seconds": 2.0, "seed": 7}' -o out.wav
   curl -X POST localhost:8000/synthesize \
@@ -39,6 +40,12 @@ def parse_args(argv=None):
     src.add_argument("--ckpt", help="checkpoint directory of the port's "
                                     "trainer (latest step, EMA weights when "
                                     "the run kept them)")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step to serve (--ckpt; default: the "
+                        "latest)")
+    p.add_argument("--no-ema", action="store_true",
+                   help="serve the raw training weights instead of the EMA "
+                        "(--ckpt)")
     p.add_argument("--device", default="cuda",
                    help="torch device to decode on (cuda runs the kernel)")
     p.add_argument("--host", default="127.0.0.1")
@@ -56,19 +63,29 @@ def parse_args(argv=None):
                    help="synthesize this much audio through every batch "
                         "bucket at boot (builds the kernel before the "
                         "first request)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.npz and (args.step is not None or args.no_ema):
+        p.error("--step and --no-ema select a checkpoint's weights; an "
+                ".npz holds one set (use --ckpt)")
+    return args
+
+
+def load_model(args):
+    """The model the parsed arguments name, on args.device."""
+    from wavenet_tpu_torch.models.api import WaveNet
+    if args.ckpt:
+        return WaveNet.from_checkpoint(args.ckpt, step=args.step,
+                                       use_ema=not args.no_ema,
+                                       device=args.device)
+    return WaveNet.from_npz(args.npz, device=args.device)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from wavenet_tpu_torch.models.api import WaveNet
     from wavenet_tpu_torch.serving import WaveNetServer
     from wavenet_tpu_torch.serving.http import make_server
 
-    if args.ckpt:
-        model = WaveNet.from_checkpoint(args.ckpt, device=args.device)
-    else:
-        model = WaveNet.from_npz(args.npz, device=args.device)
+    model = load_model(args)
     engine = WaveNetServer(model, max_batch=args.max_batch,
                            max_wait_ms=args.max_wait_ms,
                            chunk_seconds=args.chunk_seconds,

@@ -15,15 +15,28 @@ mel-conditioned `full_vocoder` among them, with or without speakers) runs
 through the fused layer-group kernels (csrc/train_stack.cu); a mel model
 trains on the log-mel frames of its clips (synthetic clips included), a
 speaker model on its clips' ids (corpus/<speaker>/*.wav by subdirectory,
-synthetic clips by index mod global_classes).  The
-reference's --profile-dir and --sample-every are not ported yet (ROADMAP
-queue 1 item 9).
+synthetic clips by index mod global_classes).
+
+  python -m wavenet_tpu_torch.train --preset full --synthetic --steps 1000 \
+      --device cuda --ckpt runs/full --sample-every 500 --profile-dir prof
+
+--sample-every N (with --ckpt) writes <ckpt>/sample_step<step>.wav every N
+steps, --sample-seconds long, sampled from the current raw params through
+the decode kernel with its own seeds (row seeds of 0): it draws nothing
+from the training data or any generator training uses, so the losses and
+params are the same as without it.  --profile-dir writes a Chrome trace of
+steps 10-15 (utils/profiling.profiled_steps); unlike the reference, it may
+be combined with --sample-every and --eval-every.  A mel model's samples
+need mel frames, so --sample-every refuses it (WaveNet.vocode samples
+one); a speaker model samples speaker 0.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import sys
 
 
@@ -45,6 +58,13 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of steps 10-15 "
+                        "here")
+    p.add_argument("--sample-every", type=int, default=0,
+                   help="every N steps, write <ckpt>/sample_step<step>.wav "
+                        "(needs --ckpt)")
+    p.add_argument("--sample-seconds", type=float, default=1.0)
     p.add_argument("--eval-every", type=int, default=0,
                    help="run the held-out evaluation every N steps")
     p.add_argument("--eval-data", default=None,
@@ -81,6 +101,10 @@ def build_config(args):
 def main(argv=None):
     args = parse_args(argv)
     cfg = build_config(args)
+    sample_every = args.sample_every if args.ckpt else 0
+    if sample_every and cfg.mel is not None:
+        raise SystemExit("--sample-every needs mel frames for a mel model; "
+                         "sample its checkpoint with WaveNet.vocode")
 
     from wavenet_tpu_torch.audio.dataset import AudioDataset
     from wavenet_tpu_torch.training.metrics import MetricsLogger
@@ -112,23 +136,45 @@ def main(argv=None):
             mlog.log(tr.state.step, m)
         return m
 
+    def sample():
+        from wavenet_tpu_torch.generate.sampler import generate_wav
+        out = os.path.join(args.ckpt, f"sample_step{tr.state.step}.wav")
+        speaker = None if cfg.global_classes is None else [0]
+        generate_wav(tr.state.params, cfg, out, args.sample_seconds,
+                     device=tr.device, speaker=speaker)
+        print(f"wrote {out}", file=sys.stderr)
+
+    def run_eval():
+        em = tr.evaluate(eval_ds)
+        print("step %d  %s" % (tr.state.step, "  ".join(
+            f"{k} {v:.4f}" for k, v in sorted(em.items()))),
+            file=sys.stderr)
+        if mlog:
+            mlog.log(tr.state.step, em)
+        return em
+
+    def train():
+        if not (sample_every or args.eval_every):
+            return run_chunk(args.steps)
+        chunk = math.gcd(sample_every, args.eval_every)
+        done, metrics = 0, {}
+        while done < args.steps:
+            n = min(chunk, args.steps - done)
+            metrics = run_chunk(n)
+            done += n
+            if sample_every and done % sample_every == 0:
+                sample()
+            if args.eval_every and done % args.eval_every == 0:
+                metrics.update(run_eval())
+        return metrics
+
     try:
-        if args.eval_every:
-            done, metrics = 0, {}
-            while done < args.steps:
-                n = min(args.eval_every, args.steps - done)
-                metrics = run_chunk(n)
-                done += n
-                if done % args.eval_every == 0:
-                    em = tr.evaluate(eval_ds)
-                    print("step %d  %s" % (tr.state.step, "  ".join(
-                        f"{k} {v:.4f}" for k, v in sorted(em.items()))),
-                        file=sys.stderr)
-                    if mlog:
-                        mlog.log(tr.state.step, em)
-                    metrics.update(em)
+        if args.profile_dir:
+            from wavenet_tpu_torch.utils.profiling import profiled_steps
+            with profiled_steps(tr, args.profile_dir, start=10, stop=15):
+                metrics = train()
         else:
-            metrics = run_chunk(args.steps)
+            metrics = train()
         if args.ckpt:
             tr.save()
     finally:

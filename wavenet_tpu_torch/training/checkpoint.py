@@ -3,11 +3,21 @@
 The port's own format (the GPU machine has no orbax): ckpt_<step>.pt holds
 params, optimizer state and EMA (flat leaves under '/'-joined names, so a
 mel model's upsampler is "upsampler/w0", ...), the step and the data
-iterator's (seed, step), written to a temp file and then os.replace'd, so a reader sees
-either nothing or a whole checkpoint.  params.json (the config) sits
-beside the files, as in the reference, with the same architecture guard
-and max_to_keep.  Saves are synchronous: save() returns once the file is
-in place (the reference saves asynchronously; ROADMAP queue 1 item 5).
+iterator's (seed, step), written to a temp file of its own and then
+os.replace'd, so a reader sees either nothing or a whole checkpoint.
+params.json (the config) sits beside the files, as in the reference, with
+the same architecture guard and max_to_keep.
+
+Saves are asynchronous by default, as the reference's are: save() copies
+the state to the host on the calling thread (the next optimizer step may
+replace or overwrite the device tensors) and hands the write to one
+writer thread, which writes every save of the process first in, first
+out, and prunes to max_to_keep only after a file has landed.  Reads
+(latest_step, all_steps, restore) first wait out every pending save to
+their directory made by this process, even one from a manager the caller
+has dropped (the per-directory registry _PENDING, the reference's).  A
+save that failed raises its error from its manager's next save() or
+wait(), and from any read that waited for it.
 
 Counterpart of wavenet_tpu/training/checkpoint.py::CheckpointManager
 (save, restore, latest_step, wait, load_config).
@@ -15,8 +25,11 @@ Counterpart of wavenet_tpu/training/checkpoint.py::CheckpointManager
 
 from __future__ import annotations
 
+import concurrent.futures
+import itertools
 import os
 import re
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -26,12 +39,67 @@ from wavenet_tpu_torch.config import WaveNetConfig
 
 _FILE = re.compile(r"^ckpt_(\d+)\.pt$")
 
+# pending saves per directory (strong references: a save stays visible to
+# readers after its manager is dropped) and the one writer thread (started
+# by the first save; the interpreter waits for it at exit)
+_PENDING: Dict[str, List[concurrent.futures.Future]] = {}
+_LOCK = threading.Lock()
+_WRITER = concurrent.futures.ThreadPoolExecutor(
+    1, thread_name_prefix="checkpoint-writer")
+_TMP_IDS = itertools.count()
+
+
+def _settle(futures, directory: str) -> None:
+    """Wait for `futures`, drop them from the directory's registry, and
+    raise the first one's error."""
+    concurrent.futures.wait(futures)
+    with _LOCK:
+        left = [f for f in _PENDING.get(directory, ()) if f not in futures]
+        if left:
+            _PENDING[directory] = left
+        else:
+            _PENDING.pop(directory, None)
+    for f in futures:
+        if f.exception() is not None:
+            raise RuntimeError(
+                f"a checkpoint save to {directory} failed") from f.exception()
+
+
+def _wait_directory(directory: str) -> None:
+    """Block until every save to `directory` made by this process so far
+    has landed (another process's saves are invisible here, but each lands
+    by os.replace: a reader sees nothing or a whole file)."""
+    with _LOCK:
+        futures = list(_PENDING.get(directory, ()))
+    _settle(futures, directory)
+
+
+def _listed_steps(directory: str) -> List[int]:
+    return sorted(int(m.group(1)) for m in map(_FILE.match,
+                                               os.listdir(directory)) if m)
+
+
+def _write(payload: dict, path: str, directory: str,
+           max_to_keep: int) -> None:
+    """The writer's job: the file, then the pruning of older ones."""
+    tmp = f"{path}.{os.getpid()}.{next(_TMP_IDS)}.tmp"
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    for old in _listed_steps(directory)[:-max_to_keep]:
+        os.remove(os.path.join(directory, f"ckpt_{old:08d}.pt"))
+
 
 def _to_cpu(tree):
+    """A host copy of every tensor of `tree` (a copy even of a host
+    tensor, so later in-place updates cannot reach the saved one)."""
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=True)
     return tree
 
 
@@ -49,6 +117,7 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self.cfg = cfg
         self.max_to_keep = max_to_keep
+        self._pending: List[concurrent.futures.Future] = []
         cfg_path = os.path.join(self.directory, "params.json")
         if os.path.exists(cfg_path):
             # a stale architecture config would mis-restore: refuse to mix
@@ -73,24 +142,32 @@ class CheckpointManager:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
 
     def all_steps(self) -> List[int]:
-        return sorted(int(m.group(1)) for m in map(_FILE.match,
-                                                   os.listdir(self.directory))
-                      if m)
+        _wait_directory(self.directory)
+        return _listed_steps(self.directory)
 
     def save(self, step: int, state: Dict[str, Any],
-             iter_state: IteratorState) -> None:
-        """Write `state` (params, opt_state, ema: dicts of tensors or None)
-        for `step`; returns once the file is in place."""
+             iter_state: IteratorState, wait: bool = False) -> None:
+        """Save `state` (params, opt_state, ema: dicts of tensors or None)
+        for `step`.  Returns once the host copy is taken; the file lands in
+        the background, or before returning with wait=True.  Raises the
+        error of an earlier save of this manager that failed."""
+        self._raise_failed()
         payload = {k: _to_cpu(v) for k, v in state.items()}
         payload["step"] = int(step)
         payload["iterator"] = {"seed": int(iter_state.seed),
                                "step": int(iter_state.step)}
-        path = self._path(step)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        fut = _WRITER.submit(_write, payload, self._path(step),
+                               self.directory, self.max_to_keep)
+        with _LOCK:
+            _PENDING.setdefault(self.directory, []).append(fut)
+        self._pending.append(fut)
+        if wait:
+            self.wait()
+
+    def _raise_failed(self) -> None:
+        done = [f for f in self._pending if f.done()]
+        self._pending = [f for f in self._pending if not f.done()]
+        _settle(done, self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -113,6 +190,7 @@ class CheckpointManager:
                 ) -> Tuple[Dict[str, Any], IteratorState]:
         """(state dict with params, opt_state, ema, step; IteratorState).
         Only this program's own files are read (weights_only loading)."""
+        _wait_directory(self.directory)
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -122,7 +200,10 @@ class CheckpointManager:
         return payload, IteratorState(seed=it["seed"], step=it["step"])
 
     def wait(self) -> None:
-        """Saves are synchronous; nothing is ever in flight."""
+        """Block until every save of this manager has landed; raise the
+        error of one that failed."""
+        pending, self._pending = self._pending, []
+        _settle(pending, self.directory)
 
     @staticmethod
     def load_config(directory: str) -> WaveNetConfig:

@@ -258,12 +258,15 @@ class Trainer:
 
     def run(self, num_steps: int, log_every: int = 50,
             checkpoint_every: Optional[int] = None, log_fn=print,
-            metrics_fn=None) -> Dict[str, float]:
+            metrics_fn=None, wait_saves: bool = False) -> Dict[str, float]:
         """Train for num_steps; returns the last metrics plus throughput
         (steps_per_sec, audio_seconds_per_sec, samples_per_sec, first step
-        excluded).  metrics_fn(global_step, dict) is called at every log
-        point; metrics are fetched from the device only there and at the
-        end."""
+        excluded, the wait for the last saves included).
+        metrics_fn(global_step, dict) is called at every log point; metrics
+        are fetched from the device only there and at the end.  The
+        checkpoint_every saves are asynchronous (wait_saves=True makes each
+        block, the cost utils/profiling.host_costs compares them with);
+        none is in flight when run() returns."""
         if num_steps <= 0:
             return {}
         cfg = self.cfg
@@ -285,8 +288,10 @@ class Trainer:
                     metrics_fn(self.state.step, m)
             if self.ckpt and checkpoint_every and \
                     (i + 1) % checkpoint_every == 0:
-                self.save()
+                self.save(wait=wait_saves)
         self._sync()
+        if self.ckpt is not None:
+            self.ckpt.wait()
         last = {k: float(v) for k, v in metrics.items()}
         last.update(meter.rates())
         if log_every:
@@ -315,14 +320,16 @@ class Trainer:
         return {f"eval_{k}": v / num_batches for k, v in sums.items()}
 
     # ------------------------------------------------------------------
-    def save(self) -> None:
-        """Checkpoint the current state (synchronous: durable on return)."""
+    def save(self, wait: bool = True) -> None:
+        """Checkpoint the current state: durable on return by default;
+        wait=False returns once the state's host copy is taken (the file
+        lands in the background)."""
         if self.ckpt is None:
             raise ValueError("no checkpoint_dir was given")
         st = self.state
         self.ckpt.save(st.step, {"params": st.params,
                                  "opt_state": st.opt_state, "ema": st.ema},
-                       self.iter_state)
+                       self.iter_state, wait=wait)
 
     def restore(self, step: Optional[int] = None) -> TrainState:
         """Load a checkpoint (the latest by default) into the trainer.  An

@@ -15,15 +15,27 @@ step (the union of its kernel and copy intervals), the idle share
     the embedding's one-hot backward);
   * copies: memcpy / memset;
   * other: elementwise, reductions, softmax, the optimizer.
-With no device events (the CPU) the device numbers are null.
+With no device events (the CPU) the device numbers are null.  The line
+also holds `host_costs`: a step's wall ms with no metric fetch and no
+save, with the metrics fetched every step (log_every=1), and with a
+checkpoint save every step (checkpoint_every=1), blocking and
+asynchronous, and the ms an asynchronous save takes to return.
+
+The reference's tracing helpers (wavenet_tpu/utils/profiling.py) on
+torch.profiler: `trace` (a Chrome trace of a block), `profiled_steps` (of a
+trainer's steps [start, stop), the train CLI's --profile-dir) and `timeit`
+(median seconds per call).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import tempfile
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -87,6 +99,93 @@ def kernel_split(fn, calls: int = 1) -> Dict[str, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _activities():
+    from torch.profiler import ProfilerActivity
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Trace the block with torch.profiler (the card's kernels too, where
+    there is one) into log_dir/trace.json, a Chrome trace (Perfetto,
+    chrome://tracing); the device is synchronised before the trace stops."""
+    from torch.profiler import profile
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=_activities()) as prof:
+        try:
+            yield
+        finally:
+            _sync()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def profiled_steps(trainer, log_dir: str, start: int = 10, stop: int = 15):
+    """Trace the trainer's steps [start, stop), counted over every
+    trainer.step call inside the block (Trainer.run's chunks included),
+    into log_dir/trace_steps<start>-<stop>.json; each traced step is the
+    span "train_step_<i>".  The device is synchronised before the trace
+    stops, so the last steps' kernels are in it."""
+    from torch.profiler import profile, record_function
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_steps{start}-{stop}.json")
+    orig = trainer.step
+    state = {"i": 0, "prof": None}
+
+    def finish():
+        _sync()
+        state["prof"].stop()
+        state["prof"].export_chrome_trace(path)
+        state["prof"] = None
+
+    def wrapped(*a, **kw):
+        i = state["i"]
+        if i == start:
+            state["prof"] = profile(activities=_activities())
+            state["prof"].start()
+        if state["prof"] is None:
+            out = orig(*a, **kw)
+        else:
+            with record_function(f"train_step_{i}"):
+                out = orig(*a, **kw)
+        state["i"] = i + 1
+        if state["i"] == stop and state["prof"] is not None:
+            finish()
+        return out
+
+    trainer.step = wrapped
+    try:
+        yield
+    finally:
+        trainer.step = orig
+        if state["prof"] is not None:
+            finish()
+
+
+def timeit(fn: Callable, *args, warmup: int = 2, iters: int = 10,
+           **kwargs) -> float:
+    """Median wall-clock seconds per fn(*args, **kwargs), the device
+    synchronised around each call and the warm-up calls excluded."""
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    _sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        _sync()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
 def step_breakdown(trainer, steps: int = 3) -> Dict:
     """Profile `steps` train steps after _WARMUP unprofiled ones."""
     from torch.profiler import ProfilerActivity, profile
@@ -114,6 +213,42 @@ def step_breakdown(trainer, steps: int = 3) -> Dict:
             "device_ms_per_step_by_family": fams or None}
 
 
+def host_costs(trainer, steps: int = 3) -> Dict[str, float]:
+    """Wall ms per step of trainer.run(steps), the run's end and the wait
+    for its saves included: with no per-step fetch and no save
+    ("no_fetch_no_save"), with the metrics fetched every step
+    (log_every=1, "fetch_every_step"), and with a save every step,
+    blocking ("save_every_step_sync") and asynchronous
+    ("save_every_step_async"; a write longer than a step backs the
+    writer up, and the run's end waits for it); and the median ms an
+    asynchronous save takes to return, the host copy of the state
+    ("async_save_returns_ms", over `steps` saves, each waited out before
+    the next).  The trainer needs a checkpoint directory."""
+    def ms(**kw) -> float:
+        trainer._sync()
+        t = time.perf_counter()
+        trainer.run(steps, **kw)
+        return (time.perf_counter() - t) * 1e3 / steps
+
+    def save_returns_ms() -> float:
+        times = []
+        for _ in range(steps):
+            trainer._sync()
+            t = time.perf_counter()
+            trainer.save(wait=False)
+            times.append((time.perf_counter() - t) * 1e3)
+            trainer.ckpt.wait()
+        return sorted(times)[len(times) // 2]
+
+    trainer.run(_WARMUP, log_every=0)
+    return {"no_fetch_no_save": ms(log_every=0),
+            "fetch_every_step": ms(log_every=1, log_fn=lambda _: None),
+            "save_every_step_sync": ms(log_every=0, checkpoint_every=1,
+                                       wait_saves=True),
+            "save_every_step_async": ms(log_every=0, checkpoint_every=1),
+            "async_save_returns_ms": save_returns_ms()}
+
+
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -126,10 +261,12 @@ def main(argv=None) -> Dict:
     from wavenet_tpu_torch.training.trainer import Trainer
     cfg = get_config(args.preset)
     ds = AudioDataset.synthetic(cfg, num_clips=8, clip_seconds=4.0)
-    tr = Trainer(cfg, ds, device=args.device)
-    out = {"preset": args.preset, "batch_size": cfg.batch_size,
-           "train_window": cfg.train_window, "fused": tr.use_fused,
-           **step_breakdown(tr, args.steps)}
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr = Trainer(cfg, ds, checkpoint_dir=ckpt, device=args.device)
+        out = {"preset": args.preset, "batch_size": cfg.batch_size,
+               "train_window": cfg.train_window, "fused": tr.use_fused,
+               **step_breakdown(tr, args.steps),
+               "host_costs": host_costs(tr, args.steps)}
     print(json.dumps(out))
     return out
 
