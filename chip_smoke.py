@@ -17,7 +17,9 @@ speaker-conditioned `full` trained through the train_stack kernels'
 speaker variants (phase 14), then the port's verify tool with its probe
 kernels (phase 15), and the entry points a user calls at `full`: the
 train CLI sampling and tracing as it trains, the generate and score CLIs
-(phase 16).  Any failed check
+(phase 16), and the data pipeline (the native window gatherer, the
+streaming dataset) and data-parallel training at `full` under torchrun
+(phase 17).  Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -135,9 +137,35 @@ Phases (one line of numbers each):
      (0.5 s, batch 4, seed 7) through the wide kernel only, its four wavs
      equal to the facade's generate_wav bit for bit, --stream 0.1 equal
      to them, --no-ema different; and the score CLI over the four wavs at
-     --chunk 4096, each within 1e-4 bits per sample of one pass.
+     --chunk 4096, each within 1e-4 bits per sample of one pass;
+ 17. the data pipeline and data parallelism: a synthetic 8-clip 16 kHz
+     corpus written to disk; at B=8, T=8192 the native gatherer's batches
+     equal the NumPy loop's, and the streaming dataset's (plain,
+     prefetched, and each of two ranks' rows=) equal AudioDataset's global
+     batch and its slices, bit for bit; host ms per batch of each (the
+     prefetched one with its queue full); then `python -m
+     torch.distributed.run --standalone --nproc_per_node 2 -m
+     wavenet_tpu_torch.train --preset full --synthetic --override
+     data_parallel=2 --dist-backend gloo --device cuda:0` (both ranks on
+     the one card; B=8 global, window 8192, EMA) for 6 steps with a
+     checkpoint at step 3: the step-1 loss within DP_STEP1_RTOL and steps
+     2-6 within DP_LOSS_RTOL of phase 5's single process; the replicas'
+     params checked equal by the trainer at each of its 3 saves; a resume
+     from step 3 under DP=2 equal to the uninterrupted run bit for bit
+     (losses 4-6, params, EMA); only rank 0 wrote in the run's directory;
+     each rank's stack launches equal to the single-process formula and
+     no decode kernel launched (a probe loaded into each rank records
+     its writes, launches, peak memory and all-reduce times); the first
+     step's gradients reduced over two ranks against one process's, each
+     leaf's max|d|/max|g| within 1e-4 (2^-7 for a leaf whose cotangent
+     the recipe rounds to bf16 after the sum over rows: the head's);
+     `data_parallel=1` under torchrun over nccl for 2 steps equal to the
+     same steps without torch.distributed, bit for bit; DP=2's ms per
+     step and each rank's all-reduce ms per step, as two ranks sharing
+     one card (not a scaling figure).
 The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16) set
-every kernel's count to 0 right before and read them right after.
+every kernel's count to 0 right before and read them right after; phase
+17's rank processes start theirs at 0 and report them at exit.
 """
 
 from __future__ import annotations
@@ -175,6 +203,16 @@ ENTRY_STEPS, ENTRY_CKPT_EVERY, SAMPLE_EVERY, SAMPLE_SECONDS = 16, 4, 8, 0.25
 SAVE_COST_STEPS = 4              # phase 16: steps a save mode is timed over
 GEN_SECONDS, GEN_BATCH, GEN_SEED, GEN_STREAM = 0.5, 4, 7, 0.1
 SCORE_CHUNK, SCORE_TOL = 4096, 1e-4
+# phase 17: the corpus, the states checked and the batches timed; two
+# ranks on one card; the bands of DP=2 against one process (the step-1 loss,
+# the losses of steps 2-6, each first-step gradient leaf, and a leaf whose
+# cotangent the recipe rounds to bf16 after the sum over rows; measured on
+# an H100 at `full`: 0, 3.5e-5, 4.6e-7 and 3.5e-3); nccl steps
+DATA_CLIPS, DATA_CLIP_SECONDS, DATA_STATES, DATA_TIMED = 8, 4.0, 4, 20
+DP_RANKS, DP_TIMEOUT_S, NCCL_STEPS = 2, 300, 2
+DP_STEP1_RTOL, DP_LOSS_RTOL = 1e-5, 1e-3
+DP_GRAD_TOL, DP_BF16_GRAD_TOL = 1e-4, 2 ** -7
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -967,7 +1005,8 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
           f"{bwd_n} decode_launches={dec_n} decoded_samples={n} "
           f"card={card!r}", flush=True)
     return {"train_stack_fwd": fwd_n, "train_stack_bwd": bwd_n,
-            "decode": dec_n}
+            "decode": dec_n, "losses": [la[s] for s in sorted(la)],
+            "ms_per_step": 1e3 / ma["steps_per_sec"]}
 
 
 def phase_speakers(pnarrow, pwide, wn, dev, card: str):
@@ -1319,6 +1358,447 @@ def phase_entry_points(ts, dev, card: str, preset: str = "full") -> dict:
             gen_n}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the data pipeline and data-parallel training
+# ---------------------------------------------------------------------------
+
+# Written as the sitecustomize module of a torchrun launch's PYTHONPATH, so
+# every rank process loads it at start (the launcher, without RANK, skips
+# it).  It changes nothing the rank computes.
+RANK_PROBE = r'''
+"""chip_smoke.py's probe of a rank process: records every file created,
+written, renamed or removed under $WAVENET_PROBE_WATCH (an audit hook),
+each torch.distributed.all_reduce's bytes and seconds (the device
+synchronised before and after it) and the broadcasts, and at exit writes
+them with the rank's kernel launch counts and peak device memory to
+$WAVENET_PROBE_OUT/rank<RANK>.json."""
+import atexit
+import json
+import os
+import sys
+import time
+
+if "RANK" in os.environ and "WAVENET_PROBE_OUT" in os.environ:
+    _watch = os.path.abspath(os.environ["WAVENET_PROBE_WATCH"])
+    _rec = {"writes": [], "all_reduce": [], "broadcasts": 0}
+    _flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND
+
+    def _under(p):
+        return (isinstance(p, (str, bytes)) and
+                os.path.abspath(os.fsdecode(p)).startswith(_watch))
+
+    def _hook(event, args):
+        if event == "open":
+            path, mode, flags = args
+            if ((mode is not None and any(c in mode for c in "wax+"))
+                    or (mode is None and flags & _flags)) and _under(path):
+                _rec["writes"].append(os.fsdecode(path))
+        elif event in ("os.mkdir", "os.rename", "os.remove") and \
+                _under(args[0]):
+            _rec["writes"].append(f"{event} {os.fsdecode(args[0])}")
+
+    sys.addaudithook(_hook)
+    import torch
+    import torch.distributed as dist
+    _all_reduce, _broadcast = dist.all_reduce, dist.broadcast
+
+    def _timed(tensor, *a, **k):
+        if tensor.is_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = _all_reduce(tensor, *a, **k)
+        if tensor.is_cuda:
+            torch.cuda.synchronize()
+        _rec["all_reduce"].append(
+            [tensor.numel() * tensor.element_size(), time.perf_counter() - t])
+        return out
+
+    def _counted(*a, **k):
+        _rec["broadcasts"] += 1
+        return _broadcast(*a, **k)
+
+    dist.all_reduce, dist.broadcast = _timed, _counted
+
+    def _dump():
+        counts = {}
+        for name, mod in list(sys.modules.items()):
+            if name.startswith("wavenet_tpu_torch.ops.cuda.") and mod:
+                for k, v in vars(mod).items():
+                    if type(v).__name__ == "LaunchCounter":
+                        counts[f"{name.rsplit('.', 1)[-1]}.{k}"] = v.value
+        _rec["counts"] = counts
+        _rec["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                              if torch.cuda.is_initialized() else 0)
+        path = os.path.join(os.environ["WAVENET_PROBE_OUT"],
+                            f"rank{os.environ['RANK']}.json")
+        with open(path, "w") as f:
+            json.dump(_rec, f)
+
+    atexit.register(_dump)
+'''
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_group(cmd, env, timeout: float) -> str:
+    """Run cmd as the leader of a new process group; on a failure or the
+    timeout kill the whole group (the launcher and its ranks) and raise."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{cmd} ran past {timeout} s:\n{out[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    check(proc.returncode == 0,
+          f"{cmd} exited {proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def _torchrun(nproc: int, args, watch: str) -> list:
+    """python -m torch.distributed.run ... -m wavenet_tpu_torch.train args,
+    with the rank probe; returns each rank's record."""
+    with tempfile.TemporaryDirectory() as probe:
+        with open(os.path.join(probe, "sitecustomize.py"), "w") as f:
+            f.write(RANK_PROBE)
+        env = dict(os.environ, WAVENET_PROBE_OUT=probe,
+                   WAVENET_PROBE_WATCH=watch,
+                   PYTHONPATH=os.pathsep.join(
+                       [probe, ROOT] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p]))
+        _run_group([sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc_per_node", str(nproc),
+                    "-m", "wavenet_tpu_torch.train", *args], env,
+                   DP_TIMEOUT_S)
+        ranks = []
+        for r in range(nproc):
+            with open(os.path.join(probe, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks
+
+
+def _last_record(path: str) -> dict:
+    with open(path) as f:
+        return json.loads(f.read().strip().splitlines()[-1])
+
+
+def phase_data(card: str) -> dict:
+    """Phase 17, data: a synthetic 8-clip 16 kHz corpus written to disk;
+    the native gatherer's batches == the NumPy loop's, the streaming
+    dataset's (plain, prefetched, and each rank's rows) == AudioDataset's
+    global batch and its slices, bit for bit; host ms per batch."""
+    import numpy as np
+    from wavenet_tpu_torch.audio.dataset import AudioDataset, IteratorState
+    from wavenet_tpu_torch.audio.io import write_wav
+    from wavenet_tpu_torch.audio.streaming import StreamingAudioDataset
+    from wavenet_tpu_torch.config import full
+    cfg = full().replace(batch_size=TS_TRAIN_B, train_window=TS_T)
+    per = cfg.batch_size // DP_RANKS
+    with tempfile.TemporaryDirectory() as root:
+        rs = np.random.RandomState(17)
+        t = np.arange(int(DATA_CLIP_SECONDS * cfg.sample_rate)) \
+            / cfg.sample_rate
+        for i in range(DATA_CLIPS):
+            f, a, ph = (rs.uniform(80, 2000, 3), rs.uniform(0.1, 0.3, 3),
+                        rs.uniform(0, 2 * np.pi, 3))
+            x = sum(a[j] * np.sin(2 * np.pi * f[j] * t + ph[j])
+                    for j in range(3))
+            write_wav(os.path.join(root, f"clip{i}.wav"),
+                      x.astype(np.float32), cfg.sample_rate)
+        native = AudioDataset.from_dir(root, cfg)
+        plain = AudioDataset.from_dir(root, cfg, native=False)
+        stream = StreamingAudioDataset.from_dir(root, cfg)
+        rank_ds = [StreamingAudioDataset.from_dir(root, cfg)
+                   for _ in range(DP_RANKS)]
+        prefetched = StreamingAudioDataset.from_dir(root, cfg, prefetch=2)
+        states = [IteratorState(cfg.seed, s) for s in range(DATA_STATES)]
+        prefetched.start_prefetch(states[0])
+        try:
+            for st in states:
+                want, _ = native.sample_batch(st)
+                got = [plain.sample_batch(st)[0], stream.sample_batch(st)[0],
+                       prefetched.sample_batch(st)[0]]
+                check(all(np.array_equal(g["tokens"], want["tokens"])
+                          for g in got),
+                      f"phase 17: batches of {st} differ between the "
+                      f"gatherers")
+                for r, ds in enumerate(rank_ds):
+                    rows = slice(r * per, (r + 1) * per)
+                    part, _ = ds.sample_batch(st, rows=rows)
+                    check(np.array_equal(part["tokens"],
+                                         want["tokens"][rows]),
+                          f"phase 17: rank {r}'s rows of {st} differ")
+        finally:
+            prefetched.stop_prefetch()
+
+        def ms_per_batch(ds) -> float:
+            it = IteratorState(cfg.seed, 1000)
+            for _ in range(3):                   # warm: every clip cached
+                _, it = ds.sample_batch(it)
+            t0 = time.perf_counter()
+            for _ in range(DATA_TIMED):
+                _, it = ds.sample_batch(it)
+            return (time.perf_counter() - t0) * 1e3 / DATA_TIMED
+
+        numbers = {"numpy_loop_ms": ms_per_batch(plain),
+                   "native_ms": ms_per_batch(native),
+                   "stream_ms": ms_per_batch(stream)}
+        # the prefetched stream with its queue full: what a training loop
+        # whose step outlasts the assembly waits per batch
+        deep = StreamingAudioDataset.from_dir(root, cfg,
+                                              prefetch=DATA_TIMED)
+        start = IteratorState(cfg.seed, 2000)
+        deep.start_prefetch(start)
+        try:
+            deadline = time.monotonic() + 60
+            while not deep._pf_queue.full():
+                check(time.monotonic() < deadline,
+                      "phase 17: the prefetch queue never filled")
+                time.sleep(0.01)
+            it, t0 = start, time.perf_counter()
+            for _ in range(DATA_TIMED):
+                _, it = deep.sample_batch(it)
+            numbers["prefetched_wait_ms"] = \
+                (time.perf_counter() - t0) * 1e3 / DATA_TIMED
+        finally:
+            deep.stop_prefetch()
+    print(f"phase 17 data: {DATA_CLIPS} clips x {DATA_CLIP_SECONDS} s at "
+          f"{cfg.sample_rate} Hz, B={cfg.batch_size} T={TS_T}: native == "
+          f"numpy loop == stream == prefetched stream over {DATA_STATES} "
+          f"states, rows of {DP_RANKS} ranks == slices of the global batch "
+          f"(bit for bit) | host ms per batch ({DATA_TIMED} batches): "
+          f"{numbers} card={card!r}", flush=True)
+    return numbers
+
+
+def _dp_grads_rank(rank: int, port: int, out: str) -> None:
+    """One rank of phase 17's first-step gradients: loss_fn_dp on its rows
+    of the first training batch of `full` (train.main's data and params),
+    the gradients reduced over two gloo ranks on cuda:0; rank 0 saves
+    them."""
+    import torch
+    from wavenet_tpu_torch.models import wavenet as wn
+    from wavenet_tpu_torch.parallel import dataparallel, distributed
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    distributed.initialize("gloo", device=dev, rank=rank,
+                           world_size=DP_RANKS,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        cfg, toks = _first_batch()
+        cfg = cfg.replace(data_parallel=DP_RANKS)
+        rows = distributed.local_batch_slice(cfg.batch_size)
+        params = {k: v.requires_grad_(True) for k, v in wn.init_params(
+            cfg, torch.Generator().manual_seed(cfg.seed), dev).items()}
+        loss, aux = dataparallel.loss_fn_dp(params, cfg, toks[rows].to(dev),
+                                            use_fused=True)
+        keys = sorted(params)
+        grads = dict(zip(keys, torch.autograd.grad(
+            loss, [params[k] for k in keys])))
+        grads = dataparallel.reduce_gradients(grads)
+        if rank == 0:
+            torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
+                        "loss": float(aux["loss"])}, out)
+    finally:
+        distributed.shutdown()
+
+
+def _first_batch():
+    """(cfg, tokens) of train.main's first step at `full`, B = 8, T = 8192
+    on synthetic data."""
+    import torch
+    from wavenet_tpu_torch.audio.dataset import AudioDataset, IteratorState
+    from wavenet_tpu_torch.config import full
+    cfg = full().replace(batch_size=TS_TRAIN_B, train_window=TS_T)
+    ds = AudioDataset.synthetic(cfg, num_clips=8, clip_seconds=4.0)
+    batch, _ = ds.sample_batch(IteratorState(seed=cfg.seed, step=0))
+    return cfg, torch.from_numpy(batch["tokens"])
+
+
+def phase_dp(ts, dev, card: str, single: dict) -> dict:
+    """Phase 17, data parallelism on one card: train.main under torchrun,
+    two gloo ranks on cuda:0 (`full`, B = 8 global, T = 8192, 6 steps, a
+    checkpoint at step 3) against phase 5's single process, a resume of it
+    bit for bit, only rank 0 writing, each rank's launches; the first
+    step's reduced gradients against one process's; nccl at
+    data_parallel=1 against a run without torch.distributed."""
+    import math
+    import torch
+    import torch.multiprocessing as mp
+    from wavenet_tpu_torch import train
+    from wavenet_tpu_torch.models import wavenet as wn
+    phase_t = time.monotonic()
+    common = ["--preset", "full", "--synthetic", "--batch-size",
+              str(TS_TRAIN_B), "--override", f"train_window={TS_T}",
+              "--log-every", "1"]
+    dp_args = common + ["--override", "ema_decay=0.999", "--override",
+                        f"data_parallel={DP_RANKS}", "--dist-backend", "gloo",
+                        "--device", "cuda:0"]
+    cfg = train.build_config(train.parse_args(common))
+    ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
+    L = cfg.num_layers
+
+    def rank_counts(rec, steps, what):
+        got = {k: v for k, v in rec["counts"].items() if v}
+        want = {"train_stack.fwd_launches": steps * (L + ng),
+                "train_stack.bwd_launches": steps * (10 * L + 2 * ng)}
+        check(got == want, f"{what}: launches {got}, expected {want}")
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t = time.monotonic()
+        ranks = _torchrun(DP_RANKS, dp_args + [
+            "--steps", str(TRAIN_STEPS), "--ckpt", os.path.join(a, "ckpt"),
+            "--ckpt-every", str(RESUME_AT), "--metrics-file",
+            os.path.join(a, "m.jsonl")], a)
+        dp_s = time.monotonic() - t
+        for r, rec in enumerate(ranks):
+            rank_counts(rec, TRAIN_STEPS, f"phase 17 dp rank {r}")
+            # the initial params, and a replica check at each of 3 saves
+            check(rec["broadcasts"] == 4,
+                  f"phase 17 dp rank {r}: {rec['broadcasts']} broadcasts")
+        check(ranks[1]["writes"] == [] and ranks[0]["writes"],
+              f"phase 17: rank 1 wrote {ranks[1]['writes']}")
+        la = _losses(os.path.join(a, "m.jsonl"))
+        ls = single["losses"]
+        check(sorted(la) == list(range(1, TRAIN_STEPS + 1))
+              and all(math.isfinite(v) for v in la.values()),
+              f"phase 17 dp losses {la}")
+        rel = [abs(la[s] - ls[s - 1]) / abs(ls[s - 1])
+               for s in range(1, TRAIN_STEPS + 1)]
+        check(rel[0] <= DP_STEP1_RTOL and max(rel) <= DP_LOSS_RTOL,
+              f"phase 17 dp losses {la} off the single run's {ls}: {rel}")
+        dp_ms = 1e3 / _last_record(os.path.join(a, "m.jsonl"))[
+            "steps_per_sec"]
+
+        os.makedirs(os.path.join(b, "ckpt"))
+        for f in ("params.json", f"ckpt_{RESUME_AT:08d}.pt"):
+            shutil.copy(os.path.join(a, "ckpt", f), os.path.join(b, "ckpt"))
+        resumed = _torchrun(DP_RANKS, dp_args + [
+            "--steps", str(TRAIN_STEPS - RESUME_AT), "--ckpt",
+            os.path.join(b, "ckpt"), "--resume", "--metrics-file",
+            os.path.join(b, "m.jsonl")], b)
+        for r, rec in enumerate(resumed):
+            rank_counts(rec, TRAIN_STEPS - RESUME_AT,
+                        f"phase 17 dp resume rank {r}")
+        check(resumed[1]["writes"] == [],
+              f"phase 17: rank 1 wrote {resumed[1]['writes']}")
+        lb = _losses(os.path.join(b, "m.jsonl"))
+        check(sorted(lb) == list(range(RESUME_AT + 1, TRAIN_STEPS + 1))
+              and all(lb[s] == la[s] for s in lb),
+              f"phase 17: resumed losses {lb} differ from {la}")
+        last = f"ckpt_{TRAIN_STEPS:08d}.pt"
+        pa = torch.load(os.path.join(a, "ckpt", last), weights_only=True)
+        pb = torch.load(os.path.join(b, "ckpt", last), weights_only=True)
+        check(all(torch.equal(pa[tree][k], pb[tree][k])
+                  for tree in ("params", "ema") for k in pa[tree]),
+              "phase 17: the resumed params or EMA differ")
+        check(sorted(os.listdir(os.path.join(a, "ckpt"))) == [
+            f"ckpt_{RESUME_AT:08d}.pt", last, "params.json"],
+            f"phase 17: {os.listdir(os.path.join(a, 'ckpt'))}")
+
+        # the first step's reduced gradients against one process's
+        out = os.path.join(tmp, "grads.pt")
+        ctx = mp.start_processes(_dp_grads_rank, args=(_free_port(), out),
+                                 nprocs=DP_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      "phase 17: the gradient ranks ran past their limit")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(5)
+        got = torch.load(out, weights_only=True)
+        scfg, toks = _first_batch()
+        params = {k: v.requires_grad_(True) for k, v in wn.init_params(
+            scfg, torch.Generator().manual_seed(scfg.seed), dev).items()}
+        loss, _ = wn.loss_fn(params, scfg, toks.to(dev), use_fused=True)
+        keys = sorted(params)
+        grads = dict(zip(keys, torch.autograd.grad(
+            loss, [params[k] for k in keys])))
+        single_loss = float(loss.detach())
+        rels, bf16_leaves = {}, []
+        for k, g in grads.items():
+            g = g.detach().cpu()
+            rels[k] = float((got["grads"][k] - g).abs().max()
+                            / g.abs().max())
+            # a cotangent the recipe rounds to bf16 after the sum over rows
+            # (the head's weights): each rank rounds its half-sum
+            if torch.equal(g, g.bfloat16().float()):
+                bf16_leaves.append(k)
+        bad = {k: v for k, v in rels.items()
+               if v > (DP_BF16_GRAD_TOL if k in bf16_leaves else DP_GRAD_TOL)}
+        check(not bad, f"phase 17: first-step gradients off: {bad}")
+        del params, grads, loss
+
+        # nccl at data_parallel=1 under torchrun == no torch.distributed
+        c, d = os.path.join(tmp, "c"), os.path.join(tmp, "d")
+        nccl_args = common + ["--steps", str(NCCL_STEPS)]
+        reset_counts()                           # the plain path starts here
+        train.main(nccl_args + ["--device", "cuda", "--ckpt", d,
+                                "--metrics-file", d + ".jsonl"])
+        plain_counts = check_only(["train_stack.fwd_launches",
+                                   "train_stack.bwd_launches"],
+                                  "phase 17 plain run")
+        nccl = _torchrun(1, nccl_args + [
+            "--dist-backend", "nccl", "--ckpt", os.path.join(c, "ckpt"),
+            "--metrics-file", os.path.join(c, "m.jsonl")], c)
+        rank_counts(nccl[0], NCCL_STEPS, "phase 17 nccl")
+        lc, ld = _losses(os.path.join(c, "m.jsonl")), _losses(d + ".jsonl")
+        last = f"ckpt_{NCCL_STEPS:08d}.pt"
+        pc = torch.load(os.path.join(c, "ckpt", last), weights_only=True)
+        pd = torch.load(os.path.join(d, last), weights_only=True)
+        check(lc == ld and all(torch.equal(pc["params"][k], pd["params"][k])
+                               for k in pd["params"]),
+              f"phase 17: nccl at data_parallel=1 ({lc}) differs from the "
+              f"run without torch.distributed ({ld})")
+    allreduce = []
+    for rec in ranks:
+        big = [s for n, s in rec["all_reduce"] if n >= (1 << 20)]
+        allreduce.append({
+            "all_reduce_ms_per_step":
+                1e3 * sum(s for _, s in rec["all_reduce"]) / TRAIN_STEPS,
+            "gradient_all_reduce_ms": 1e3 * sum(big) / max(len(big), 1),
+            "gradient_bytes": max(n for n, _ in rec["all_reduce"]),
+            "peak_device_memory_gb": rec["peak_bytes"] / 1e9,
+            "launches": {k: v for k, v in rec["counts"].items() if v}})
+    print(f"phase 17 data parallel, two ranks sharing one card over gloo "
+          f"(not a scaling figure): train.main full B={TS_TRAIN_B} global "
+          f"T={TS_T} steps={TRAIN_STEPS} ckpt_every={RESUME_AT} losses="
+          f"{[la[s] for s in sorted(la)]} single_process_losses={ls} "
+          f"rel_diff={rel} resume_bit_exact=True rank1_wrote_nothing=True "
+          f"replicas_checked_equal_at_saves=3 ms_per_step={dp_ms} "
+          f"single_process_ms_per_step={single['ms_per_step']} "
+          f"launch_seconds={dp_s} ranks={allreduce} | first-step gradients "
+          f"DP={DP_RANKS} vs one process, max|d|/max|g| per leaf (bf16-"
+          f"rounded leaves {bf16_leaves} held to {DP_BF16_GRAD_TOL}, the "
+          f"rest to {DP_GRAD_TOL}): {rels} loss={got['loss']} single="
+          f"{single_loss} | nccl data_parallel=1 {NCCL_STEPS} steps under "
+          f"torchrun == without torch.distributed (losses {lc}, params bit "
+          f"for bit) launches={nccl[0]['counts']} plain={plain_counts} | "
+          f"phase_seconds={time.monotonic() - phase_t} card={card!r}",
+          flush=True)
+    return {"dp_ms_per_step": dp_ms, "ranks": allreduce, "rel": rels}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1416,6 +1896,8 @@ def main() -> int:
 
     probe_nums, verify_counts = phase_verify(probes, dev, card)
     phase_entry_points(ts, dev, card)
+    phase_data(card)
+    phase_dp(ts, dev, card, trained)
     print(f"chip_smoke: every phase passed in {time.monotonic() - run_t} s",
           flush=True)
 

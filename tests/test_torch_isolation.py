@@ -45,7 +45,8 @@ assert "wavenet_tpu_torch.serve" in names and len(names) >= 15, names
 for n in ("train", "training.trainer", "training.checkpoint",
           "ops.cuda.train_stack", "audio.dataset", "ops.cuda.decode",
           "ops.cuda.decode_common", "verify", "ops.cuda.probes",
-          "utils.golden"):
+          "utils.golden", "cpp.loader", "audio.streaming",
+          "parallel.distributed", "parallel.mesh", "parallel.dataparallel"):
     assert "wavenet_tpu_torch." + n in names, n
 print(len(names))
 """

@@ -265,13 +265,18 @@ def test_trainer_route_follows_the_reference():
 def test_features_left_out_raise(case):
     """What the port still leaves out raises.  A kernel_size > 2 model now
     trains on the scan, but the fused stack leaves it out; a valid_mask
-    is taken now, but not beside a halo."""
+    is taken now, but not beside a halo.  The data axis is ported: a
+    data_parallel that differs from the process group's size (here one
+    process, no group) is refused with how to launch the ranks."""
     from wavenet_tpu_torch.models import wavenet as twn
     if case.endswith("parallel"):
         _, tc = _cfgs(**{case: 2})
         ds = tds.AudioDataset.synthetic(_cfgs()[1], num_clips=1,
                                         clip_seconds=0.05)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        err, match = ((ValueError, "process group has 1.*torchrun")
+                      if case == "data_parallel"
+                      else (NotImplementedError, "ROADMAP"))
+        with pytest.raises(err, match=match):
             ttrainer.Trainer(tc, ds, device="cpu")
     elif case == "kernel_size":
         _, tc = _cfgs(kernel_size=3)

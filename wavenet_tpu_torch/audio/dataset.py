@@ -1,5 +1,5 @@
 """Training data: wav clips -> mu-law tokens -> deterministic random-crop
-batches (numpy only).
+batches (numpy, and the native window gatherer).
 
 A copy of wavenet_tpu/audio/dataset.py: a batch is a pure function of
 (cfg.seed, state.seed, state.step) through np.random.default_rng, so the
@@ -10,8 +10,10 @@ once at load (audio/mel.py) and a crop starts on a hop boundary, so frame
 f lines up with sample f * hop.  A speaker model's clips carry class ids:
 by top-level subdirectory of the corpus (speakers_from_dir), or the clip
 index mod global_classes for synthetic data.  Windows are gathered by the
-numpy loop, the reference's own reference implementation; its native C++
-gatherer (bit-identical) is not ported yet (ROADMAP queue 1 item 8).
+native gatherer (cpp/loader.py, bit-identical), as the reference gathers
+them; native=False runs the NumPy loop instead, the reference's own
+reference implementation.  Unlike the reference, a failed build of the
+native library raises instead of falling back to the loop.
 """
 
 from __future__ import annotations
@@ -67,10 +69,13 @@ class AudioDataset:
     training window (+1 for the target offset) are dropped at load.  A
     speaker model's clips take the given per-clip ids (speakers, aligned
     with clips) or, without them, the kept clip's index mod
-    global_classes."""
+    global_classes.  native: gather windows through the native library
+    (built at construction if needed; a failed build raises), else through
+    the NumPy loop."""
 
     def __init__(self, clips: Sequence[np.ndarray], cfg: WaveNetConfig,
-                 speakers: Optional[Sequence[int]] = None):
+                 speakers: Optional[Sequence[int]] = None,
+                 native: bool = True):
         self.cfg = cfg
         window = cfg.train_window + 1
         if speakers is not None and len(speakers) != len(clips):
@@ -96,20 +101,27 @@ class AudioDataset:
         if cfg.mel is not None:
             self.mels = [mel_lib.log_mel(c, cfg.sample_rate, cfg.mel)
                          for c in kept]
+        self._gatherer = None
+        if native:
+            from wavenet_tpu_torch.cpp import loader
+            self._gatherer = loader.WindowGatherer(self.tokens)
 
     @classmethod
-    def from_dir(cls, root: str, cfg: WaveNetConfig) -> "AudioDataset":
+    def from_dir(cls, root: str, cfg: WaveNetConfig,
+                 native: bool = True) -> "AudioDataset":
         """Load every .wav under `root` (resampled to cfg.sample_rate); a
         speaker model's ids come from the layout (speakers_from_dir)."""
         paths = list_wavs(root)
         if not paths:
             raise FileNotFoundError(f"no .wav under {root}")
         return cls([read_wav(p, cfg.sample_rate)[0] for p in paths], cfg,
-                   speakers=speakers_from_dir(root, paths, cfg))
+                   speakers=speakers_from_dir(root, paths, cfg),
+                   native=native)
 
     @classmethod
     def synthetic(cls, cfg: WaveNetConfig, num_clips: int = 4,
-                  clip_seconds: float = 2.0, seed: int = 0) -> "AudioDataset":
+                  clip_seconds: float = 2.0, seed: int = 0,
+                  native: bool = True) -> "AudioDataset":
         """Deterministic sine-mixture clips for tests and benchmarks."""
         rng = np.random.default_rng(seed)
         sr = cfg.sample_rate
@@ -123,34 +135,41 @@ class AudioDataset:
             x = sum(a * np.sin(2 * np.pi * f * t + ph)
                     for f, a, ph in zip(freqs, amps, phases))
             clips.append(np.asarray(x, np.float32))
-        return cls(clips, cfg)
+        return cls(clips, cfg, native=native)
 
-    def sample_batch(self, state: IteratorState
+    def sample_batch(self, state: IteratorState,
+                     batch_size: Optional[int] = None,
                      ) -> Tuple[Dict[str, np.ndarray], IteratorState]:
         """Pure function of `state`: {"tokens": [B, W+1] int32} random crops
         (plus "mel": [B, W // hop, M] float32 frames for a mel model and
         "speaker": [B] int32 clip ids for a speaker model) and the advanced
-        iterator state."""
+        iterator state; B is batch_size, by default cfg.batch_size."""
         cfg = self.cfg
-        B = cfg.batch_size
+        B = batch_size or cfg.batch_size
         W = cfg.train_window
         rng = np.random.default_rng((cfg.seed, state.seed, state.step))
         hop = cfg.mel.hop_length if cfg.mel is not None else 1
-        toks = np.empty((B, W + 1), np.int32)
         mels = None
         if self.mels is not None:
             mels = np.empty((B, W // hop, cfg.mel.num_mels), np.float32)
         clip_idx = np.empty(B, np.int32)
+        starts = np.empty(B, np.int64)
         for i in range(B):
             ci = int(rng.integers(0, len(self.tokens)))
-            clip_idx[i] = ci
             max_start = len(self.tokens[ci]) - (W + 1)
             s = int(rng.integers(0, max_start + 1))
             if mels is not None:
                 # a hop-aligned start: frame s // hop is sample s exactly
                 s = (s // hop) * hop
                 mels[i] = self.mels[ci][s // hop:s // hop + W // hop]
-            toks[i] = self.tokens[ci][s:s + W + 1]
+            clip_idx[i], starts[i] = ci, s
+        if self._gatherer is not None:
+            toks = self._gatherer.gather(clip_idx, starts, W + 1)
+        else:
+            toks = np.empty((B, W + 1), np.int32)
+            for i in range(B):
+                toks[i] = self.tokens[clip_idx[i]][starts[i]:
+                                                   starts[i] + W + 1]
         batch = {"tokens": toks}
         if mels is not None:
             batch["mel"] = mels

@@ -29,6 +29,19 @@ steps 10-15 (utils/profiling.profiled_steps); unlike the reference, it may
 be combined with --sample-every and --eval-every.  A mel model's samples
 need mel frames, so --sample-every refuses it (WaveNet.vocode samples
 one); a speaker model samples speaker 0.
+
+Data parallelism: one process per rank, started by torchrun, with
+data_parallel equal to the world size:
+
+  torchrun --nproc_per_node 4 -m wavenet_tpu_torch.train --preset full \
+      --synthetic --override data_parallel=4 --ckpt runs/full
+
+Each rank trains on cuda:LOCAL_RANK unless --device names another, over
+the nccl backend for a CUDA device and gloo for the CPU unless
+--dist-backend names one (two ranks on one card need gloo: nccl refuses a
+device twice).  The batch size is the global one; each rank feeds its
+rows.  Only rank 0 logs, writes the metrics file and the checkpoints,
+samples and traces.
 """
 
 from __future__ import annotations
@@ -75,9 +88,18 @@ def parse_args(argv=None):
     p.add_argument("--override", action="append", default=[],
                    help="config overrides as key=json, e.g. "
                         "--override train_window=512")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to train on (cuda runs the kernels)")
-    return p.parse_args(argv)
+    p.add_argument("--device", default=None,
+                   help="torch device to train on (cuda runs the kernels; "
+                        "default cuda, cuda:LOCAL_RANK under torchrun)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend under torchrun (default: "
+                        "nccl for a CUDA device, gloo for the CPU)")
+    args = p.parse_args(argv)
+    if args.device is None:
+        from wavenet_tpu_torch.parallel import distributed
+        args.device = (f"cuda:{distributed.local_rank()}"
+                       if distributed.launched() else "cuda")
+    return args
 
 
 def build_config(args):
@@ -99,19 +121,32 @@ def build_config(args):
 
 
 def main(argv=None):
+    from wavenet_tpu_torch.parallel import distributed
     args = parse_args(argv)
+    started = distributed.initialize(args.dist_backend, device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if started:
+            distributed.shutdown()
+
+
+def _train(args):
+    from wavenet_tpu_torch.audio.dataset import AudioDataset
+    from wavenet_tpu_torch.parallel import distributed
+    from wavenet_tpu_torch.training.metrics import MetricsLogger
+    from wavenet_tpu_torch.training.trainer import Trainer
+
     cfg = build_config(args)
+    primary = distributed.is_primary()
     sample_every = args.sample_every if args.ckpt else 0
     if sample_every and cfg.mel is not None:
         raise SystemExit("--sample-every needs mel frames for a mel model; "
                          "sample its checkpoint with WaveNet.vocode")
 
-    from wavenet_tpu_torch.audio.dataset import AudioDataset
-    from wavenet_tpu_torch.training.metrics import MetricsLogger
-    from wavenet_tpu_torch.training.trainer import Trainer
-
     if args.synthetic or not args.data:
-        print("using synthetic dataset", file=sys.stderr)
+        if primary:
+            print("using synthetic dataset", file=sys.stderr)
         ds = AudioDataset.synthetic(cfg, num_clips=8, clip_seconds=4.0)
     else:
         ds = AudioDataset.from_dir(args.data, cfg)
@@ -119,14 +154,16 @@ def main(argv=None):
     tr = Trainer(cfg, ds, checkpoint_dir=args.ckpt, device=args.device)
     if args.resume and tr.ckpt and tr.ckpt.latest_step() is not None:
         tr.restore()
-        print(f"resumed at step {tr.state.step}", file=sys.stderr)
+        if primary:
+            print(f"resumed at step {tr.state.step}", file=sys.stderr)
     eval_ds = AudioDataset.from_dir(args.eval_data, cfg) \
         if args.eval_data else None
     mlog = MetricsLogger(args.metrics_file, also_print=False) \
-        if args.metrics_file else None
+        if args.metrics_file and primary else None
 
     def log_fn(msg):
-        print(msg, file=sys.stderr)
+        if primary:
+            print(msg, file=sys.stderr)
 
     def run_chunk(n):
         m = tr.run(n, log_every=args.log_every,
@@ -146,9 +183,8 @@ def main(argv=None):
 
     def run_eval():
         em = tr.evaluate(eval_ds)
-        print("step %d  %s" % (tr.state.step, "  ".join(
-            f"{k} {v:.4f}" for k, v in sorted(em.items()))),
-            file=sys.stderr)
+        log_fn("step %d  %s" % (tr.state.step, "  ".join(
+            f"{k} {v:.4f}" for k, v in sorted(em.items()))))
         if mlog:
             mlog.log(tr.state.step, em)
         return em
@@ -156,20 +192,21 @@ def main(argv=None):
     def train():
         if not (sample_every or args.eval_every):
             return run_chunk(args.steps)
+        # every rank runs the same chunks; only rank 0 samples
         chunk = math.gcd(sample_every, args.eval_every)
         done, metrics = 0, {}
         while done < args.steps:
             n = min(chunk, args.steps - done)
             metrics = run_chunk(n)
             done += n
-            if sample_every and done % sample_every == 0:
+            if sample_every and done % sample_every == 0 and primary:
                 sample()
             if args.eval_every and done % args.eval_every == 0:
                 metrics.update(run_eval())
         return metrics
 
     try:
-        if args.profile_dir:
+        if args.profile_dir and primary:
             from wavenet_tpu_torch.utils.profiling import profiled_steps
             with profiled_steps(tr, args.profile_dir, start=10, stop=15):
                 metrics = train()
@@ -180,7 +217,8 @@ def main(argv=None):
     finally:
         if mlog:
             mlog.close()
-    print(json.dumps(metrics))
+    if primary:
+        print(json.dumps(metrics))
     return metrics
 
 

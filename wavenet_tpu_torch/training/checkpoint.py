@@ -19,6 +19,11 @@ has dropped (the per-directory registry _PENDING, the reference's).  A
 save that failed raises its error from its manager's next save() or
 wait(), and from any read that waited for it.
 
+Under data parallelism only rank 0's manager writes (writer=True, the
+config and the checkpoints, as the reference's process 0 writes the
+config); the other ranks' managers read the same directory and refuse to
+save.
+
 Counterpart of wavenet_tpu/training/checkpoint.py::CheckpointManager
 (save, restore, latest_step, wait, load_config).
 """
@@ -75,6 +80,8 @@ def _wait_directory(directory: str) -> None:
 
 
 def _listed_steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):        # a reader before rank 0 made it
+        return []
     return sorted(int(m.group(1)) for m in map(_FILE.match,
                                                os.listdir(directory)) if m)
 
@@ -112,9 +119,13 @@ class CheckpointManager:
                     "mel", "global_classes", "global_channels")
 
     def __init__(self, directory: str, cfg: WaveNetConfig,
-                 max_to_keep: int = 3):
+                 max_to_keep: int = 3, writer: bool = True):
+        """writer=False: a reader of the directory (a data-parallel rank
+        other than 0), which creates and writes nothing."""
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.directory, exist_ok=True)
         self.cfg = cfg
         self.max_to_keep = max_to_keep
         self._pending: List[concurrent.futures.Future] = []
@@ -132,7 +143,7 @@ class CheckpointManager:
                     f"{cfg_path} was written for a different model "
                     f"architecture (fields differ: {diff}); use a fresh "
                     f"checkpoint directory")
-        else:
+        elif writer:
             tmp = f"{cfg_path}.{os.getpid()}.tmp"
             with open(tmp, "w") as f:
                 f.write(cfg.to_json())
@@ -151,6 +162,9 @@ class CheckpointManager:
         for `step`.  Returns once the host copy is taken; the file lands in
         the background, or before returning with wait=True.  Raises the
         error of an earlier save of this manager that failed."""
+        if not self.writer:
+            raise RuntimeError(f"this manager only reads {self.directory} "
+                               f"(rank 0 writes the checkpoints)")
         self._raise_failed()
         payload = {k: _to_cpu(v) for k, v in state.items()}
         payload["step"] = int(step)
@@ -179,8 +193,9 @@ class CheckpointManager:
     def _refuse_orbax(self) -> None:
         """A directory of the JAX package's orbax checkpoints (numbered step
         directories) is not readable here: say how to carry it over."""
-        if any(n.isdigit() and os.path.isdir(os.path.join(self.directory, n))
-               for n in os.listdir(self.directory)):
+        if os.path.isdir(self.directory) and any(
+                n.isdigit() and os.path.isdir(os.path.join(self.directory, n))
+                for n in os.listdir(self.directory)):
             raise ValueError(
                 f"{self.directory} holds JAX (orbax) checkpoints, which the "
                 f"port cannot read; export the weights with the JAX "

@@ -1,6 +1,8 @@
-"""Single-device training: the optimizer, the train step and `Trainer`.
+"""Training on one device, or data-parallel over processes: the optimizer,
+the train step and `Trainer`.
 
-Counterpart of wavenet_tpu/training/trainer.py on one device.  The
+Counterpart of wavenet_tpu/training/trainer.py on the data axis of its
+mesh (the seq and model axes are not ported).  The
 optimizer follows optax exactly, written as plain tensor code:
   * adam(lr_schedule, b1, b2): eps = 1e-8 outside the square root, bias
     corrections 1 - b^count with count incremented first, and the schedule
@@ -21,7 +23,19 @@ products), so a resumed run repeats an uninterrupted one bit for bit.
 A mel model's batches carry "mel" frames; its upsampler and v_cond train
 with the rest.  A speaker model's batches carry "speaker" ids; g_embed and
 v_global train with the rest (the ids' lookup has a one-hot backward, so
-two rows of one speaker add in a fixed order).  The state holds params, optimizer moments and EMA as flat
+two rows of one speaker add in a fixed order).
+Data parallelism (data_parallel = the process group's world size, one
+process per rank, parallel/distributed.initialize): every rank draws the
+global batch from (seed, step) and feeds only its rows
+(distributed.local_batch_slice; a StreamingAudioDataset assembles only
+those rows), computes its loss share through the same stack
+(parallel/dataparallel.loss_fn_dp), and the gradients are summed across
+ranks before the optimizer, on every accumulation microstep, so the clip
+sees the global norm as in the reference; the metrics are global.  Every
+rank starts from rank 0's params (one broadcast) and applies the same
+update, and each save first checks that the replicas are still equal.
+Only rank 0 writes checkpoints; every rank restores the same file.
+The state holds params, optimizer moments and EMA as flat
 leaves under '/'-joined names ("upsampler/w0"), the model's nested params
 rebuilt for each loss call; JAX's optax walks the same leaves in the same
 sorted order.
@@ -29,15 +43,19 @@ sorted order.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wavenet_tpu_torch.audio.dataset import AudioDataset, IteratorState
+from wavenet_tpu_torch.audio.streaming import StreamingAudioDataset
 from wavenet_tpu_torch.config import WaveNetConfig
 from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops.cuda import train_stack
+from wavenet_tpu_torch.parallel import dataparallel, distributed
+from wavenet_tpu_torch.parallel import mesh as mesh_lib
 from wavenet_tpu_torch.training.metrics import ThroughputMeter
 from wavenet_tpu_torch.utils.pytree_io import flatten_tree, unflatten_tree
 
@@ -161,12 +179,15 @@ def ema_update(ema, params, decay: float):
     return {k: decay * e + (1.0 - decay) * params[k] for k, e in ema.items()}
 
 
-def _check_single_device(cfg: WaveNetConfig) -> None:
+Dataset = Union[AudioDataset, StreamingAudioDataset]
+
+
+def _check_parallel(cfg: WaveNetConfig) -> None:
+    """Refuse what the trainer does not take: the seq and model axes
+    (NotImplementedError, mesh_lib.mesh_shape) and a data axis other than
+    the process group's world size (ValueError)."""
     wn.check_trainable(cfg)
-    if max(cfg.data_parallel, cfg.model_parallel, cfg.seq_parallel) > 1:
-        raise NotImplementedError(
-            "data_parallel, model_parallel and seq_parallel > 1 are not "
-            "ported yet (ROADMAP queue 1 item 11)")
+    mesh_lib.mesh_shape(cfg, distributed.world_size())
 
 
 def use_fused_stack(cfg: WaveNetConfig, T: int, device) -> bool:
@@ -187,24 +208,38 @@ def _leaves(params) -> Dict[str, torch.Tensor]:
 
 
 class Trainer:
-    """Training on one device: deterministic data, the train step, eval,
-    and exact-resume checkpoints.  params: optional initial params (e.g.
-    carried over from the JAX package); default: init_params seeded by
-    cfg.seed."""
+    """Training on one device, or on this rank's device of a data-parallel
+    process group: deterministic data, the train step, eval, and
+    exact-resume checkpoints.  dataset: an AudioDataset or a
+    StreamingAudioDataset.  params: optional initial params (e.g. carried
+    over from the JAX package); default: init_params seeded by cfg.seed.
+    Under a process group every rank starts from rank 0's."""
 
-    def __init__(self, cfg: WaveNetConfig, dataset: AudioDataset,
+    def __init__(self, cfg: WaveNetConfig, dataset: Dataset,
                  checkpoint_dir: Optional[str] = None, device="cuda",
                  params: Optional[Dict[str, torch.Tensor]] = None):
-        _check_single_device(cfg)
+        _check_parallel(cfg)
         self.cfg = cfg
         self.dataset = dataset
         self.device = torch.device(device)
         self.use_fused = use_fused_stack(cfg, cfg.train_window, self.device)
+        # the data axis' group and this rank's rows (None: one process)
+        self.mesh = self.group = self.rows = None
+        if dist.is_initialized():
+            if self.device.type == "cuda":
+                # the mesh would otherwise bind cuda:LOCAL_RANK (two ranks
+                # may share one card, each naming cuda:0)
+                torch.cuda.set_device(self.device)
+            self.mesh = mesh_lib.make_mesh(cfg, self.device.type)
+            self.group = self.mesh.get_group(mesh_lib.DATA_AXIS)
+            if distributed.world_size() > 1:
+                self.rows = distributed.local_batch_slice(cfg.batch_size)
         if params is None:
             params = wn.init_params(
                 cfg, torch.Generator().manual_seed(cfg.seed), self.device)
-        params = _leaves({k: torch.as_tensor(v).to(self.device)
-                          for k, v in flatten_tree(params).items()})
+        params = _leaves(dataparallel.broadcast_params(
+            {k: torch.as_tensor(v).to(self.device)
+             for k, v in flatten_tree(params).items()}, self.group))
         self.tx = make_optimizer(cfg)
         ema = ({k: v.detach().clone() for k, v in params.items()}
                if cfg.ema_decay is not None else None)
@@ -214,7 +249,8 @@ class Trainer:
         if checkpoint_dir is not None:
             from wavenet_tpu_torch.training.checkpoint import \
                 CheckpointManager
-            self.ckpt = CheckpointManager(checkpoint_dir, cfg)
+            self.ckpt = CheckpointManager(checkpoint_dir, cfg,
+                                          writer=distributed.is_primary())
 
     # ------------------------------------------------------------------
     def step(self, tokens: torch.Tensor,
@@ -223,14 +259,16 @@ class Trainer:
              ) -> Dict[str, torch.Tensor]:
         """One optimizer step (or accumulation microstep) on [B, W+1]
         tokens (and a mel model's [B, F, M] frames, a speaker model's [B]
-        ids); returns the metrics as 0-d tensors (not fetched)."""
+        ids), this rank's rows under data parallelism; returns the
+        (global) metrics as 0-d tensors (not fetched)."""
         cfg, st = self.cfg, self.state
-        loss, aux = wn.loss_fn(unflatten_tree(st.params), cfg, tokens,
-                               mel=mel, use_fused=self.use_fused,
-                               speaker=speaker)
+        loss, aux = dataparallel.loss_fn_dp(
+            unflatten_tree(st.params), cfg, tokens, mel=mel,
+            use_fused=self.use_fused, speaker=speaker, group=self.group)
         keys = sorted(st.params)
         grads = dict(zip(keys, torch.autograd.grad(
             loss, [st.params[k] for k in keys])))
+        grads = dataparallel.reduce_gradients(grads, self.group)
         with torch.no_grad():
             params, opt_state, applied, norms = self.tx.update(
                 grads, st.opt_state, st.params)
@@ -243,6 +281,15 @@ class Trainer:
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(norms)
         return metrics
+
+    def _sample(self, ds: Dataset, state: IteratorState):
+        """(this rank's rows of the batch of `state`, the next state)."""
+        if self.rows is None:
+            return ds.sample_batch(state)
+        if isinstance(ds, StreamingAudioDataset):
+            return ds.sample_batch(state, rows=self.rows)
+        batch, nxt = ds.sample_batch(state)
+        return {k: v[self.rows] for k, v in batch.items()}, nxt
 
     def _batch(self, batch):
         """A host batch -> (tokens, mel or None, speaker or None) on the
@@ -266,7 +313,7 @@ class Trainer:
         are fetched from the device only there and at the end.  The
         checkpoint_every saves are asynchronous (wait_saves=True makes each
         block, the cost utils/profiling.host_costs compares them with);
-        none is in flight when run() returns."""
+        none is in flight when run() returns, on any rank."""
         if num_steps <= 0:
             return {}
         cfg = self.cfg
@@ -274,8 +321,8 @@ class Trainer:
         meter = ThroughputMeter(samples_per_batch / cfg.sample_rate,
                                 samples_per_batch)
         for i in range(num_steps):
-            batch, self.iter_state = self.dataset.sample_batch(
-                self.iter_state)
+            batch, self.iter_state = self._sample(self.dataset,
+                                                  self.iter_state)
             metrics = self.step(*self._batch(batch))
             if i == 0:
                 self._sync()                  # exclude the first step
@@ -292,6 +339,7 @@ class Trainer:
         self._sync()
         if self.ckpt is not None:
             self.ckpt.wait()
+            self._barrier()
         last = {k: float(v) for k, v in metrics.items()}
         last.update(meter.rates())
         if log_every:
@@ -300,36 +348,48 @@ class Trainer:
         return last
 
     # ------------------------------------------------------------------
-    def evaluate(self, dataset: Optional[AudioDataset] = None,
+    def evaluate(self, dataset: Optional[Dataset] = None,
                  num_batches: int = 8, seed: int = 987) -> Dict[str, float]:
-        """Mean loss/accuracy over deterministic held-out batches (the same
-        stack routing as training, without gradients)."""
+        """Mean loss/accuracy over deterministic held-out batches (the
+        same stack routing and rows as training, without gradients)."""
         ds = dataset or self.dataset
         it = IteratorState(seed=seed, step=0)
         sums: Dict[str, float] = {}
         with torch.no_grad():
             for _ in range(num_batches):
-                batch, it = ds.sample_batch(it)
+                batch, it = self._sample(ds, it)
                 tokens, mel, speaker = self._batch(batch)
-                _, aux = wn.loss_fn(unflatten_tree(self.state.params),
-                                    self.cfg, tokens, mel=mel,
-                                    use_fused=self.use_fused,
-                                    speaker=speaker)
+                _, aux = dataparallel.loss_fn_dp(
+                    unflatten_tree(self.state.params), self.cfg, tokens,
+                    mel=mel, use_fused=self.use_fused, speaker=speaker,
+                    group=self.group)
                 for k, v in aux.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
         return {f"eval_{k}": v / num_batches for k, v in sums.items()}
 
     # ------------------------------------------------------------------
     def save(self, wait: bool = True) -> None:
-        """Checkpoint the current state: durable on return by default;
-        wait=False returns once the state's host copy is taken (the file
-        lands in the background)."""
+        """Checkpoint the current state: durable on return by default (on
+        every rank); wait=False returns once the state's host copy is
+        taken (the file lands in the background).  Under a process group
+        every rank calls it: the replicas are checked equal, and rank 0
+        writes."""
         if self.ckpt is None:
             raise ValueError("no checkpoint_dir was given")
         st = self.state
-        self.ckpt.save(st.step, {"params": st.params,
-                                 "opt_state": st.opt_state, "ema": st.ema},
-                       self.iter_state, wait=wait)
+        dataparallel.check_replicas(st.params, self.group)
+        if self.ckpt.writer:
+            self.ckpt.save(st.step, {"params": st.params,
+                                     "opt_state": st.opt_state,
+                                     "ema": st.ema},
+                           self.iter_state, wait=wait)
+        if wait:
+            self._barrier()
+
+    def _barrier(self) -> None:
+        """Under a process group: wait until every rank gets here."""
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def restore(self, step: Optional[int] = None) -> TrainState:
         """Load a checkpoint (the latest by default) into the trainer.  An
