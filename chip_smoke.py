@@ -19,7 +19,9 @@ kernels (phase 15), and the entry points a user calls at `full`: the
 train CLI sampling and tracing as it trains, the generate and score CLIs
 (phase 16), and the data pipeline (the native window gatherer, the
 streaming dataset) and data-parallel training at `full` under torchrun
-(phase 17).  Any failed check
+(phase 17), and generation and serving over the mesh under torchrun: the
+decode kernels fanned out over the data axis, the collective loop over
+the model axis (phase 18).  Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -163,9 +165,32 @@ Phases (one line of numbers each):
      same steps without torch.distributed, bit for bit; DP=2's ms per
      step and each rank's all-reduce ms per step, as two ranks sharing
      one card (not a scaling figure).
+ 18. generation and serving over the mesh, two gloo ranks sharing cuda:0
+     under torchrun (correctness and launches, not scaling): (a) the
+     generate CLI at `full`, B = 8, 0.5 s, --data-parallel 2: its wavs
+     equal the single-process CLI's bit for bit, each rank took the
+     decode_wide route and launched it once (no other kernel); each
+     rank's ms per step; (b) the generate CLI at `full`, B = 4, 0.025 s,
+     --model-parallel 2: its wavs equal the single-process kernel
+     decode's, no kernel launched (the collective loop is plain PyTorch
+     with one f64 all-reduce a layer), each rank's ms per step and
+     collective ms per step (the device synchronised around each call);
+     then distdecode.generate_sharded(shard_rings_model=True) in two
+     spawned ranks: the kernel decode's first 160 tokens, its times;
+     (c) the serve CLI under torchrun, --data-parallel 2 (rank 0 HTTP, rank
+     1 following): `full` with four requests of mixed lengths on the
+     batchable lane beside a primed one on the conditioned lane, then
+     `full_vocoder` with three mel requests (one primed), every response
+     equal to its single-process replay, only decode_wide's (mel) count
+     grown on each rank, the served realtime factor over these requests;
+     interrupting rank 0 ends both ranks with exit 0; (d) the kernel
+     fan-out at `fastgen_bench`, B = 64 (32 a rank) through the narrow
+     kernel: one launch a rank, tokens equal to one process's, ms per
+     step.
 The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16) set
-every kernel's count to 0 right before and read them right after; phase
-17's rank processes start theirs at 0 and report them at exit.
+every kernel's count to 0 right before and read them right after; phases
+17 and 18's rank processes start theirs at 0 and report them at exit (or
+set them to 0 before the path they time).
 """
 
 from __future__ import annotations
@@ -212,6 +237,14 @@ DATA_CLIPS, DATA_CLIP_SECONDS, DATA_STATES, DATA_TIMED = 8, 4.0, 4, 20
 DP_RANKS, DP_TIMEOUT_S, NCCL_STEPS = 2, 300, 2
 DP_STEP1_RTOL, DP_LOSS_RTOL = 1e-5, 1e-3
 DP_GRAD_TOL, DP_BF16_GRAD_TOL = 1e-4, 2 ** -7
+# phase 18: two ranks on one card; (a) DP=2 generate, (b) MP=2 generate,
+# (c) the served requests' lengths, (d) DP=2 at fastgen_bench
+MESH_RANKS, MESH_TIMEOUT_S = 2, 300
+MESH_DP_BATCH, MESH_DP_SECONDS = 8, 0.5
+MESH_MP_BATCH, MESH_MP_SECONDS = 4, 0.025
+MESH_SRM_SAMPLES = 160           # (b) through the library: a prefix
+MESH_SERVE_SECONDS = (0.25, 0.1, 0.2, 0.15)
+MESH_FAST_BATCH, MESH_FAST_SECONDS = 64, 0.25
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1368,10 +1401,10 @@ def phase_entry_points(ts, dev, card: str, preset: str = "full") -> dict:
 RANK_PROBE = r'''
 """chip_smoke.py's probe of a rank process: records every file created,
 written, renamed or removed under $WAVENET_PROBE_WATCH (an audit hook),
-each torch.distributed.all_reduce's bytes and seconds (the device
-synchronised before and after it) and the broadcasts, and at exit writes
-them with the rank's kernel launch counts and peak device memory to
-$WAVENET_PROBE_OUT/rank<RANK>.json."""
+each torch.distributed.all_reduce's and all_gather's bytes and seconds
+(the device synchronised before and after it) and the broadcasts, and at
+exit writes them with the rank's kernel launch counts and peak device
+memory to $WAVENET_PROBE_OUT/rank<RANK>.json."""
 import atexit
 import json
 import os
@@ -1380,7 +1413,8 @@ import time
 
 if "RANK" in os.environ and "WAVENET_PROBE_OUT" in os.environ:
     _watch = os.path.abspath(os.environ["WAVENET_PROBE_WATCH"])
-    _rec = {"writes": [], "all_reduce": [], "broadcasts": 0}
+    _rec = {"writes": [], "all_reduce": [], "all_gather": [],
+            "broadcasts": 0}
     _flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND
 
     def _under(p):
@@ -1401,23 +1435,29 @@ if "RANK" in os.environ and "WAVENET_PROBE_OUT" in os.environ:
     import torch
     import torch.distributed as dist
     _all_reduce, _broadcast = dist.all_reduce, dist.broadcast
+    _all_gather = dist.all_gather
 
-    def _timed(tensor, *a, **k):
-        if tensor.is_cuda:
-            torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = _all_reduce(tensor, *a, **k)
-        if tensor.is_cuda:
-            torch.cuda.synchronize()
-        _rec["all_reduce"].append(
-            [tensor.numel() * tensor.element_size(), time.perf_counter() - t])
-        return out
+    def _timer(fn, key, pos):
+        def timed(*a, **k):
+            tensor = a[pos] if len(a) > pos else k["tensor"]
+            if tensor.is_cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if tensor.is_cuda:
+                torch.cuda.synchronize()
+            _rec[key].append([tensor.numel() * tensor.element_size(),
+                              time.perf_counter() - t])
+            return out
+        return timed
 
     def _counted(*a, **k):
         _rec["broadcasts"] += 1
         return _broadcast(*a, **k)
 
-    dist.all_reduce, dist.broadcast = _timed, _counted
+    dist.all_reduce = _timer(_all_reduce, "all_reduce", 0)
+    dist.all_gather = _timer(_all_gather, "all_gather", 1)
+    dist.broadcast = _counted
 
     def _dump():
         counts = {}
@@ -1468,26 +1508,39 @@ def _run_group(cmd, env, timeout: float) -> str:
     return out
 
 
-def _torchrun(nproc: int, args, watch: str) -> list:
-    """python -m torch.distributed.run ... -m wavenet_tpu_torch.train args,
-    with the rank probe; returns each rank's record."""
-    with tempfile.TemporaryDirectory() as probe:
-        with open(os.path.join(probe, "sitecustomize.py"), "w") as f:
-            f.write(RANK_PROBE)
-        env = dict(os.environ, WAVENET_PROBE_OUT=probe,
-                   WAVENET_PROBE_WATCH=watch,
-                   PYTHONPATH=os.pathsep.join(
-                       [probe, ROOT] + [p for p in os.environ.get(
-                           "PYTHONPATH", "").split(os.pathsep) if p]))
-        _run_group([sys.executable, "-m", "torch.distributed.run",
-                    "--standalone", "--nproc_per_node", str(nproc),
-                    "-m", "wavenet_tpu_torch.train", *args], env,
-                   DP_TIMEOUT_S)
-        ranks = []
-        for r in range(nproc):
-            with open(os.path.join(probe, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+def _probe_env(probe: str, watch: str) -> dict:
+    """The environment of a torchrun launch whose ranks load the probe."""
+    with open(os.path.join(probe, "sitecustomize.py"), "w") as f:
+        f.write(RANK_PROBE)
+    return dict(os.environ, WAVENET_PROBE_OUT=probe,
+                WAVENET_PROBE_WATCH=watch,
+                PYTHONPATH=os.pathsep.join(
+                    [probe, ROOT] + [p for p in os.environ.get(
+                        "PYTHONPATH", "").split(os.pathsep) if p]))
+
+
+def _probe_records(probe: str, nproc: int) -> list:
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(probe, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
     return ranks
+
+
+def _torchrun(nproc: int, args, watch: str,
+              module: str = "wavenet_tpu_torch.train",
+              output: list = None) -> list:
+    """python -m torch.distributed.run ... -m module args, with the rank
+    probe; returns each rank's record (and appends the launch's output to
+    `output` when given)."""
+    with tempfile.TemporaryDirectory() as probe:
+        out = _run_group([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc_per_node", str(nproc),
+                          "-m", module, *args], _probe_env(probe, watch),
+                         DP_TIMEOUT_S)
+        if output is not None:
+            output.append(out)
+        return _probe_records(probe, nproc)
 
 
 def _last_record(path: str) -> dict:
@@ -1799,6 +1852,415 @@ def phase_dp(ts, dev, card: str, single: dict) -> dict:
     return {"dp_ms_per_step": dp_ms, "ranks": allreduce, "rel": rels}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: generation and serving over the mesh
+# ---------------------------------------------------------------------------
+
+def _rank_ms(out: str) -> dict:
+    """{rank: ms per step} from the generate CLI's rank lines."""
+    import re
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"rank (\d+): .* = ([0-9.]+) ms per step", out)}
+
+
+def _collective_ms(rec: dict, steps: int) -> float:
+    return 1e3 * sum(s for key in ("all_reduce", "all_gather")
+                     for _, s in rec[key]) / steps
+
+
+def _mesh_ckpt(cfg, path: str, dev) -> None:
+    """A checkpoint of cfg with seeded random weights (WaveNet.save)."""
+    import torch
+    from wavenet_tpu_torch.models.api import WaveNet
+    WaveNet(cfg).init(torch.Generator().manual_seed(0), device=dev).save(path)
+
+
+def _pcm_of(tokens) -> "np.ndarray":
+    import numpy as np
+    from wavenet_tpu_torch.audio import mulaw
+    return (np.clip(mulaw.decode(tokens).cpu().numpy(), -1, 1)
+            * 32767.0).astype("<i2")
+
+
+class _MeshServer:
+    """`python -m wavenet_tpu_torch.serve --ckpt` under torchrun, two gloo
+    ranks on cuda:0 (DP=2), with the rank probe.  Started on entry (two
+    servers start side by side, their start-ups overlapping); serve()
+    POSTs every body at once after the server is up and returns (replies,
+    served audio seconds per decode second over those requests); stop()
+    interrupts rank 0 (which releases the follower), checks both ranks
+    exit 0 and returns their probe records.  Leaving the block kills
+    whatever is still running."""
+
+    def __init__(self, ckpt: str, watch: str):
+        self.ckpt, self.watch = ckpt, watch
+
+    def __enter__(self):
+        self._probe = tempfile.TemporaryDirectory()
+        self.port = _free_port()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(MESH_RANKS), "-m",
+               "wavenet_tpu_torch.serve", "--ckpt", self.ckpt,
+               "--data-parallel", str(MESH_RANKS), "--dist-backend", "gloo",
+               "--device", "cuda:0", "--port", str(self.port),
+               "--max-batch", "8", "--max-wait-ms", "300",
+               "--chunk-seconds", "0.1", "--length-quantum-seconds", "0.25",
+               "--warmup-seconds", "0.01"]
+        self.proc = subprocess.Popen(
+            cmd, cwd=ROOT, env=_probe_env(self._probe.name, self.watch),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        self.lines, self._ready = [], threading.Event()
+        self._t0 = time.monotonic()
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.append(line)
+                if line.startswith("serving "):
+                    self.ready_s = time.monotonic() - self._t0
+                    self._ready.set()
+
+        self._reader = threading.Thread(target=read, daemon=True)
+        self._reader.start()
+        return self
+
+    def _log(self) -> str:
+        return "".join(self.lines)[-4000:]
+
+    def serve(self, bodies) -> tuple:
+        check(self._ready.wait(MESH_TIMEOUT_S),
+              "phase 18: the mesh server did not come up:\n" + self._log())
+        url = f"http://127.0.0.1:{self.port}"
+
+        def info():
+            with urllib.request.urlopen(url + "/info", timeout=60) as r:
+                return json.loads(r.read())["stats"]
+        before = info()
+        replies = _concurrently(url, bodies)
+        after = info()
+        served = ((after["samples_out"] - before["samples_out"]) / 16000
+                  / (after["decode_seconds"] - before["decode_seconds"]))
+        return replies, served
+
+    def stop(self) -> list:
+        import signal
+        head = next(x for x in self.lines if x.startswith("serving "))
+        os.kill(int(head.rsplit("pid ", 1)[1].split(",")[0]), signal.SIGINT)
+        rc = self.proc.wait(timeout=MESH_TIMEOUT_S)
+        self._reader.join(30)
+        check(rc == 0, f"phase 18: the mesh server exited {rc}:\n"
+              + self._log())
+        return _probe_records(self._probe.name, MESH_RANKS)
+
+    def __exit__(self, *exc):
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self._probe.cleanup()
+
+
+def _vocoder_bodies(vcfg, rs, prime) -> tuple:
+    """Phase 18 (c)'s three mel requests of full_vocoder (0.2, 0.15 s and
+    a primed 0.1 s) with random frames covering each timeline: (bodies,
+    frames)."""
+    import numpy as np
+    hop, M = vcfg.mel.hop_length, vcfg.mel.num_mels
+    bodies, mels = [], []
+    for i, sec in enumerate((0.2, 0.15, 0.1)):
+        span = len(prime) - 1 if i == 2 else 0
+        frames = -(-(int(sec * 16000) + span) // hop)
+        mel = rs.randn(frames, M).astype(np.float32)
+        mels.append(mel)
+        body = {"seconds": sec, "seed": 700 + i, "mel": mel.tolist()}
+        if i == 2:
+            body["prime"] = prime.tolist()
+        bodies.append(body)
+    return bodies, mels
+
+
+def _mesh_lib_rank(rank: int, port: int, ckpt: str, out: str) -> None:
+    """One rank of phase 18's library runs, two gloo ranks on cuda:0:
+    (b) the collective loop at `full`, MP=2, with shard_rings_model, the
+    first MESH_SRM_SAMPLES samples after an untimed 8-sample warm-up (a
+    decode's prefix is a shorter decode's tokens; its collectives timed,
+    the device synchronised around each); (d) the
+    kernel fan-out at `fastgen_bench`, DP=2, B = 64.  Each rank saves its
+    tokens, times and launch counts to out + rank."""
+    import torch
+    import torch.distributed as dist
+    from wavenet_tpu_torch.config import fastgen_bench
+    from wavenet_tpu_torch.generate import sampler
+    from wavenet_tpu_torch.models.api import WaveNet
+    from wavenet_tpu_torch.ops.cuda import decode as pnarrow
+    from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
+    from wavenet_tpu_torch.parallel import distdecode, distributed
+    from wavenet_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    distributed.initialize("gloo", device=dev, rank=rank,
+                           world_size=MESH_RANKS,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        register_counters(pnarrow, pwide)
+        rec = {"collective_s": 0.0}
+        real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather")}
+
+        def timed(fn):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                rec["collective_s"] += time.perf_counter() - t
+                return r
+            return call
+
+        model = WaveNet.from_checkpoint(ckpt, device=dev)
+        cfg = model.cfg
+        mesh = make_mesh(cfg.replace(data_parallel=1,
+                                     model_parallel=MESH_RANKS), "cuda")
+        n = MESH_SRM_SAMPLES
+        w = model.decode_weights()
+        distdecode.generate_sharded(w, cfg, mesh, GEN_SEED, 8, MESH_MP_BATCH,
+                                    shard_rings_model=True, device=dev)
+        for k, fn in real.items():
+            setattr(dist, k, timed(fn))
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = distdecode.generate_sharded(
+            w, cfg, mesh, GEN_SEED, n, MESH_MP_BATCH,
+            shard_rings_model=True, device=dev).cpu()
+        rec["mp_ms"] = 1e3 * (time.perf_counter() - t) / n
+        rec["mp_collective_ms"] = 1e3 * rec["collective_s"] / n
+        for k, fn in real.items():
+            setattr(dist, k, fn)
+        rec["mp_counts"] = {k: c.value for k, c in COUNTERS.items()
+                            if c.value}
+        rec["mp_tokens"] = toks
+
+        fcfg = fastgen_bench()
+        fmodel = WaveNet(fcfg).init(torch.Generator().manual_seed(0),
+                                    device=dev)
+        dmesh = make_mesh(fcfg.replace(data_parallel=MESH_RANKS), "cuda")
+        nf = int(MESH_FAST_SECONDS * fcfg.sample_rate)
+        w = fmodel.decode_weights()
+        sampler.generate_distributed(w, fcfg, dmesh, GEN_SEED, 64,
+                                     MESH_FAST_BATCH, device=dev)  # warm
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ftoks = sampler.generate_distributed(w, fcfg, dmesh, GEN_SEED, nf,
+                                             MESH_FAST_BATCH, device=dev)
+        ftoks = ftoks.cpu()
+        rec["dp_fast_ms"] = 1e3 * (time.perf_counter() - t) / nf
+        rec["dp_fast_counts"] = {k: c.value for k, c in COUNTERS.items()
+                                 if c.value}
+        rec["dp_fast_tokens"] = ftoks
+        torch.save(rec, f"{out}{rank}")
+    finally:
+        distributed.shutdown()
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """Phase 18: generation and serving over the mesh, two gloo ranks
+    sharing cuda:0 (correctness and launches, not scaling): (a) the
+    generate CLI at DP=2, `full`, B = 8, 0.5 s: wavs equal the single
+    process's, decode_wide launched on each rank; (b) the generate CLI at
+    MP=2, `full`, B = 4, 0.025 s: wavs equal the single-process kernel
+    decode's, no kernel launched, each rank's ms per step and collective
+    ms per step, and the library's collective loop with shard_rings_model
+    equal to the kernel decode's first MESH_SRM_SAMPLES samples;
+    (c) the serve CLI at DP=2: `full` (four requests of mixed lengths on
+    the batchable lane beside a primed one on the conditioned lane) and
+    `full_vocoder` (three mel requests, one primed), each equal to its
+    single-process replay, the served realtime factor; (d) the kernel
+    fan-out at `fastgen_bench`, DP=2, B = 64 through the narrow kernel,
+    equal to one process's decode.  Returns each rank's launches."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from wavenet_tpu_torch.audio import mulaw
+    from wavenet_tpu_torch.config import fastgen_bench, full, full_vocoder
+    from wavenet_tpu_torch.generate import __main__ as generate
+    from wavenet_tpu_torch.generate.sampler import batch_paths, generate_auto
+    from wavenet_tpu_torch.models.api import WaveNet
+    phase_t = time.monotonic()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, vck = os.path.join(tmp, "full"), os.path.join(tmp, "voc")
+        _mesh_ckpt(full(), ck, dev)
+        _mesh_ckpt(full_vocoder(), vck, dev)
+        mesh_args = ["--ckpt", ck, "--seed", str(GEN_SEED), "--dist-backend",
+                     "gloo", "--device", "cuda:0"]
+
+        # (a) DP=2 against one process
+        one = ["--ckpt", ck, "--seed", str(GEN_SEED), "--device", "cuda"]
+        a_args = ["--seconds", str(MESH_DP_SECONDS), "--batch",
+                  str(MESH_DP_BATCH)]
+        single = os.path.join(tmp, "single.wav")
+        generate.main(one + a_args + ["--out", single])
+        out, dpw = [], os.path.join(tmp, "dp.wav")
+        ranks_a = _torchrun(MESH_RANKS, mesh_args + a_args + [
+            "--out", dpw, "--data-parallel", str(MESH_RANKS)], tmp,
+            module="wavenet_tpu_torch.generate", output=out)
+        check(_wav_bytes(batch_paths(dpw, MESH_DP_BATCH))
+              == _wav_bytes(batch_paths(single, MESH_DP_BATCH)),
+              "phase 18 (a): DP=2 wavs differ from one process's")
+        check(out[0].count("route decode_wide") == MESH_RANKS,
+              f"phase 18 (a): a rank took another route:\n{out[0][-2000:]}")
+        for r, rec in enumerate(ranks_a):
+            got = {k: v for k, v in rec["counts"].items() if v}
+            check(got == {"decode_wide.launches": 1},
+                  f"phase 18 (a) rank {r}: launches {got}")
+        res["a"] = {"ms_per_step": _rank_ms(out[0]),
+                    "launches": [r["counts"]["decode_wide.launches"]
+                                 for r in ranks_a]}
+
+        # (b) MP=2 against the single-process kernel decode
+        b_args = ["--seconds", str(MESH_MP_SECONDS), "--batch",
+                  str(MESH_MP_BATCH)]
+        single_b = os.path.join(tmp, "single_b.wav")
+        kernel_toks = generate.main(one + b_args + ["--out", single_b])
+        out, mpw = [], os.path.join(tmp, "mp.wav")
+        ranks_b = _torchrun(MESH_RANKS, mesh_args + b_args + [
+            "--out", mpw, "--model-parallel", str(MESH_RANKS)], tmp,
+            module="wavenet_tpu_torch.generate", output=out)
+        check(_wav_bytes(batch_paths(mpw, MESH_MP_BATCH))
+              == _wav_bytes(batch_paths(single_b, MESH_MP_BATCH)),
+              "phase 18 (b): MP=2 wavs differ from the kernel decode's")
+        for r, rec in enumerate(ranks_b):
+            check(not any(rec["counts"].values()),
+                  f"phase 18 (b) rank {r}: a kernel launched "
+                  f"{rec['counts']}")
+        n_b = int(MESH_MP_SECONDS * 16000)
+        res["b"] = {"ms_per_step": _rank_ms(out[0]),
+                    "collective_ms_per_step": [
+                        _collective_ms(rec, n_b) for rec in ranks_b],
+                    "all_reduce_calls_per_step": [
+                        len(rec["all_reduce"]) / n_b for rec in ranks_b]}
+
+        # (b) through the library with shard_rings_model, and (d)
+        lib = os.path.join(tmp, "lib")
+        ctx = mp.start_processes(_mesh_lib_rank,
+                                 args=(_free_port(), ck, lib),
+                                 nprocs=MESH_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      "phase 18: the library ranks ran past their limit")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(5)
+        lib_recs = [torch.load(f"{lib}{r}", weights_only=False)
+                    for r in range(MESH_RANKS)]
+        for r, rec in enumerate(lib_recs):
+            check(np.array_equal(rec["mp_tokens"].numpy(),
+                                 kernel_toks[:, :MESH_SRM_SAMPLES]),
+                  f"phase 18 (b) rank {r}: shard_rings_model tokens differ "
+                  f"from the kernel decode's")
+            check(not rec["mp_counts"], f"phase 18 (b) rank {r}: "
+                  f"{rec['mp_counts']}")
+            check(rec["dp_fast_counts"] == {"decode.launches": 1},
+                  f"phase 18 (d) rank {r}: launches {rec['dp_fast_counts']}")
+        fcfg = fastgen_bench()
+        fmodel = WaveNet(fcfg).init(torch.Generator().manual_seed(0),
+                                    device=dev)
+        want = generate_auto(fmodel.decode_weights(), fcfg,
+                             int(MESH_FAST_SECONDS * fcfg.sample_rate),
+                             batch=MESH_FAST_BATCH, seeds=GEN_SEED,
+                             device=dev).cpu()
+        for r, rec in enumerate(lib_recs):
+            check(torch.equal(rec["dp_fast_tokens"], want),
+                  f"phase 18 (d) rank {r}: DP=2 tokens differ from one "
+                  f"process's")
+        del fmodel
+        res["b"]["library_srm"] = {
+            "ms_per_step": [rec["mp_ms"] for rec in lib_recs],
+            "collective_ms_per_step": [rec["mp_collective_ms"]
+                                       for rec in lib_recs]}
+        res["d"] = {"ms_per_step": [rec["dp_fast_ms"] for rec in lib_recs],
+                    "launches": [rec["dp_fast_counts"]["decode.launches"]
+                                 for rec in lib_recs]}
+
+        # (c) the serve CLI, DP=2: full, then full_vocoder (both servers
+        # start together)
+        rs = np.random.RandomState(18)
+        prime = (rs.rand(int(PRIME_SECONDS * 16000)) * 0.2 - 0.1).astype(
+            np.float32)
+        bodies = [{"seconds": s, "seed": 500 + i}
+                  for i, s in enumerate(MESH_SERVE_SECONDS)]
+        bodies.append({"seconds": 0.1, "seed": 600,
+                       "prime": prime.tolist()})
+        with _MeshServer(ck, tmp) as srv, _MeshServer(vck, tmp) as vsrv:
+            replies, served = srv.serve(bodies)
+            ranks_c = srv.stop()
+            vb, mels = _vocoder_bodies(full_vocoder(), rs, prime)
+            vreplies, vserved = vsrv.serve(vb)
+            ranks_v = vsrv.stop()
+        model = WaveNet.from_checkpoint(ck, device=dev)
+        lengths = [int(b["seconds"] * 16000) for b in bodies]
+        pcm = _pcm(bodies, lengths, replies, 16000)
+        for i, (body, got) in enumerate(zip(bodies, pcm)):
+            kw = {}
+            if "prime" in body:
+                kw["prime_tokens"] = mulaw.encode_np(prime)[None]
+            want = model.generate(num_samples=lengths[i],
+                                  seeds=[body["seed"]], **kw)[0]
+            check(np.array_equal(got, _pcm_of(want)),
+                  f"phase 18 (c) full: request {i} differs from its "
+                  f"single-process replay")
+        for r, rec in enumerate(ranks_c):
+            got = {k: v for k, v in rec["counts"].items() if v}
+            check(set(got) == {"decode_wide.launches"},
+                  f"phase 18 (c) full rank {r}: launches {got}")
+        del model
+        vmodel = WaveNet.from_checkpoint(vck, device=dev)
+        vlen = [int(b["seconds"] * 16000) for b in vb]
+        vpcm = _pcm(vb, vlen, vreplies, 16000)
+        for i, (body, got) in enumerate(zip(vb, vpcm)):
+            kw = {}
+            if "prime" in body:
+                kw["prime_tokens"] = mulaw.encode_np(prime)[None]
+            want = vmodel.generate(num_samples=vlen[i], seeds=[body["seed"]],
+                                   mel=mels[i][None], **kw)[0]
+            check(np.array_equal(got, _pcm_of(want)),
+                  f"phase 18 (c) full_vocoder: request {i} differs from "
+                  f"its single-process replay")
+        for r, rec in enumerate(ranks_v):
+            got = {k: v for k, v in rec["counts"].items() if v}
+            check(set(got) == {"decode_wide.mel_launches"},
+                  f"phase 18 (c) full_vocoder rank {r}: launches {got}")
+        del vmodel
+        res["c"] = {"full_realtime_factor": served,
+                    "full_vocoder_realtime_factor": vserved,
+                    "full_launches": [r["counts"]["decode_wide.launches"]
+                                      for r in ranks_c],
+                    "full_vocoder_launches": [
+                        r["counts"]["decode_wide.mel_launches"]
+                        for r in ranks_v],
+                    "ready_seconds": [srv.ready_s, vsrv.ready_s]}
+    print(f"phase 18 generation and serving over the mesh, two gloo ranks "
+          f"sharing one card (not a scaling figure): (a) generate CLI full "
+          f"DP={MESH_RANKS} B={MESH_DP_BATCH} {MESH_DP_SECONDS}s wavs equal "
+          f"one process's, route decode_wide on each rank: {res['a']} | (b) "
+          f"generate CLI full MP={MESH_RANKS} B={MESH_MP_BATCH} "
+          f"{MESH_MP_SECONDS}s wavs equal the kernel decode's, no kernel "
+          f"launched, library shard_rings_model tokens equal: {res['b']} | "
+          f"(c) serve CLI DP={MESH_RANKS}, every response equal to its "
+          f"single-process replay: {res['c']} | (d) fastgen_bench DP="
+          f"{MESH_RANKS} B={MESH_FAST_BATCH} {MESH_FAST_SECONDS}s through "
+          f"the narrow kernel, tokens equal one process's: {res['d']} | "
+          f"phase_seconds={time.monotonic() - phase_t} card={card!r}",
+          flush=True)
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1898,6 +2360,7 @@ def main() -> int:
     phase_entry_points(ts, dev, card)
     phase_data(card)
     phase_dp(ts, dev, card, trained)
+    phase_mesh(dev, card)
     print(f"chip_smoke: every phase passed in {time.monotonic() - run_t} s",
           flush=True)
 

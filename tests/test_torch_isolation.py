@@ -46,7 +46,8 @@ for n in ("train", "training.trainer", "training.checkpoint",
           "ops.cuda.train_stack", "audio.dataset", "ops.cuda.decode",
           "ops.cuda.decode_common", "verify", "ops.cuda.probes",
           "utils.golden", "cpp.loader", "audio.streaming",
-          "parallel.distributed", "parallel.mesh", "parallel.dataparallel"):
+          "parallel.distributed", "parallel.mesh", "parallel.dataparallel",
+          "parallel.sharding", "parallel.distdecode"):
     assert "wavenet_tpu_torch." + n in names, n
 print(len(names))
 """

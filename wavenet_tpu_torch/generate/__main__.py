@@ -8,6 +8,10 @@ sample audio from a checkpoint of the port's trainer and write wav files.
   python -m wavenet_tpu_torch.generate --ckpt runs/full --prime some.wav
   python -m wavenet_tpu_torch.generate --ckpt runs/voc --mel-from ref.wav
   python -m wavenet_tpu_torch.generate --ckpt runs/full --stream 0.5
+  torchrun --nproc_per_node 2 -m wavenet_tpu_torch.generate \
+      --ckpt runs/full --batch 8 --data-parallel 2       # 4 rows a rank
+  torchrun --nproc_per_node 2 -m wavenet_tpu_torch.generate \
+      --ckpt runs/full --batch 4 --model-parallel 2      # channels split
 
 The fast path decodes through the kernel that takes the model (the narrow
 or the wide decode kernel on the card, generate/sampler.py); --naive runs
@@ -18,6 +22,15 @@ facade and the server do: the JAX package's generate.py keys a
 jax.random.PRNGKey(N) instead, another random stream, so the same --seed
 gives other audio there (the JAX package's generate_wav(...,
 seeds=as_row_seeds(N, batch)) gives this one).
+
+Over a mesh of ranks (--data-parallel, --model-parallel; one process per
+rank under torchrun, on cuda:LOCAL_RANK over nccl unless --device and
+--dist-backend say otherwise; two ranks on one card need gloo) every rank
+decodes its share (sampler.generate_distributed: the decode kernel on each
+rank's rows on a data-only mesh, the collective loop on a model-sharded
+one) and the wavs equal a single process's at the same --seed; only rank
+0 writes them.  --stream and --naive are single-device paths and are
+refused there, as the reference refuses them.
 """
 
 from __future__ import annotations
@@ -60,16 +73,50 @@ def parse_args(argv=None):
     p.add_argument("--no-ema", action="store_true",
                    help="sample from the raw training weights even when the "
                         "checkpoint kept EMA weights")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to decode on (cuda runs the kernels)")
-    return p.parse_args(argv)
+    p.add_argument("--device", default=None,
+                   help="torch device to decode on (cuda runs the kernels; "
+                        "default cuda, cuda:LOCAL_RANK under torchrun)")
+    p.add_argument("--data-parallel", type=int, default=None, metavar="N",
+                   help="decode across N ranks on the data (batch) mesh "
+                        "axis (default: the ranks --model-parallel leaves)")
+    p.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                   help="split the conv stack's channels across N ranks, "
+                        "one collective per layer; tokens equal a single "
+                        "device's at the same --seed")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend under torchrun (default: "
+                        "nccl for a CUDA device, gloo for the CPU)")
+    args = p.parse_args(argv)
+    from wavenet_tpu_torch.parallel import distributed
+    if args.device is None:
+        args.device = (f"cuda:{distributed.local_rank()}"
+                       if distributed.launched() else "cuda")
+    return args
 
 
 def main(argv=None):
     """Returns the [batch, T] int32 tokens as a numpy array (None with
     --stream)."""
+    from wavenet_tpu_torch.parallel import distributed
     args = parse_args(argv)
+    meshed = (distributed.launched() or args.model_parallel > 1
+              or (args.data_parallel or 1) > 1)
+    if meshed and (args.stream is not None or args.naive):
+        sys.exit("--data-parallel/--model-parallel use the distributed fast "
+                 "decoder; drop --stream/--naive")
+    started = meshed and distributed.initialize(args.dist_backend,
+                                                device=args.device)
+    if meshed and not started:
+        sys.exit("--data-parallel/--model-parallel need one process per rank"
+                 ": launch with torchrun --nproc_per_node N")
+    try:
+        return _generate(args, started)
+    finally:
+        if started:
+            distributed.shutdown()
 
+
+def _generate(args, meshed: bool):
     import numpy as np
     import torch
 
@@ -83,6 +130,10 @@ def main(argv=None):
     from wavenet_tpu_torch.models.api import WaveNet
     from wavenet_tpu_torch.ops import rng
 
+    if meshed and torch.device(args.device).type == "cuda":
+        # the mesh would otherwise bind cuda:LOCAL_RANK (two ranks may
+        # share one card, each naming cuda:0)
+        torch.cuda.set_device(torch.device(args.device))
     model = WaveNet.from_checkpoint(args.ckpt, step=args.step,
                                     use_ema=not args.no_ema,
                                     device=args.device)
@@ -126,6 +177,8 @@ def main(argv=None):
 
     if args.stream is not None and args.naive:
         sys.exit("--stream uses the fast decoder; drop --naive")
+    if meshed:
+        return _generate_mesh(args, model, n, prime, y, speaker)
 
     seeds = rng.as_row_seeds(args.seed, args.batch, dev)
     kw = dict(batch=args.batch, prime_tokens=prime, y=y, speaker=speaker,
@@ -173,6 +226,40 @@ def main(argv=None):
           f"({'naive' if args.naive else 'fast'})", file=sys.stderr)
     write_wavs(args.out, toks, cfg)
     print(f"wrote {args.out}", file=sys.stderr)
+    return toks.numpy()
+
+
+def _generate_mesh(args, model, n: int, prime, y, speaker):
+    """Every rank's decode over the mesh; rank 0 writes the wavs.  Each
+    rank prints its route and its ms per decode step."""
+    from wavenet_tpu_torch.generate import sampler
+    from wavenet_tpu_torch.parallel import distdecode, distributed
+    from wavenet_tpu_torch.parallel.mesh import make_mesh
+    cfg, dev = model.cfg, model.device
+    mesh = make_mesh(cfg.replace(data_parallel=args.data_parallel or 0,
+                                 model_parallel=args.model_parallel,
+                                 seq_parallel=1), dev.type)
+    groups = distdecode.as_groups(mesh)
+    fan_out = sampler.kernel_fan_out(cfg, groups, args.batch,
+                                      args.temperature, dev)
+    route = (sampler.kernel_module(cfg, dev).__name__.rsplit(".", 1)[-1]
+             if fan_out else "collective loop")
+    t0 = time.perf_counter()
+    toks = model.generate(num_samples=n, batch=args.batch,
+                          prime_tokens=prime, y=y, speaker=speaker,
+                          temperature=args.temperature, seed=args.seed,
+                          mesh=groups).cpu()   # timed after the read-back
+    dt = time.perf_counter() - t0
+    steps = n + max(0 if prime is None else prime.shape[1] - 1, 0)
+    # one write, so the ranks' lines do not interleave
+    sys.stderr.write(f"rank {distributed.rank()}: {n} samples x{args.batch} "
+                     f"in {dt:.2f}s = {1e3 * dt / steps:.4f} ms per step "
+                     f"(distributed dp={groups.dp} mp={groups.mp}, route "
+                     f"{route})\n")
+    sys.stderr.flush()
+    if distributed.is_primary():
+        sampler.write_wavs(args.out, toks, cfg)
+        print(f"wrote {args.out}", file=sys.stderr)
     return toks.numpy()
 
 

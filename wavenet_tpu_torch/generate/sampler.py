@@ -25,6 +25,10 @@ its RNG by the global step, so chunked decode equals one-shot bit for bit.
 A mel-conditioned model takes y, its upsampled features on the decode
 device, covering the whole timeline (priming steps included); a
 speaker-conditioned model takes speaker, its [B] int ids.
+generate_distributed and stream_distributed decode over a (data, model)
+mesh of ranks (parallel/distdecode.py), routed as the reference routes
+them: the kernel fan-out on a data-only mesh, the collective loop
+otherwise.
 """
 
 from __future__ import annotations
@@ -121,6 +125,69 @@ def generate_stream(params, cfg: WaveNetConfig, num_samples: int,
         if toks.shape[1]:
             yield toks
         t0 += n
+
+
+def kernel_fan_out(cfg: WaveNetConfig, groups, batch: int,
+                    temperature: float, device) -> bool:
+    """The reference's routing rule (wavenet_tpu/generate/sampler.py
+    :211-215): a data-only mesh whose rows split evenly, bf16 compute or
+    greedy, and a route that is a kernel take the kernel fan-out;
+    everything else takes the collective loop."""
+    greedy = temperature <= 0
+    return (groups.mp == 1 and batch % groups.dp == 0
+            and (wn.compute_dtype(cfg) == torch.bfloat16 or greedy)
+            and kernel_module(cfg, device) is not PLAIN)
+
+
+def generate_distributed(params, cfg: WaveNetConfig, mesh, seeds,
+                         num_samples: int, batch: int,
+                         prime_tokens: Optional[torch.Tensor] = None,
+                         y: Optional[torch.Tensor] = None, speaker=None,
+                         temperature: float = 1.0, device="cuda",
+                         local_y: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """[batch, num_samples] int32 tokens on every rank of a (data, model)
+    mesh (a DeviceMesh of parallel/mesh.make_mesh, or MeshGroups), equal
+    to one device's generate_auto at the same seeds on any layout.  Every
+    rank passes the same global arguments (those of generate_auto; local_y
+    instead of y: this rank's rows of the features).  A data-only mesh
+    fans the decode kernel out over its ranks
+    (distdecode.generate_kernel_dp); a model-sharded mesh, or a model no
+    kernel takes, runs the collective loop (distdecode.generate_sharded).
+    params: model params or DecodeWeights on `device`."""
+    from wavenet_tpu_torch.parallel import distdecode
+    groups = distdecode.as_groups(mesh)
+    kw = dict(prime_tokens=prime_tokens, y=y, speaker=speaker,
+              temperature=temperature, device=device, local_y=local_y)
+    if kernel_fan_out(cfg, groups, batch, temperature, device):
+        return distdecode.generate_kernel_dp(params, cfg, groups, seeds,
+                                             num_samples, batch, **kw)
+    return distdecode.generate_sharded(params, cfg, groups, seeds,
+                                       num_samples, batch, **kw)
+
+
+def stream_distributed(params, cfg: WaveNetConfig, mesh, seeds,
+                       num_samples: int, batch: int,
+                       chunk_samples: int = 16000,
+                       prime_tokens: Optional[torch.Tensor] = None,
+                       y: Optional[torch.Tensor] = None, speaker=None,
+                       temperature: float = 1.0, device="cuda",
+                       local_y: Optional[torch.Tensor] = None
+                       ) -> Iterator[torch.Tensor]:
+    """Streaming generate_distributed: yields [batch, <= chunk_samples]
+    int32 token chunks on every rank, routed by the same rule, which
+    concatenate to its one-shot tokens."""
+    from wavenet_tpu_torch.parallel import distdecode
+    groups = distdecode.as_groups(mesh)
+    kw = dict(chunk_samples=chunk_samples, prime_tokens=prime_tokens, y=y,
+              speaker=speaker, temperature=temperature, device=device,
+              local_y=local_y)
+    if kernel_fan_out(cfg, groups, batch, temperature, device):
+        yield from distdecode.generate_kernel_dp_stream(
+            params, cfg, groups, seeds, num_samples, batch, **kw)
+        return
+    yield from distdecode.generate_sharded_stream(
+        params, cfg, groups, seeds, num_samples, batch, **kw)
 
 
 @torch.no_grad()

@@ -219,7 +219,7 @@ class WaveNet(nn.Module):
                  num_samples: Optional[int] = None, batch: int = 1,
                  prime_tokens=None, temperature: float = 1.0,
                  seed: int = 0, seeds=None, mel=None, y=None,
-                 speaker=None) -> torch.Tensor:
+                 speaker=None, mesh=None) -> torch.Tensor:
         """Sample [batch, num_samples] int32 mu-law tokens on the model's
         device.  seeds: optional [batch] per-row counter-RNG seeds (each
         row's audio then depends only on its seed); else derived from
@@ -227,40 +227,57 @@ class WaveNet(nn.Module):
         here over the whole timeline, priming included) or y= features
         already upsampled, [batch, >= max(P - 1, 0) + num_samples, M], on
         the model's device.  A speaker model takes speaker= [batch] int
-        ids in [0, global_classes)."""
-        from wavenet_tpu_torch.generate.sampler import generate_auto
+        ids in [0, global_classes).  mesh: a (data, model) mesh of ranks
+        (parallel/mesh.make_mesh, or MeshGroups): every rank calls with the
+        same arguments and gets the whole batch, equal to one device's
+        tokens (sampler.generate_distributed)."""
+        from wavenet_tpu_torch.generate.sampler import (generate_auto,
+                                                        generate_distributed)
         n = self._num_samples(seconds, num_samples)
         prime = self._prime(prime_tokens)
+        kw = dict(prime_tokens=prime, temperature=temperature,
+                  device=self.device, y=self._cond(mel, y, prime, n),
+                  speaker=self._speaker(speaker))
+        if mesh is not None:
+            return generate_distributed(self.decode_weights(), self.cfg,
+                                        mesh, self._seeds(seed, seeds), n,
+                                        batch, **kw)
         return generate_auto(self.decode_weights(), self.cfg, n, batch=batch,
-                             prime_tokens=prime, temperature=temperature,
-                             seeds=self._seeds(seed, seeds),
-                             device=self.device,
-                             y=self._cond(mel, y, prime, n),
-                             speaker=self._speaker(speaker))
+                             seeds=self._seeds(seed, seeds), **kw)
 
     def stream(self, seconds: Optional[float] = None,
                chunk_seconds: float = 1.0, batch: int = 1,
                prime_tokens=None, temperature: float = 1.0,
                num_samples: Optional[int] = None,
                chunk_samples: Optional[int] = None, seed: int = 0,
-               seeds=None, mel=None, y=None, speaker=None):
+               seeds=None, mel=None, y=None, speaker=None, mesh=None,
+               local_y=None):
         """Yield float32 waveform chunks ([batch, <= chunk] numpy arrays in
         [-1, 1]) as they are decoded; the concatenation is bit-identical
-        to a one-shot generate at the same seeds (mel=/y=/speaker= as
-        there)."""
+        to a one-shot generate at the same seeds (mel=/y=/speaker=/mesh=
+        as there).  With mesh=, local_y may stand for y: this rank's rows
+        of the features (the server's ranks upsample only their own)."""
         from wavenet_tpu_torch.audio import mulaw
-        from wavenet_tpu_torch.generate.sampler import generate_stream
+        from wavenet_tpu_torch.generate.sampler import (generate_stream,
+                                                        stream_distributed)
         n = self._num_samples(seconds, num_samples)
         if chunk_samples is None:
             chunk_samples = max(1, int(chunk_seconds * self.cfg.sample_rate))
         prime = self._prime(prime_tokens)
-        gen = generate_stream(self.decode_weights(), self.cfg, n,
-                              chunk_samples=chunk_samples, batch=batch,
-                              prime_tokens=prime, temperature=temperature,
-                              seeds=self._seeds(seed, seeds),
-                              device=self.device,
-                              y=self._cond(mel, y, prime, n),
-                              speaker=self._speaker(speaker))
+        kw = dict(chunk_samples=chunk_samples, prime_tokens=prime,
+                  temperature=temperature, device=self.device,
+                  y=self._cond(mel, y, prime, n),
+                  speaker=self._speaker(speaker))
+        if mesh is not None:
+            gen = stream_distributed(self.decode_weights(), self.cfg, mesh,
+                                     self._seeds(seed, seeds), n, batch,
+                                     local_y=local_y, **kw)
+        elif local_y is not None:
+            raise ValueError("local_y= is a mesh decode's input (mesh=)")
+        else:
+            gen = generate_stream(self.decode_weights(), self.cfg, n,
+                                  batch=batch, seeds=self._seeds(seed, seeds),
+                                  **kw)
         for toks in gen:
             yield mulaw.decode(toks, self.cfg.quantization_channels
                                ).cpu().numpy()

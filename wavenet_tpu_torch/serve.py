@@ -25,6 +25,20 @@ one.
 
 A directory of the JAX package's orbax checkpoints is refused with a message
 that points to export_npz.
+
+Over a mesh of ranks (one process per rank under torchrun):
+
+  torchrun --nproc_per_node 2 -m wavenet_tpu_torch.serve --ckpt runs/full \
+      --data-parallel 2                     # rows split over two cards
+  torchrun --nproc_per_node 2 -m wavenet_tpu_torch.serve --ckpt runs/full \
+      --model-parallel 2                    # channels split over two cards
+
+Each rank loads the model on cuda:LOCAL_RANK (nccl) unless --device and
+--dist-backend say otherwise (two ranks on one card need gloo); rank 0
+binds HTTP and takes the requests, the other ranks follow its
+microbatches (serving/server.py), and every response equals a single
+process's.  Interrupting rank 0 closes the server and releases the
+followers.
 """
 
 from __future__ import annotations
@@ -46,8 +60,17 @@ def parse_args(argv=None):
     p.add_argument("--no-ema", action="store_true",
                    help="serve the raw training weights instead of the EMA "
                         "(--ckpt)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to decode on (cuda runs the kernel)")
+    p.add_argument("--device", default=None,
+                   help="torch device to decode on (cuda runs the kernel; "
+                        "default cuda, cuda:LOCAL_RANK under torchrun)")
+    p.add_argument("--data-parallel", type=int, default=None, metavar="N",
+                   help="serve across N ranks on the data (batch) mesh axis "
+                        "(default: the ranks --model-parallel leaves)")
+    p.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                   help="split the conv stack's channels across N ranks")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend under torchrun (default: "
+                        "nccl for a CUDA device, gloo for the CPU)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=8,
@@ -67,6 +90,10 @@ def parse_args(argv=None):
     if args.npz and (args.step is not None or args.no_ema):
         p.error("--step and --no-ema select a checkpoint's weights; an "
                 ".npz holds one set (use --ckpt)")
+    from wavenet_tpu_torch.parallel import distributed
+    if args.device is None:
+        args.device = (f"cuda:{distributed.local_rank()}"
+                       if distributed.launched() else "cuda")
     return args
 
 
@@ -81,21 +108,65 @@ def load_model(args):
 
 
 def main(argv=None) -> int:
+    from wavenet_tpu_torch.parallel import distributed
     args = parse_args(argv)
+    meshed = (distributed.launched() or args.model_parallel > 1
+              or (args.data_parallel or 1) > 1)
+    started = meshed and distributed.initialize(args.dist_backend,
+                                                device=args.device)
+    if meshed and not started:
+        raise SystemExit("--data-parallel/--model-parallel need one process "
+                         "per rank: launch with torchrun --nproc_per_node N")
+    try:
+        return _serve(args, meshed)
+    finally:
+        if started:
+            distributed.shutdown()
+
+
+def _serve(args, meshed: bool) -> int:
+    import os
+
+    import torch
+
     from wavenet_tpu_torch.serving import WaveNetServer
     from wavenet_tpu_torch.serving.http import make_server
-
+    mesh, where = None, args.device
+    if meshed:
+        from wavenet_tpu_torch.parallel import distributed
+        from wavenet_tpu_torch.parallel.mesh import make_mesh
+        if torch.device(args.device).type == "cuda":
+            # two ranks may share one card, each naming cuda:0
+            torch.cuda.set_device(torch.device(args.device))
     model = load_model(args)
+    if meshed:
+        mesh = make_mesh(model.cfg.replace(
+            data_parallel=args.data_parallel or 0,
+            model_parallel=args.model_parallel, seq_parallel=1),
+            model.device.type)
+        where = (f"{args.device}, mesh data x model = "
+                 f"{mesh.shape[0]} x {mesh.shape[2]}, rank "
+                 f"{distributed.rank()} of {distributed.world_size()}, "
+                 f"pid {os.getpid()}")
     engine = WaveNetServer(model, max_batch=args.max_batch,
                            max_wait_ms=args.max_wait_ms,
                            chunk_seconds=args.chunk_seconds,
-                           length_quantum_seconds=args.length_quantum_seconds)
+                           length_quantum_seconds=args.length_quantum_seconds,
+                           mesh=mesh)
+    if engine.follower:
+        # a follower ends when rank 0 closes (an interrupt of the whole
+        # launch reaches rank 0, which then releases the followers)
+        import signal
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        print(f"following rank 0 ({where})", flush=True)
+        engine.follow()
+        return 0
     if args.warmup_seconds > 0:
         engine.warmup(seconds=args.warmup_seconds, verbose=True)
     server = make_server(engine, host=args.host, port=args.port)
     host, port = server.server_address[:2]
     print(f"serving {args.ckpt or args.npz} on http://{host}:{port} "
-          f"({args.device}, "
+          f"({where}, "
           f"max_batch={args.max_batch}, chunk={args.chunk_seconds}s)",
           flush=True)
     try:
@@ -104,7 +175,8 @@ def main(argv=None) -> int:
         pass
     finally:
         server.server_close()
-        engine.close(wait=False)
+        # on a mesh, drain so that each lane's followers get its close
+        engine.close(wait=meshed)
     return 0
 
 

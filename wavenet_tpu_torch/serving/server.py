@@ -29,7 +29,23 @@ receives its own waveform chunks as they are produced.
   * Chunks flow through per-request unbounded queues: a lagging consumer
     costs memory for its own utterance and never stalls the decode loop.
 
-Mesh (multi-GPU) serving is not ported yet (ROADMAP queue 1 item 11).
+  * Over a (data, model) mesh of ranks (mesh=, one process per rank under
+    torchrun) every microbatch decodes through the distributed decoder
+    (generate/sampler.stream_distributed: the kernel fan-out on a
+    data-only mesh, the collective loop otherwise), streaming chunk for
+    chunk as on one device, with batch buckets rounded up to a multiple
+    of the data axis.  Rank 0 takes the requests; the other ranks are
+    followers (follow()).  For each microbatch rank 0 broadcasts a header
+    (the batch, scan length, temperature, seeds, speakers, the prime's
+    tokens and each mel row's frames) on the lane's control group, and
+    every rank then runs the same decode; a rank upsamples only its own
+    rows' mel (the upsampled features are ~hop x M floats a sample, the
+    frames 1/hop of that), and followers drop the tokens.  Each lane has
+    its own data, model and control groups (made in the same order on
+    every rank), so the two lanes' collectives never interleave on one
+    group, and one follower thread per lane runs them: the lanes decode
+    concurrently on the mesh as they do on one device.  Closing the
+    server sends each lane's followers a close header.
 """
 
 from __future__ import annotations
@@ -42,6 +58,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _bucket(n: int, quantum: int) -> int:
@@ -70,6 +87,27 @@ class _Request:
 
 
 _DONE = object()
+
+
+class _Lane:
+    """One decode lane's collectives over the mesh: its own data and model
+    groups (parallel/mesh.new_mesh_groups) for the decode, a gloo group of
+    every rank for the headers rank 0 broadcasts, and the lock that keeps
+    one microbatch at a time on the lane (rank 0's worker and warmup)."""
+
+    def __init__(self, mesh):
+        from wavenet_tpu_torch.parallel.mesh import new_mesh_groups
+        self.groups = new_mesh_groups(mesh)
+        self.control = dist.new_group(backend="gloo")
+        self.lock = threading.Lock()
+
+    def send(self, header) -> None:
+        dist.broadcast_object_list([header], src=0, group=self.control)
+
+    def recv(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.control)
+        return box[0]
 
 
 class ResponseStream:
@@ -114,13 +152,23 @@ class WaveNetServer:
     max_wait_ms bounds the batching latency: the worker collects requests
     for up to that long (or until max_batch are waiting), then launches.
     The model decodes on its own device (model.to("cuda") for the kernel).
+
+    mesh: a (data, model) DeviceMesh (parallel/mesh.make_mesh) over the
+    running process group: every rank builds the server with the same
+    arguments; rank 0 takes requests and the others call follow(), which
+    returns when rank 0's server closes (see the module docstring).
     """
 
     def __init__(self, model, max_batch: int = 8, max_wait_ms: float = 10.0,
                  chunk_seconds: float = 0.5,
-                 length_quantum_seconds: float = 0.5):
+                 length_quantum_seconds: float = 0.5, mesh=None):
         self.model = model
         self.cfg = model.cfg
+        # the mesh's lanes, made in the same order on every rank
+        self._lanes = (None if mesh is None
+                       else [_Lane(mesh), _Lane(mesh)])
+        self._dp = 1 if mesh is None else self._lanes[0].groups.dp
+        self.follower = mesh is not None and dist.get_rank() != 0
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.chunk_samples = max(1, int(chunk_seconds * self.cfg.sample_rate))
@@ -139,13 +187,14 @@ class WaveNetServer:
         self._submit_lock = threading.Lock()
         self._closed = False
         self._workers = [
-            threading.Thread(target=self._run, args=(self._inbox,),
+            threading.Thread(target=self._run, args=(self._inbox, 0),
                              daemon=True),
             threading.Thread(target=self._run,
-                             args=(self._inbox_single,), daemon=True),
+                             args=(self._inbox_single, 1), daemon=True),
         ]
-        for w in self._workers:
-            w.start()
+        if not self.follower:
+            for w in self._workers:
+                w.start()
 
     def _bump(self, key: str, n=1) -> None:
         with self._stats_lock:
@@ -188,6 +237,9 @@ class WaveNetServer:
             prime = np.asarray(prime, np.float32).reshape(-1)
             if prime.size == 0:
                 prime = None
+        if self.follower:
+            raise RuntimeError("a follower rank takes no requests (rank 0 "
+                               "does)")
         if mel is not None:
             mel = self._check_mel(mel, num_samples, prime)
         elif self.cfg.mel is not None:
@@ -237,7 +289,11 @@ class WaveNetServer:
         4, ..., max_batch) on the calling thread, so the kernel library is
         built and loaded before the first real request arrives.  On a mel
         model the rows carry zero mel, as vocoder traffic does; on a
-        speaker model they name no speaker, so they decode as speaker 0."""
+        speaker model they name no speaker, so they decode as speaker 0.
+        On a mesh it runs on rank 0, and the followers run their share of
+        each bucket in follow()."""
+        if self.follower:
+            return
         n = max(1, int(seconds * self.cfg.sample_rate))
         mel = None
         if self.cfg.mel is not None:
@@ -257,7 +313,10 @@ class WaveNetServer:
             b = min(b * 2, self.max_batch)
 
     def close(self, wait: bool = True) -> None:
-        """Stop accepting requests; optionally drain in-flight work."""
+        """Stop accepting requests; optionally drain in-flight work.  On a
+        mesh each lane's worker then tells the followers to stop."""
+        if self.follower:
+            return
         with self._submit_lock:
             if self._closed:
                 return
@@ -267,6 +326,39 @@ class WaveNetServer:
         if wait:
             for w in self._workers:
                 w.join()
+
+    def follow(self, timeout: Optional[float] = None) -> None:
+        """A follower rank's serving loop: one thread per lane receives
+        rank 0's headers and runs the same decodes (the tokens dropped)
+        until rank 0 closes the lane.  Returns when both lanes closed;
+        raises a lane's error, or TimeoutError after `timeout` seconds."""
+        if not self.follower:
+            raise RuntimeError("follow() runs on the ranks other than 0")
+        errors = []
+
+        def lane_loop(lane):
+            try:
+                while True:
+                    header = lane.recv()
+                    if header is None:
+                        return
+                    for _ in self._decode_mesh(header, lane):
+                        pass
+            except Exception as e:  # surfaced by follow()
+                errors.append(e)
+
+        threads = [threading.Thread(target=lane_loop, args=(lane,),
+                                    daemon=True) for lane in self._lanes]
+        for t in threads:
+            t.start()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for t in threads:
+            t.join(None if deadline is None
+                   else max(deadline - time.monotonic(), 0.0))
+            if errors:
+                raise errors[0]
+            if t.is_alive():
+                raise TimeoutError(f"a follower lane ran past {timeout} s")
 
     def __enter__(self):
         return self
@@ -317,10 +409,13 @@ class WaveNetServer:
             inbox.put(_DONE)  # re-arm shutdown after the drain
         return group
 
-    def _run(self, inbox):
+    def _run(self, inbox, lane: int):
         while True:
             group = self._collect(inbox)
             if group is None:
+                if self._lanes is not None:      # release the followers
+                    with self._lanes[lane].lock:
+                        self._lanes[lane].send(None)
                 return
             t0 = time.monotonic()
             try:
@@ -347,6 +442,9 @@ class WaveNetServer:
         scan_len = _bucket(max(r.num_samples for r in group),
                            self.length_quantum)
         B = _batch_bucket(n_real, self.max_batch)
+        if self._lanes is not None:
+            # rows split over the data axis: a multiple of dp
+            B = -(-max(B, self._dp) // self._dp) * self._dp
         self._bump("batches")
         self._bump("padded_rows", B - n_real)
 
@@ -374,9 +472,16 @@ class WaveNetServer:
             P = prime_tokens.shape[1]
             scan_len = group[0].num_samples  # singleton: exact length
 
+        if self._lanes is not None:
+            self._serve_mesh(group, B, scan_len, seeds, speaker,
+                             prime_tokens)
+            return
+
         y = None
         if group[0].mel is not None:
-            y = self._features(group, B, max(P - 1, 0), scan_len)
+            y = self._features([r.mel for r in group],
+                               [r.num_samples for r in group], range(B),
+                               max(P - 1, 0), scan_len)
 
         emitted = [0] * n_real
         for chunk in self.model.stream(
@@ -394,20 +499,79 @@ class WaveNetServer:
                    for i in range(n_real)):
                 break  # bucket tail serves nobody; stop the scan early
 
-    def _features(self, group, B: int, span: int, scan_len: int):
-        """[B, span + scan_len, M] upsampled features on the model's
-        device: each row upsampled alone at its own timeline length (one
-        conv per row, so its bits cannot depend on the rows batched with
-        it), zero-padded to the group's; pad rows are zeros."""
+    def _features(self, mels, nums, rows, span: int, scan_len: int):
+        """[len(rows), span + scan_len, M] upsampled features on the
+        model's device for the batch rows `rows`: row i from mels[i]
+        ([frames, M]) upsampled alone at its own timeline length,
+        span + nums[i] (one conv per row, so its bits cannot depend on the
+        rows batched with it), zero-padded to the group's; rows past the
+        requests (pad rows) are zeros."""
         from wavenet_tpu_torch.models import conditioning
         dev, M = self.model.device, self.cfg.mel.num_mels
-        total = span + scan_len
-        y = torch.zeros(B, total, M, device=dev)
+        y = torch.zeros(len(rows), span + scan_len, M, device=dev)
         ups = self.model.params["upsampler"]
         with torch.no_grad():
-            for i, r in enumerate(group):
-                n = span + r.num_samples
-                mel = torch.as_tensor(r.mel[None], device=dev)
-                y[i, :n] = conditioning.upsample_mel(ups, self.cfg.mel, mel,
+            for j, i in enumerate(rows):
+                if i >= len(mels):
+                    continue
+                n = span + nums[i]
+                mel = torch.as_tensor(mels[i][None], device=dev)
+                y[j, :n] = conditioning.upsample_mel(ups, self.cfg.mel, mel,
                                                      n)[0]
         return y
+
+    # ---- mesh ----
+
+    def _serve_mesh(self, group, B: int, scan_len: int, seeds, speaker,
+                    prime_tokens) -> None:
+        """Rank 0's side of a mesh microbatch: broadcast its header on the
+        lane, run the distributed decode with every rank, and hand each
+        request its chunks."""
+        lane = self._lanes[int(group[0].mel is not None
+                               or group[0].prime is not None)]
+        header = {
+            "B": B, "scan_len": scan_len, "chunk": self.chunk_samples,
+            "stop": max(r.num_samples for r in group),
+            "temperature": group[0].temperature, "seeds": seeds,
+            "speaker": speaker,
+            "prime": (None if prime_tokens is None
+                      else np.tile(prime_tokens, (B, 1))),
+            "mels": (None if group[0].mel is None
+                     else [r.mel for r in group]),
+            "nums": [r.num_samples for r in group]}
+        n_real = len(group)
+        emitted = [0] * n_real
+        with lane.lock:
+            lane.send(header)
+            for chunk in self._decode_mesh(header, lane):
+                for i, r in enumerate(group):
+                    take = min(chunk.shape[1], r.num_samples - emitted[i])
+                    if take > 0:
+                        r.chunks.put(chunk[i, :take])
+                        emitted[i] += take
+                        self._bump("samples_out", take)
+
+    def _decode_mesh(self, h: dict, lane):
+        """Every rank's side of a mesh microbatch: the distributed streaming
+        decode of header h on the lane's groups, yielding [B, n] float32
+        chunks until the longest request is covered (every rank stops
+        after the same chunk)."""
+        from wavenet_tpu_torch.parallel.distdecode import local_rows
+        prime = h["prime"]
+        span = 0 if prime is None else max(prime.shape[1] - 1, 0)
+        local_y = None
+        if h["mels"] is not None:
+            rows = local_rows(lane.groups, h["B"])
+            local_y = self._features(h["mels"], h["nums"],
+                                     range(rows.start, rows.stop), span,
+                                     h["scan_len"])
+        done = 0
+        for chunk in self.model.stream(
+                num_samples=h["scan_len"], chunk_samples=h["chunk"],
+                batch=h["B"], seeds=h["seeds"], prime_tokens=prime,
+                temperature=h["temperature"], speaker=h["speaker"],
+                mesh=lane.groups, local_y=local_y):
+            yield np.asarray(chunk, np.float32)
+            done += chunk.shape[1]
+            if done >= h["stop"]:
+                return  # bucket tail serves nobody; stop the scan early

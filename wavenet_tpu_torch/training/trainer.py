@@ -184,9 +184,15 @@ Dataset = Union[AudioDataset, StreamingAudioDataset]
 
 def _check_parallel(cfg: WaveNetConfig) -> None:
     """Refuse what the trainer does not take: the seq and model axes
-    (NotImplementedError, mesh_lib.mesh_shape) and a data axis other than
-    the process group's world size (ValueError)."""
+    (NotImplementedError; the model axis decodes and serves, but its
+    training half is not ported) and a data axis other than the process
+    group's world size (ValueError)."""
     wn.check_trainable(cfg)
+    if cfg.model_parallel > 1:
+        raise NotImplementedError(
+            "training over the model axis (model_parallel > 1: the "
+            "sharded scan and the pipelined stack) is not ported yet "
+            "(ROADMAP queue 1 item 11); decode and serving take it")
     mesh_lib.mesh_shape(cfg, distributed.world_size())
 
 
