@@ -21,7 +21,9 @@ train CLI sampling and tracing as it trains, the generate and score CLIs
 streaming dataset) and data-parallel training at `full` under torchrun
 (phase 17), and generation and serving over the mesh under torchrun: the
 decode kernels fanned out over the data axis, the collective loop over
-the model axis (phase 18).  Any failed check
+the model axis (phase 18), and training at `full` over the mesh's seq
+axis (overlap-discard) and model axis (the layer pipeline) on the stack
+kernels (phase 19).  Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -69,7 +71,11 @@ Phases (one line of numbers each):
      request; valid PCM of the asked length; a batched request replayed
      alone gives the same audio bit for bit; the first samples equal the
      plain version's on the same upsampled features; only the mel
-     variant's counter grew;
+     variant's counter grew; then one request without mel, which the
+     server decodes with no conditioning term (as the reference's does):
+     only the unconditional variant's counter grows, and its audio equals
+     the kernel's and the plain version's unconditional decode on the
+     same weights (also in phase 12, through the narrow kernel);
   8. the train_stack kernels' mel variants vs plain at `full_vocoder`
      widths and depth, T=8192 (6 layer groups), B=2 and B=8, y upsampled
      from random frames: the bands of phase 4, dv_cond and dy included;
@@ -187,10 +193,26 @@ Phases (one line of numbers each):
      fan-out at `fastgen_bench`, B = 64 (32 a rank) through the narrow
      kernel: one launch a rank, tokens equal to one process's, ms per
      step.
+ 19. training over the seq and model axes, two gloo ranks sharing cuda:0
+     under torchrun (correctness, launches and gloo's cost, not scaling):
+     train.main at `full`, B = 8, T = 8192, 3 steps, (a) with
+     --override seq_parallel=2 (overlap-discard: each rank runs the stack
+     kernels on its 4,096 rows after 4,096 rows of halo) and (b) with
+     --override model_parallel=2 --override pipeline_microbatch=2 (the
+     layer pipeline: 20 layers a stage, 4 microbatches); for each, the
+     step-1 loss within 2e-3 of phase 5's single process, the first
+     step's gradients (reduced over the ranks, gathered whole) within
+     2e-2 of each leaf's largest element against one process's, each
+     rank's stack launches equal to the route's formula and no other
+     kernel, ms per step, collective ms per step (the device synchronised
+     around each exchange) and peak memory per rank (a probe in each
+     rank records them); the run's final checkpoint (gathered whole
+     before rank 0 writes) loads in this process through
+     WaveNet.from_checkpoint and decodes 800 samples there.
 The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16) set
 every kernel's count to 0 right before and read them right after; phases
-17 and 18's rank processes start theirs at 0 and report them at exit (or
-set them to 0 before the path they time).
+17, 18 and 19's rank processes start theirs at 0 and report them at exit
+(or set them to 0 before the path they time).
 """
 
 from __future__ import annotations
@@ -244,6 +266,13 @@ MESH_DP_BATCH, MESH_DP_SECONDS = 8, 0.5
 MESH_MP_BATCH, MESH_MP_SECONDS = 4, 0.025
 MESH_SRM_SAMPLES = 160           # (b) through the library: a prefix
 MESH_SERVE_SECONDS = (0.25, 0.1, 0.2, 0.15)
+# phase 19: train.main steps over the seq and model axes (two ranks on one
+# card); the pipeline's rows per microbatch; the bands against one process
+# (the stack's: the loss within 2e-3 of its value, a sum of positive terms
+# whose mean |term| it is; each gradient leaf within 2e-2 of its largest
+# element)
+SEQMODEL_STEPS, SEQMODEL_MICROBATCH, SEQMODEL_DECODE = 3, 2, 800
+SEQMODEL_LOSS_TOL, SEQMODEL_GRAD_TOL = 2e-3, 2e-2
 MESH_FAST_BATCH, MESH_FAST_SECONDS = 64, 0.25
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
@@ -656,6 +685,7 @@ def phase_serve_vocoder(mod, cfg, dev, card: str, phase: int = 7) -> int:
     from wavenet_tpu_torch.models import conditioning
     from wavenet_tpu_torch.serving import WaveNetServer
     from wavenet_tpu_torch.serving.http import make_server
+    from wavenet_tpu_torch.serving.server import unconditioned
 
     rate, hop, M = cfg.sample_rate, cfg.mel.hop_length, cfg.mel.num_mels
     model = _served_model(cfg, dev)
@@ -708,13 +738,34 @@ def phase_serve_vocoder(mod, cfg, dev, card: str, phase: int = 7) -> int:
             mod, model, cfg, bodies[0]["seed"], dev, y=y)),
             "served vocoder audio differs from the plain decode")
 
+        # a request without mel, as the reference's server takes it: the
+        # kernel's unconditional variant on the same weights with no y
+        uncond = unconditioned(model)
+        plain_name = counter_name(mod, uncond.cfg)
+        reset_counts()
+        _, _, data = _post(url + "/synthesize",
+                           {"num_samples": REF_SAMPLES, "seed": 21})
+        melless = check_only([plain_name], f"phase {phase} mel-less "
+                                           f"request")[plain_name]
+        got = _wav_samples(data, rate)
+        want = (np.clip(next(uncond.stream(num_samples=REF_SAMPLES,
+                                           chunk_samples=REF_SAMPLES,
+                                           seeds=[21]))[0], -1, 1)
+                * 32767.0).astype("<i2")
+        check(np.array_equal(got, want) and np.array_equal(got, _plain_pcm(
+            mod, uncond, uncond.cfg, 21, dev)),
+            "a mel-less request differs from the unconditional decode")
+
         print(f"phase {phase} served vocoder: requests={st['requests']} "
               f"batches={st['batches']} padded_rows={st['padded_rows']} "
               f"samples_out={st['samples_out']} "
               f"decode_seconds={st['decode_seconds']} realtime_factor="
               f"{st['samples_out'] / rate / st['decode_seconds']} "
               f"wall_s_4_requests={wall} {name}={launches} "
-              f"replay_bit_identical=True card={card!r}", flush=True)
+              f"replay_bit_identical=True | a request without mel: "
+              f"{plain_name}={melless}, equal to the unconditional kernel "
+              f"and plain decode on the same weights card={card!r}",
+              flush=True)
         return launches
     finally:
         server.shutdown()
@@ -1459,6 +1510,40 @@ if "RANK" in os.environ and "WAVENET_PROBE_OUT" in os.environ:
     dist.all_gather = _timer(_all_gather, "all_gather", 1)
     dist.broadcast = _counted
 
+    if os.environ.get("WAVENET_PROBE_GRADS"):
+        # phase 19: each step's wall and collective seconds (the device
+        # synchronised), and the first step's reduced gradients, gathered
+        # whole over `model` and saved by rank 0 (the gather's own time
+        # is not counted)
+        from wavenet_tpu_torch.parallel import collectives as _col
+        from wavenet_tpu_torch.training import trainer as _trainer
+        _reduce, _step = _trainer.Trainer._reduce, _trainer.Trainer.step
+        _rec["steps"] = []
+
+        def _first_reduce(self, grads):
+            out = _reduce(self, grads)
+            if "grads_saved" not in _rec:
+                held = _col.seconds
+                full = self._gather(out)
+                _col.seconds = held
+                _rec["grads_saved"] = True
+                if os.environ["RANK"] == "0":
+                    torch.save({k: v.detach().cpu() for k, v in full.items()},
+                               os.environ["WAVENET_PROBE_GRADS"])
+            return out
+
+        def _timed_step(self, *a, **k):
+            torch.cuda.synchronize()
+            held, t = _col.seconds, time.perf_counter()
+            out = _step(self, *a, **k)
+            torch.cuda.synchronize()
+            _rec["steps"].append([time.perf_counter() - t,
+                                  _col.seconds - held])
+            return out
+
+        _trainer.Trainer._reduce = _first_reduce
+        _trainer.Trainer.step = _timed_step
+
     def _dump():
         counts = {}
         for name, mod in list(sys.modules.items()):
@@ -1529,14 +1614,15 @@ def _probe_records(probe: str, nproc: int) -> list:
 
 def _torchrun(nproc: int, args, watch: str,
               module: str = "wavenet_tpu_torch.train",
-              output: list = None) -> list:
+              output: list = None, env: dict = None) -> list:
     """python -m torch.distributed.run ... -m module args, with the rank
-    probe; returns each rank's record (and appends the launch's output to
-    `output` when given)."""
+    probe (and `env` added to the ranks' environment); returns each rank's
+    record (and appends the launch's output to `output` when given)."""
     with tempfile.TemporaryDirectory() as probe:
         out = _run_group([sys.executable, "-m", "torch.distributed.run",
                           "--standalone", "--nproc_per_node", str(nproc),
-                          "-m", module, *args], _probe_env(probe, watch),
+                          "-m", module, *args],
+                         dict(_probe_env(probe, watch), **(env or {})),
                          DP_TIMEOUT_S)
         if output is not None:
             output.append(out)
@@ -2261,6 +2347,135 @@ def phase_mesh(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training over the mesh's seq and model axes
+# ---------------------------------------------------------------------------
+
+def phase_seqmodel(ts, dev, card: str, single: dict) -> dict:
+    """Phase 19: train.main under torchrun, two gloo ranks on cuda:0, at
+    `full`, B = 8, T = 8192 for SEQMODEL_STEPS steps, (a) over seq = 2
+    through overlap-discard and (b) over model = 2 through the layer
+    pipeline (microbatches of SEQMODEL_MICROBATCH rows), both on the
+    train_stack kernels: the step-1 loss and the first step's gradients
+    (reduced, gathered whole) against one process's with the same layer
+    groups (the residual is rounded to bf16 at group edges: the
+    pipeline's stage boundary is a group edge that the one-process plan
+    lacks, so that process runs the stages' plan, as the reference's
+    pipeline tests align the plans), each rank's stack launches against
+    the route's formula (no other kernel), ms per step, collective ms per
+    step (the device synchronised around each exchange) and peak memory
+    per rank."""
+    import torch
+    from wavenet_tpu_torch import train
+    from wavenet_tpu_torch.models import wavenet as wn
+    from wavenet_tpu_torch.models.api import WaveNet
+    from wavenet_tpu_torch.parallel import pipeline
+    from wavenet_tpu_torch.utils.pytree_io import flatten_tree
+    phase_t = time.monotonic()
+    common = ["--preset", "full", "--synthetic", "--batch-size",
+              str(TS_TRAIN_B), "--override", f"train_window={TS_T}",
+              "--log-every", "1", "--steps", str(SEQMODEL_STEPS)]
+    cfg = train.build_config(train.parse_args(common))
+    L, TT = cfg.num_layers, ts.pick_tile(cfg, TS_T)
+    plan = ts.group_plan(cfg, TT)
+    Ls = L // 2
+    stage = ts.plan_dils(cfg, pipeline.stage_dilations(cfg, 2), TT)
+    staged = [(lo + s * Ls, hi + s * Ls) for s in range(2) for lo, hi in stage]
+    n_mu = TS_TRAIN_B // SEQMODEL_MICROBATCH
+
+    def one_process(groups):
+        """One process's first-step loss and gradients (phase 17's batch
+        and params) through the stack with these layer groups."""
+        torch.cuda.empty_cache()
+        scfg, toks = _first_batch()
+        params = {k: v.requires_grad_(True) for k, v in wn.init_params(
+            scfg, torch.Generator().manual_seed(scfg.seed), dev).items()}
+        keep = ts.group_plan
+        ts.group_plan = lambda c, t: list(groups)
+        try:
+            loss, _ = wn.loss_fn(params, scfg, toks.to(dev), use_fused=True)
+        finally:
+            ts.group_plan = keep
+        keys = sorted(params)
+        grads = {k: g.detach().cpu() for k, g in zip(
+            keys, torch.autograd.grad(loss, [params[k] for k in keys]))}
+        out = float(loss.detach()), grads
+        del params, loss
+        torch.cuda.empty_cache()
+        return out
+
+    routes = {
+        "seq=2 overlap-discard": (
+            ["--override", "seq_parallel=2"], plan,
+            {"train_stack.fwd_launches": L + len(plan),
+             "train_stack.bwd_launches": 10 * L + 2 * len(plan)}),
+        "model=2 pipeline": (
+            ["--override", "model_parallel=2", "--override",
+             f"pipeline_microbatch={SEQMODEL_MICROBATCH}"], staged,
+            {"train_stack.fwd_launches": n_mu * (Ls + len(stage)),
+             "train_stack.bwd_launches": n_mu * (10 * Ls + 2 * len(stage))})}
+    results = {}
+    for name, (extra, groups, per_step) in routes.items():
+        ref_loss, want = one_process(groups)
+        with tempfile.TemporaryDirectory() as tmp:
+            metrics = os.path.join(tmp, "m.jsonl")
+            grads = os.path.join(tmp, "grads.pt")
+            ckpt = os.path.join(tmp, "ckpt")
+            ranks = _torchrun(2, common + extra + [
+                "--dist-backend", "gloo", "--device", "cuda:0",
+                "--metrics-file", metrics, "--ckpt", ckpt], tmp,
+                env={"WAVENET_PROBE_GRADS": grads})
+            losses = _losses(metrics)
+            got = torch.load(grads, weights_only=True)
+            # the checkpoint holds the whole model: it loads in this
+            # process and decodes through the wide kernel
+            model = WaveNet.from_checkpoint(ckpt, device=dev)
+            check(sorted(flatten_tree(model.params)) == sorted(want),
+                  f"phase 19 {name}: the checkpoint's leaves")
+            decoded = model.generate(num_samples=SEQMODEL_DECODE, seed=1)
+            check(tuple(decoded.shape) == (1, SEQMODEL_DECODE),
+                  f"phase 19 {name}: decoded {tuple(decoded.shape)}")
+            del model
+        wantc = {k: v * SEQMODEL_STEPS for k, v in per_step.items()}
+        rel_loss = abs(losses[1] - ref_loss) / abs(ref_loss)
+        check(rel_loss <= SEQMODEL_LOSS_TOL,
+              f"phase 19 {name}: step-1 loss {losses[1]} vs one process "
+              f"{ref_loss}")
+        check(sorted(got) == sorted(want), f"phase 19 {name}: leaves")
+        rels = {k: float((got[k] - g).abs().max() / g.abs().max())
+                for k, g in want.items()}
+        bad = {k: v for k, v in rels.items() if v > SEQMODEL_GRAD_TOL}
+        check(not bad, f"phase 19 {name}: first-step gradients off: {bad}")
+        per_rank = []
+        for r, rec in enumerate(ranks):
+            launched = {k: v for k, v in rec["counts"].items() if v}
+            check(launched == wantc, f"phase 19 {name} rank {r}: launches "
+                                     f"{launched}, expected {wantc}")
+            timed = rec["steps"][1:]             # the first step excluded
+            per_rank.append({
+                "ms_per_step": 1e3 * sum(w for w, _ in timed) / len(timed),
+                "collective_ms_per_step":
+                    1e3 * sum(c for _, c in timed) / len(timed),
+                "peak_device_memory_gb": rec["peak_bytes"] / 1e9,
+                "launches_per_step": {k: v // SEQMODEL_STEPS
+                                      for k, v in launched.items()}})
+        results[name] = {"losses": [losses[s] for s in sorted(losses)],
+                         "rel_loss": rel_loss, "grad_rel": rels,
+                         "ranks": per_rank}
+        print(f"phase 19 {name}, two ranks sharing one card over gloo (not "
+              f"a scaling figure): train.main full B={TS_TRAIN_B} T={TS_T} "
+              f"steps={SEQMODEL_STEPS} losses={results[name]['losses']} "
+              f"one_process_step1={ref_loss} with groups {groups} step1_rel="
+              f"{rel_loss} (band {SEQMODEL_LOSS_TOL}; phase 5's step 1 with "
+              f"groups {plan}: {single['losses'][0]}) first-step gradients "
+              f"max|d|/max|g| per leaf (band {SEQMODEL_GRAD_TOL}): {rels} "
+              f"ranks={per_rank} single_process_ms_per_step="
+              f"{single['ms_per_step']} checkpoint_loaded_in_one_process_"
+              f"and_decoded={SEQMODEL_DECODE} card={card!r}", flush=True)
+    print(f"phase 19 seconds={time.monotonic() - phase_t}", flush=True)
+    return results
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2361,6 +2576,7 @@ def main() -> int:
     phase_data(card)
     phase_dp(ts, dev, card, trained)
     phase_mesh(dev, card)
+    phase_seqmodel(ts, dev, card, trained)
     print(f"chip_smoke: every phase passed in {time.monotonic() - run_t} s",
           flush=True)
 

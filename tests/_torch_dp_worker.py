@@ -4,8 +4,12 @@ Imported by tests/test_torch_dataparallel.py and tests/test_torch_dp_train.py
 and by the processes torch.multiprocessing spawns from them; imports torch
 and the port only (no JAX), so a rank starts in about a second.
 
-  run_ranks(fn, *args)   spawn two ranks of fn(rank, port, *args), each
+  run_ranks(fn, *args)   spawn two ranks of fn(rank, store, *args), each
                          bounded by a timeout, and raise if one fails;
+                         store is a file:// rendezvous of their own (a
+                         new file, so no two runs can meet on it, where a
+                         free TCP port could be taken between its probe
+                         and the ranks' bind);
   loss_ranks(...)        loss_fn_dp and the reduced gradients per case;
   train_ranks(...)       the train CLI's main() with every file the rank
                          writes under a directory recorded (an audit hook).
@@ -13,11 +17,13 @@ and the port only (no JAX), so a rank starts in about a second.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
-import socket
 import sys
+import tempfile
 import time
+import uuid
 
 import numpy as np
 import torch
@@ -26,26 +32,33 @@ import torch.multiprocessing as mp
 TIMEOUT_S = 60
 
 
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def new_store(directory: str = None) -> str:
+    """A file:// rendezvous URL on a file no other run uses (under
+    `directory`, default a new temporary one)."""
+    directory = directory or tempfile.mkdtemp(prefix="rdzv")
+    return "file://" + os.path.join(os.path.abspath(directory),
+                                    f"rdzv-{uuid.uuid4().hex}")
 
 
-def _join(rank: int, port: int, world: int = 2) -> None:
+def _join(rank: int, store: str, world: int = 2) -> None:
+    """Set this rank's environment (the launcher's variables) and make
+    distributed.initialize rendezvous on `store`."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(port))
+                      LOCAL_RANK=str(rank))
     torch.set_num_threads(1)
+    from wavenet_tpu_torch.parallel import distributed
+    distributed.initialize = functools.partial(distributed.initialize,
+                                               init_method=store)
 
 
-def run_ranks(fn, *args, nprocs: int = 2, timeout: float = TIMEOUT_S):
-    """Run fn(rank, port, *args) in nprocs spawned processes; kill them
-    and raise after `timeout` seconds, or when one fails."""
-    ctx = mp.start_processes(fn, args=(free_port(), *args), nprocs=nprocs,
-                             join=False, start_method="spawn")
+def run_ranks(fn, *args, nprocs: int = 2, timeout: float = TIMEOUT_S,
+              store_dir: str = None):
+    """Run fn(rank, store, *args) in nprocs spawned processes (store: a
+    new file:// rendezvous under store_dir); kill them and raise after
+    `timeout` seconds, or when one fails."""
+    ctx = mp.start_processes(fn, args=(new_store(store_dir), *args),
+                             nprocs=nprocs, join=False,
+                             start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -76,13 +89,13 @@ def _case_inputs(case: dict):
     return cfg, torch.tensor(case["tokens"]), mel, spk
 
 
-def loss_ranks(rank: int, port: int, workdir: str) -> None:
+def loss_ranks(rank: int, store: str, workdir: str) -> None:
     """For every case in workdir/cases.json (params in <case>.npz): this
     rank's loss_fn_dp on its rows and the reduced gradients ("loss"), the
     grad_accum trainer steps ("accum"), or two trainer steps on the wavs
     under workdir/corpus, from an AudioDataset and from a
     StreamingAudioDataset ("stream"); writes workdir/<case>.rank<r>.npz."""
-    _join(rank, port)
+    _join(rank, store)
     import torch.distributed as dist
     from wavenet_tpu_torch.audio.dataset import AudioDataset
     from wavenet_tpu_torch.audio.streaming import StreamingAudioDataset
@@ -173,12 +186,12 @@ def _record_writes(root: str, log: list) -> None:
     sys.addaudithook(hook)
 
 
-def train_ranks(rank: int, port: int, argv: list, watch: str,
+def train_ranks(rank: int, store: str, argv: list, watch: str,
                 outdir: str) -> None:
     """train.main(argv) as one rank; writes outdir/rank<r>.npz (the final
     params and EMA of this rank's trainer) and outdir/rank<r>.json (the
     files main() wrote under `watch`, and the metrics it returned)."""
-    _join(rank, port)
+    _join(rank, store)
     from wavenet_tpu_torch import train
     from wavenet_tpu_torch.training import trainer as ttrainer
     made = []

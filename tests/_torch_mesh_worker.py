@@ -140,12 +140,13 @@ def _teacher_forced(cfg, w, lw, groups, inp, spec, dp, mp):
             _gather(rings.float(), groups.data, dp, 1))
 
 
-def decode_ranks(rank: int, port: int, workdir: str) -> None:
+def decode_ranks(rank: int, store: str, workdir: str) -> None:
     """Every case of workdir/cases.json on both layouts; this rank's
     results to workdir/rank<r>.npz."""
     import torch.distributed as dist
-    _join(rank, port)
-    dist.init_process_group("gloo")
+    _join(rank, store)
+    dist.init_process_group("gloo", init_method=store, rank=rank,
+                            world_size=2)
     try:
         with open(os.path.join(workdir, "cases.json")) as f:
             names = json.load(f)
@@ -205,14 +206,15 @@ def _serve_case(name: str, spec: dict, model, mesh) -> dict:
     return out
 
 
-def serve_ranks(rank: int, port: int, workdir: str) -> None:
+def serve_ranks(rank: int, store: str, workdir: str) -> None:
     """Every serving case of workdir/serve.json; rank 0's responses,
     stats and finish times to workdir/serve_out.npz."""
     import torch.distributed as dist
     from wavenet_tpu_torch.models.api import WaveNet
     from wavenet_tpu_torch.parallel.mesh import make_mesh
-    _join(rank, port)
-    dist.init_process_group("gloo")
+    _join(rank, store)
+    dist.init_process_group("gloo", init_method=store, rank=rank,
+                            world_size=2)
     try:
         with open(os.path.join(workdir, "serve.json")) as f:
             cases = json.load(f)

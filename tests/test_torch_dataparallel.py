@@ -46,7 +46,7 @@ from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.audio.dataset import AudioDataset
 from wavenet_tpu_torch.models import wavenet as twn
 from wavenet_tpu_torch.parallel import distributed, mesh
-from wavenet_tpu_torch.training.trainer import Trainer
+from wavenet_tpu_torch.training.trainer import Trainer, choose_route
 from wavenet_tpu_torch.utils.pytree_io import (flatten_tree,
                                                params_from_numpy,
                                                unflatten_tree)
@@ -109,19 +109,23 @@ def test_mesh_shape_validation():
 
 @pytest.mark.parametrize("axis", ["seq_parallel", "model_parallel"])
 def test_seq_and_model_axes_still_raise(axis):
-    """The seq axis is refused by the mesh; the model axis is a mesh
-    shape now (decode and serving take it), but training over it is not
-    ported: the trainer refuses both."""
+    """The seq and model axes are mesh shapes and the trainer takes both
+    (routes chosen as the reference chooses them); what still raises is a
+    mesh larger than the process group: in one process the trainer asks
+    for the launcher."""
     cfg = tconfig.tiny().replace(**{axis: 2, "data_parallel": 1})
     if axis == "seq_parallel":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 11"):
-            mesh.mesh_shape(cfg, 2)
+        assert mesh.mesh_shape(cfg, 2) == (1, 2, 1)
+        assert mesh.mesh_shape(cfg.replace(data_parallel=0), 4) == (2, 2, 1)
+        assert choose_route(cfg, "cpu") == "sp_fused"
+        assert choose_route(cfg.replace(fused_stack=False), "cpu") == "sp"
     else:
         assert mesh.mesh_shape(cfg, 2) == (1, 1, 2)
+        assert choose_route(cfg, "cpu") == "tp"      # 1 block: no stages
+        assert choose_route(cfg.replace(num_blocks=2), "cpu") == "pp"
     ds = AudioDataset.synthetic(tconfig.tiny().replace(train_window=128),
                                 num_clips=1, clip_seconds=0.05)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="process group has 1.*torchrun"):
         Trainer(cfg.replace(train_window=128), ds, device="cpu")
 
 
@@ -217,7 +221,7 @@ def dp_run(tmp_path_factory):
             speaker=None if spk is None else spk.tolist())
     with open(os.path.join(d, "cases.json"), "w") as f:
         json.dump(cases, f)
-    worker.run_ranks(worker.loss_ranks, d)
+    worker.run_ranks(worker.loss_ranks, d, store_dir=d)
     inputs["corpus"] = os.path.join(d, "corpus")
     out = {name: [dict(np.load(os.path.join(d, f"{name}.rank{r}.npz")))
                   for r in range(2)] for name in cases}

@@ -162,7 +162,7 @@ def run(tmp_path_factory):
                        jax_out)
     with open(os.path.join(d, "cases.json"), "w") as f:
         json.dump(list(CASES), f)
-    dpw.run_ranks(worker.decode_ranks, d)
+    dpw.run_ranks(worker.decode_ranks, d, store_dir=d)
     got = []
     for r in range(2):
         with np.load(os.path.join(d, f"rank{r}.npz")) as z:
@@ -334,8 +334,7 @@ def test_mesh_shape_takes_the_model_axis():
                            4) == (2, 1, 2)
     assert mesh.mesh_shape(cfg.replace(data_parallel=0, model_parallel=2),
                            6) == (3, 1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        mesh.mesh_shape(cfg.replace(seq_parallel=2), 2)
+    assert mesh.mesh_shape(cfg.replace(seq_parallel=2), 2) == (1, 2, 1)
     with pytest.raises(ValueError, match="process group has 3"):
         mesh.mesh_shape(cfg.replace(model_parallel=2), 3)
 
@@ -394,11 +393,15 @@ def test_one_rank_collective_loop_equals_generate_auto(case):
 
 
 def test_model_axis_still_refused_by_training():
-    """The model axis decodes and serves; its training half is not
-    ported, and the trainer says so."""
-    from wavenet_tpu_torch.audio.dataset import AudioDataset
-    from wavenet_tpu_torch.training.trainer import Trainer
+    """The model axis decodes, serves and now trains: the trainer takes
+    the reference's routes (the layer pipeline when the fused stack takes
+    the config and the stages own whole blocks, else the Megatron-split
+    scan), and the split it cannot make still raises."""
+    from wavenet_tpu_torch.training.trainer import choose_route
     cfg = tconfig.tiny().replace(model_parallel=2, train_window=128)
-    ds = AudioDataset.synthetic(cfg, num_clips=1, clip_seconds=0.05)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        Trainer(cfg, ds, device="cpu")
+    assert choose_route(cfg, "cpu") == "tp"
+    assert choose_route(cfg.replace(num_blocks=2), "cpu") == "pp"
+    assert choose_route(cfg.replace(num_blocks=2, fused_stack=False),
+                        "cpu") == "tp"
+    with pytest.raises(ValueError, match="skip_channels=17"):
+        choose_route(cfg.replace(skip_channels=17, fused_stack=False), "cpu")

@@ -50,7 +50,8 @@ def _run_ranks(tmp, name, extra):
     argv = ARGS + ["--override", "data_parallel=2", "--ckpt",
                    str(watch / "ckpt"), "--metrics-file",
                    str(watch / "metrics.jsonl")] + extra
-    worker.run_ranks(worker.train_ranks, argv, str(watch), str(out))
+    worker.run_ranks(worker.train_ranks, argv, str(watch), str(out),
+                     store_dir=str(tmp))
     ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(2)]
     logs = [json.load(open(out / f"rank{r}.json")) for r in range(2)]
     return watch, ranks, logs

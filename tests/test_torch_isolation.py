@@ -47,7 +47,9 @@ for n in ("train", "training.trainer", "training.checkpoint",
           "ops.cuda.decode_common", "verify", "ops.cuda.probes",
           "utils.golden", "cpp.loader", "audio.streaming",
           "parallel.distributed", "parallel.mesh", "parallel.dataparallel",
-          "parallel.sharding", "parallel.distdecode"):
+          "parallel.sharding", "parallel.distdecode", "parallel.seqpar",
+          "parallel.pipeline", "parallel.megatron",
+          "parallel.collectives"):
     assert "wavenet_tpu_torch." + n in names, n
 print(len(names))
 """

@@ -111,7 +111,7 @@ def served(tmp_path_factory):
         np.savez(os.path.join(d, f"{name}_in.npz"))
     with open(os.path.join(d, "serve.json"), "w") as f:
         json.dump(CASES, f)
-    dpw.run_ranks(worker.serve_ranks, d, timeout=120)
+    dpw.run_ranks(worker.serve_ranks, d, timeout=120, store_dir=d)
     with np.load(os.path.join(d, "serve_out.npz")) as z:
         return models, dict(z)
 
@@ -225,7 +225,7 @@ def test_serve_cli_over_the_mesh(ckpt):
     import wave
     p = _torchrun(["-m", "wavenet_tpu_torch.serve", "--ckpt", ckpt,
                    "--device", "cpu", "--data-parallel", "2", "--port",
-                   str(dpw.free_port()), "--chunk-seconds", str(Q32),
+                   "0", "--chunk-seconds", str(Q32),
                    "--length-quantum-seconds", str(Q32)])
     try:
         lines = []

@@ -263,20 +263,18 @@ def test_trainer_route_follows_the_reference():
                                   "seq_parallel", "valid_mask", "halo",
                                   "kernel_size"])
 def test_features_left_out_raise(case):
-    """What the port still leaves out raises.  A kernel_size > 2 model now
-    trains on the scan, but the fused stack leaves it out; a valid_mask
-    is taken now, but not beside a halo.  The data axis is ported: a
-    data_parallel that differs from the process group's size (here one
-    process, no group) is refused with how to launch the ranks."""
+    """What the port leaves out raises.  A kernel_size > 2 model trains on
+    the scan, but the fused stack leaves it out.  Every mesh axis is
+    ported: a data, seq or model axis that the process group cannot hold
+    (here one process, no group) is refused with how to launch the ranks.
+    The halo input is taken, beside a valid_mask too: a zero halo is the
+    sequence start, so both give the plain forward's logits."""
     from wavenet_tpu_torch.models import wavenet as twn
     if case.endswith("parallel"):
         _, tc = _cfgs(**{case: 2})
         ds = tds.AudioDataset.synthetic(_cfgs()[1], num_clips=1,
                                         clip_seconds=0.05)
-        err, match = ((ValueError, "process group has 1.*torchrun")
-                      if case == "data_parallel"
-                      else (NotImplementedError, "ROADMAP"))
-        with pytest.raises(err, match=match):
+        with pytest.raises(ValueError, match="process group has 1.*torchrun"):
             ttrainer.Trainer(tc, ds, device="cpu")
     elif case == "kernel_size":
         _, tc = _cfgs(kernel_size=3)
@@ -287,12 +285,14 @@ def test_features_left_out_raise(case):
     else:
         _, tc = _cfgs()
         p = twn.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-        kw = {"halo_fn": lambda x: x}
+        toks = torch.randint(0, 256, (1, 8), generator=torch.Generator(
+            ).manual_seed(1), dtype=torch.int32)
+        kw = {"halo_fn": lambda x: x.new_zeros(x.shape[0], tc.max_dilation,
+                                               x.shape[2])}
         if case == "valid_mask":
             kw["valid_mask"] = torch.ones(1, 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            twn.forward_logits(p, tc, torch.zeros(1, 8, dtype=torch.int32),
-                               **kw)
+        assert torch.equal(twn.forward_logits(p, tc, toks, **kw),
+                           twn.forward_logits(p, tc, toks))
 
 
 def test_step_profile_on_the_cpu():

@@ -48,6 +48,7 @@ from wavenet_tpu_torch.models.api import WaveNet
 from wavenet_tpu_torch.ops import rng as trng
 from wavenet_tpu_torch.ops.cuda import decode_wide as twide
 from wavenet_tpu_torch.serving import WaveNetServer
+from wavenet_tpu_torch.serving.server import unconditioned
 from wavenet_tpu_torch.serving.http import make_server
 from wavenet_tpu_torch.training import trainer as ttrainer
 from wavenet_tpu_torch.utils.pytree_io import flatten_tree, params_from_numpy
@@ -342,8 +343,7 @@ def test_server_refuses_bad_mel_at_submit():
         for kw, msg in ((dict(mel=np.zeros((4, 7))), "frames, 8"),
                         (dict(mel=np.zeros((2, 4, 8))), "frames, 8"),
                         (dict(mel=np.zeros((3, 8))), "exceeds"),
-                        (dict(mel=np.full((9, 8), np.nan)), "non-finite"),
-                        (dict(), "needs mel")):
+                        (dict(mel=np.full((9, 8), np.nan)), "non-finite")):
             with pytest.raises(ValueError, match=msg):
                 s.submit(num_samples=60, **kw)
         with pytest.raises(ValueError, match="priming"):
@@ -352,6 +352,12 @@ def test_server_refuses_bad_mel_at_submit():
         assert s.stats["requests"] == 0
         s.warmup(seconds=32 / RATE)               # rows carrying zero mel
         assert s.stats["batches"] == 3
+        # a request without mel is taken, as the reference's server takes
+        # it: it decodes with no conditioning term
+        got = s.submit(num_samples=60, seed=3).waveform()
+    want = next(unconditioned(model).stream(num_samples=60, seeds=[3],
+                                            chunk_samples=60))[0]
+    np.testing.assert_array_equal(got, want)
 
 
 def _post(url, body):
@@ -381,8 +387,13 @@ def test_http_accepts_mel():
             "mel_b64": base64.b64encode(mel.astype("<f4").tobytes()).decode()})
         assert code == 200 and headers["X-Num-Samples"] == "80"
         np.testing.assert_array_equal(np.frombuffer(data, "<i2"), pcm)
-        for bad in ({"num_samples": 80, "seed": 3},
-                    {"num_samples": 200, "mel": mel.tolist()},
+        # without mel: decoded with no conditioning term, as the
+        # reference's server does
+        code, _, data = _post(url + "/synthesize",
+                              {"num_samples": 80, "seed": 3})
+        with wave.open(io.BytesIO(data)) as w:
+            assert code == 200 and w.getnframes() == 80
+        for bad in ({"num_samples": 200, "mel": mel.tolist()},
                     {"num_samples": 8, "mel": [[0.0] * 7]}):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(url + "/synthesize", bad)

@@ -186,7 +186,7 @@ def _dot(a: torch.Tensor, w: torch.Tensor, cdt=torch.bfloat16) -> torch.Tensor:
 
 
 def global_cond_offsets(params: Params, cfg: WaveNetConfig,
-                        speaker: torch.Tensor) -> torch.Tensor:
+                        speaker: torch.Tensor, tp=None) -> torch.Tensor:
     """Speaker ids [B] -> per-layer gate offsets [L, B, 2, R] f32 (paper
     eq.2: one time-constant offset per layer and row, computed once per
     request batch): g_embed[speaker] @ v_global[l] with bf16 operands,
@@ -194,13 +194,20 @@ def global_cond_offsets(params: Params, cfg: WaveNetConfig,
     compute_dtype float32).  Accepts model-layout params or the decode
     kernels' layout (v_global folded to [L, G, 2R]).  The lookup is a
     _Gather, so in training two rows of one speaker add their gradients in
-    a fixed order (bit-exact resume)."""
-    L, R, G = cfg.num_layers, cfg.residual_channels, cfg.global_channels
+    a fixed order (bit-exact resume).  v_global may be a slice of the
+    layers (a pipeline stage's, [L/mp, ..]) or of the gate columns (a
+    Megatron rank's, [L, G, 2, R/mp], with tp its split): the offsets are
+    then that slice's."""
+    G = cfg.global_channels
     cdt = compute_dtype(cfg)
     gvec = _Gather.apply(params["g_embed"].float(), speaker.long())  # [B, G]
-    v = params["v_global"].reshape(L, G, 2 * R)
+    if tp is not None:
+        gvec = tp.enter(gvec)
+    v = params["v_global"]
+    L = v.shape[0]
+    v = v.reshape(L, G, -1)
     return torch.stack([_dot(gvec, v[l], cdt) for l in range(L)]).reshape(
-        L, -1, 2, R)
+        L, -1, 2, v.shape[-1] // 2)
 
 
 # ---------------------------------------------------------------------------
@@ -253,12 +260,16 @@ class _Gather(torch.autograd.Function):
 
 
 def head_logits(params: Params, cfg: WaveNetConfig,
-                skip: torch.Tensor) -> torch.Tensor:
-    """skip-sum -> ReLU -> 1x1 -> ReLU -> 1x1 (paper §2.4 Fig 4)."""
+                skip: torch.Tensor, tp=None) -> torch.Tensor:
+    """skip-sum -> ReLU -> 1x1 -> ReLU -> 1x1 (paper §2.4 Fig 4).  With a
+    Megatron split tp, head_w2 and head_b2 are this rank's class slices
+    and the logits are its [.., Q/mp] columns."""
     cdt = compute_dtype(cfg)
     h = torch.relu(skip)
     h = torch.relu(_dot(h, params["head_w1"], cdt)
                    + params["head_b1"].float())
+    if tp is not None:
+        h = tp.enter(h)
     return _dot(h, params["head_w2"], cdt) + params["head_b2"].float()
 
 
@@ -282,7 +293,7 @@ def _shifted_tokens_extra(tokens: torch.Tensor, K: int) -> torch.Tensor:
 
 def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
                 w_skip, b_skip, y=None, v_cond=None, gcond=None,
-                w_prevk=None, cdt=torch.bfloat16):
+                w_prevk=None, cdt=torch.bfloat16, tp=None):
     """One gated residual layer over a whole sequence, the scan recipe:
     z = (x @ W_cur + x[t-d] @ W_prev) [+ x[t-jd] @ W_prevk[j-2] for the
     taps j = 2..K-1 of a K > 2 model] + b in f32, then + y @ V_cond when y
@@ -292,23 +303,32 @@ def _layer_step(x, skip, left_ctx, d: int, w_cur, w_prev, b, w_res, b_res,
     once: x' = round((x + h @ W_res) + b_res), every round to the compute
     dtype cdt.  x: [B, T, R] f32 holding cdt values; w_cur, w_prev:
     [R, 2, R]; b: [2, R]; w_prevk: [K-2, R, 2, R]; left_ctx: the
-    (K-1) maxd samples before x."""
-    R = x.shape[-1]
-    x_prev = shift_right(x, d, left_ctx)
-    z = (_dot(x, w_cur.reshape(R, 2 * R), cdt)
-         + _dot(x_prev, w_prev.reshape(R, 2 * R), cdt))
+    (K-1) maxd samples before x.
+    tp: a Megatron split (parallel/megatron.ModelSplit): the gate weights
+    are this rank's column slices [.., 2, R/mp] and w_res, w_skip its row
+    slices [R/mp, ..]; x and left_ctx enter the column products through
+    tp.enter and the row products' exact partial sums are added over the
+    model axis by tp.row_dot, so x and skip stay whole and replicated."""
+    R, Rh = x.shape[-1], w_cur.shape[-1]
+    row_dot = _dot if tp is None else tp.row_dot
+    x_in = x
+    if tp is not None:
+        x_in, left_ctx = tp.enter(x), tp.enter(left_ctx)
+    x_prev = shift_right(x_in, d, left_ctx)
+    z = (_dot(x_in, w_cur.reshape(R, 2 * Rh), cdt)
+         + _dot(x_prev, w_prev.reshape(R, 2 * Rh), cdt))
     if w_prevk is not None:              # the order of decode_step's taps
         for j in range(w_prevk.shape[0]):
-            z = z + _dot(shift_right(x, (j + 2) * d, left_ctx),
-                         w_prevk[j].reshape(R, 2 * R), cdt)
-    z = z + b.reshape(2 * R).float()
+            z = z + _dot(shift_right(x_in, (j + 2) * d, left_ctx),
+                         w_prevk[j].reshape(R, 2 * Rh), cdt)
+    z = z + b.reshape(2 * Rh).float()
     if y is not None:
-        z = z + _dot(y, v_cond.reshape(y.shape[-1], 2 * R), cdt)
+        z = z + _dot(y, v_cond.reshape(y.shape[-1], 2 * Rh), cdt)
     if gcond is not None:
-        z = z + gcond.reshape(-1, 1, 2 * R)
-    h = _round(torch.tanh(z[..., :R]) * torch.sigmoid(z[..., R:]), cdt)
-    skip = (skip + _dot(h, w_skip, cdt)) + b_skip.float()
-    x = _round((x + _dot(h, w_res, cdt)) + b_res.float(), cdt)
+        z = z + gcond.reshape(-1, 1, 2 * Rh)
+    h = _round(torch.tanh(z[..., :Rh]) * torch.sigmoid(z[..., Rh:]), cdt)
+    skip = (skip + row_dot(h, w_skip, cdt)) + b_skip.float()
+    x = _round((x + row_dot(h, w_res, cdt)) + b_res.float(), cdt)
     return x, skip
 
 
@@ -328,7 +348,7 @@ def _mel_features(params: Params, cfg: WaveNetConfig, T: int, mel,
 
 
 def _speaker_offsets(params: Params, cfg: WaveNetConfig,
-                     speaker) -> Optional[torch.Tensor]:
+                     speaker, tp=None) -> Optional[torch.Tensor]:
     """The speaker offsets [L, B, 2, R] of a speaker model's ids (None for
     another model); ids are required with cfg.global_classes, and only
     then (the reference's check, models/wavenet.py:338-341)."""
@@ -340,7 +360,7 @@ def _speaker_offsets(params: Params, cfg: WaveNetConfig,
     if speaker is None:
         raise ValueError("cfg.global_classes set but no speaker ids passed")
     return global_cond_offsets(params, cfg, torch.as_tensor(
-        speaker, device=params["g_embed"].device))
+        speaker, device=params["g_embed"].device), tp)
 
 
 def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
@@ -349,8 +369,8 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
                    valid_mask=None, halo_fn=None,
                    upsampled_cond: Optional[torch.Tensor] = None,
                    speaker=None,
-                   prev_tokens_extra: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   prev_tokens_extra: Optional[torch.Tensor] = None,
+                   tp=None) -> torch.Tensor:
     """[B, T] int tokens -> [B, T, Q] f32 logits (logits[t] predicts t+1),
     the reference's scan path: layer by layer, the residual rounded to the
     compute dtype after every layer; autograd differentiates it
@@ -367,11 +387,17 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
       at masked positions before every layer, so each dilated read of one
       returns the zero padding a shorter sequence would see: logits at
       valid positions equal those of the valid suffix alone (the
-      reference's contract, wavenet_tpu/models/wavenet.py:272-281)."""
-    if halo_fn is not None:
-        raise NotImplementedError(
-            "the halo input of forward_logits (sequence parallelism) is not "
-            "ported yet (ROADMAP queue 1 item 11)")
+      reference's contract, wavenet_tpu/models/wavenet.py:272-281).
+    halo_fn: x [B, T, R] -> the [B, (K-1) maxd, R] left context of a
+      layer whose input is x, in place of zeros (the sequence start): the
+      sequence-parallel scan passes the previous time shard's tail
+      (parallel/seqpar.py), which keeps the math that of the unsharded
+      forward.  upsampled_cond: [B, T, M] features already upsampled (the
+      sequence-parallel path upsamples before it splits time), in place
+      of mel.
+    tp: a Megatron split of the params over the model axis
+      (parallel/megatron.ModelSplit; see _layer_step): the logits are
+      then this rank's [B, T, Q/mp] class columns."""
     check_trainable(cfg)
     B, T = tokens.shape
     K, cdt = cfg.kernel_size, compute_dtype(cfg)
@@ -382,7 +408,9 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
                       if prev_tokens_extra is None else prev_tokens_extra)
     x = embed_tokens(params, cfg, tokens, prev, prev_extra)
     y = _mel_features(params, cfg, T, mel, upsampled_cond)
-    g = _speaker_offsets(params, cfg, speaker)
+    if y is not None and tp is not None:
+        y = tp.enter(y)
+    g = _speaker_offsets(params, cfg, speaker, tp)
     vmask = (None if valid_mask is None else
              torch.as_tensor(valid_mask, device=x.device).float()[..., None])
     skip = torch.zeros(B, T, cfg.skip_channels, device=x.device)
@@ -391,7 +419,7 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
     for l, d in enumerate(cfg.dilations):
         lp = [params[k][l] for k in ("w_cur", "w_prev", "b", "w_res",
                                      "b_res", "w_skip", "b_skip")]
-        kw = {"cdt": cdt}
+        kw = {"cdt": cdt, "tp": tp}
         if y is not None:
             kw.update(y=y, v_cond=params["v_cond"][l])
         if g is not None:
@@ -400,12 +428,15 @@ def forward_logits(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
             kw["w_prevk"] = params["w_prevk"][l]
         if vmask is not None:
             x = x * vmask
+        # the halo is exchanged here, outside a remat'd layer, so the
+        # backward's recompute does not exchange it again
+        ctx = zeros_ctx if halo_fn is None else halo_fn(x)
         if cfg.remat and torch.is_grad_enabled():
-            x, skip = checkpoint(_layer_step, x, skip, zeros_ctx, d, *lp,
+            x, skip = checkpoint(_layer_step, x, skip, ctx, d, *lp,
                                  use_reentrant=False, **kw)
         else:
-            x, skip = _layer_step(x, skip, zeros_ctx, d, *lp, **kw)
-    return head_logits(params, cfg, skip)
+            x, skip = _layer_step(x, skip, ctx, d, *lp, **kw)
+    return head_logits(params, cfg, skip, tp)
 
 
 def forward_logits_fused(params: Params, cfg: WaveNetConfig,

@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from wavenet_tpu_torch.config import WaveNetConfig
 from wavenet_tpu_torch.models import wavenet as wn
+from wavenet_tpu_torch.parallel import collectives as col
 
 
 def _size(group) -> int:
@@ -100,7 +101,7 @@ def reduce_gradients(grads: Dict[str, torch.Tensor], group=None
     if not dist.is_initialized():
         return grads
     flat = _flat(grads)
-    dist.all_reduce(flat, group=group)
+    col.all_reduce(flat, group if group is not None else dist.group.WORLD)
     return _split(flat, grads)
 
 

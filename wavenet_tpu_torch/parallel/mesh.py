@@ -2,23 +2,27 @@
 
 Counterpart of wavenet_tpu/parallel/mesh.py, as a torch DeviceMesh with
 one rank per device.  The axes keep the reference's order: data outermost
-(one gradient reduction a step), model innermost (a reduction every
-layer).  The data and model axes are ported; seq_parallel above 1 raises.
-Training takes the data axis only (training/trainer.py refuses the model
-axis); decode and serving take both (parallel/distdecode.py).
+(one gradient reduction a step), then seq (a halo exchange a layer, or one
+a step), model innermost (a reduction every layer).  Rank r of a
+(dp, sp, mp) mesh sits at data index r // (sp mp), seq index (r // mp) % sp
+and model index r % mp.  Training takes every axis (training/trainer.py
+picks the route); decode and serving take the data and model axes and,
+as the reference's decode does, count the seq axis as replicas: each seq
+index runs the same (data, model) decode on its own sub-groups and gets
+the same tokens.
 
-A decode over the mesh runs its collectives on a MeshGroups: this rank's
-data and model sub-groups and its coordinates on those axes.  mesh_groups
-gives the DeviceMesh's own sub-groups; new_mesh_groups makes a second,
-independent set, so two threads of one process (the server's two decode
-lanes) can each issue collectives without their order mixing on another
-rank.
+Collectives run on a MeshGroups: this rank's sub-groups of each axis, the
+(data, seq) group over which replicated gradients are summed, and its
+coordinates.  mesh_groups gives the DeviceMesh's own sub-groups;
+new_mesh_groups makes a second, independent set, so two threads of one
+process (the server's two decode lanes) can each issue collectives
+without their order mixing on another rank.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -36,13 +40,9 @@ def mesh_shape(cfg: WaveNetConfig, world_size: int) -> Tuple[int, int, int]:
     data_parallel = 0 takes every rank the other axes leave; otherwise the
     product must equal world_size."""
     dp, sp, mp = cfg.data_parallel, cfg.seq_parallel, cfg.model_parallel
-    if sp > 1:
-        raise NotImplementedError(
-            "seq_parallel > 1 (the seq axis of the mesh) is not ported yet "
-            "(ROADMAP queue 1 item 11)")
-    if dp < 0 or mp < 1:
-        raise ValueError(f"data_parallel={dp} must be >= 0 and "
-                         f"model_parallel={mp} >= 1")
+    if dp < 0 or mp < 1 or sp < 1:
+        raise ValueError(f"data_parallel={dp} must be >= 0, "
+                         f"seq_parallel={sp} and model_parallel={mp} >= 1")
     if dp == 0:
         dp = world_size // (sp * mp)
     if dp * sp * mp != world_size:
@@ -50,7 +50,8 @@ def mesh_shape(cfg: WaveNetConfig, world_size: int) -> Tuple[int, int, int]:
             f"mesh data x seq x model = {dp} x {sp} x {mp} = {dp * sp * mp} "
             f"ranks, but the process group has {world_size} (launch one "
             f"process per rank, e.g. torchrun --nproc_per_node {dp * sp * mp}"
-            f", with --override data_parallel=N equal to the world size)")
+            f", with --override data_parallel=N times seq_parallel times "
+            f"model_parallel equal to the world size)")
     return dp, sp, mp
 
 
@@ -80,51 +81,66 @@ def single_device_mesh(device_type: str = "cpu") -> DeviceMesh:
 
 @dataclass(frozen=True)
 class MeshGroups:
-    """This rank's place on the (data, model) axes of a mesh: the axis
-    sizes, its coordinates, and the sub-groups it reduces over."""
+    """This rank's place on the mesh: the axis sizes, its coordinates, and
+    the sub-groups it reduces over (None for an axis of one rank, or
+    without a process group).  replica is the (data, seq) group: the
+    ranks that hold the same model slice, over which gradients sum."""
     dp: int
     mp: int
     data_index: int
     model_index: int
-    data: dist.ProcessGroup
-    model: dist.ProcessGroup
+    data: Optional[dist.ProcessGroup]
+    model: Optional[dist.ProcessGroup]
+    sp: int = 1
+    seq_index: int = 0
+    seq: Optional[dist.ProcessGroup] = None
+    replica: Optional[dist.ProcessGroup] = None
 
 
-def _check_decode_mesh(mesh: DeviceMesh) -> Tuple[int, int, int]:
+def _check_mesh(mesh: DeviceMesh) -> Tuple[int, int, int]:
     if tuple(mesh.mesh_dim_names or ()) != AXES:
         raise ValueError(f"a mesh with axes {AXES} (make_mesh), not "
                          f"{mesh.mesh_dim_names}")
-    dp, sp, mp = mesh.shape
-    if sp != 1:
-        raise NotImplementedError(
-            "the seq axis is not ported yet (ROADMAP queue 1 item 11)")
-    return dp, sp, mp
+    return tuple(mesh.shape)
+
+
+def _coords(mesh: DeviceMesh):
+    """(the [dp, sp, mp] rank grid, this rank's (data, seq, model))."""
+    dp, sp, mp = _check_mesh(mesh)
+    ranks = mesh.mesh.reshape(dp, sp, mp)
+    where = (ranks == dist.get_rank()).nonzero(as_tuple=True)
+    return ranks, tuple(int(v[0]) for v in where)
 
 
 def mesh_groups(mesh: DeviceMesh) -> MeshGroups:
-    """The mesh's own data and model sub-groups of this rank."""
-    dp, _, mp = _check_decode_mesh(mesh)
-    return MeshGroups(dp, mp, mesh.get_local_rank(DATA_AXIS),
-                      mesh.get_local_rank(MODEL_AXIS),
-                      mesh.get_group(DATA_AXIS), mesh.get_group(MODEL_AXIS))
+    """The mesh's own data, model and seq sub-groups of this rank (no
+    replica group: make one with new_mesh_groups)."""
+    dp, sp, mp = _check_mesh(mesh)
+    _, (d, s, m) = _coords(mesh)
+    return MeshGroups(dp, mp, d, m, mesh.get_group(DATA_AXIS),
+                      mesh.get_group(MODEL_AXIS), sp, s,
+                      mesh.get_group(SEQ_AXIS))
 
 
 def new_mesh_groups(mesh: DeviceMesh) -> MeshGroups:
-    """A fresh set of data and model sub-groups over the mesh's ranks
-    (dist.new_group): every rank must call it, in the same order as every
-    other call that makes groups.  Rank r of a (dp, 1, mp) mesh sits at
-    data index r // mp and model index r % mp, the DeviceMesh's layout."""
-    dp, _, mp = _check_decode_mesh(mesh)
-    ranks = mesh.mesh.reshape(dp, mp).tolist()
+    """A fresh set of data, model, seq and (data, seq) replica sub-groups
+    over the mesh's ranks (dist.new_group): every rank must call it, in
+    the same order as every other call that makes groups."""
+    dp, sp, mp = _check_mesh(mesh)
+    ranks, (d, s, m) = _coords(mesh)
     me = dist.get_rank()
-    data = model = None
-    for m in range(mp):                      # the data axis' groups ...
-        g = dist.new_group([ranks[d][m] for d in range(dp)])
-        if any(ranks[d][m] == me for d in range(dp)):
-            data = g
-    for d in range(dp):                      # ... then the model axis'
-        g = dist.new_group(ranks[d])
-        if me in ranks[d]:
-            model = g
-    return MeshGroups(dp, mp, mesh.get_local_rank(DATA_AXIS),
-                      mesh.get_local_rank(MODEL_AXIS), data, model)
+
+    def axis(perm, size):
+        # every group of the axis (the other coordinates fixed), made in
+        # the same order on every rank; this rank's is kept
+        mine = None
+        for line in ranks.permute(*perm).reshape(-1, size).tolist():
+            g = dist.new_group(line)
+            if me in line:
+                mine = g
+        return mine
+    data = axis((1, 2, 0), dp)
+    model = axis((0, 1, 2), mp)
+    seq = axis((0, 2, 1), sp)
+    replica = axis((2, 0, 1), dp * sp)
+    return MeshGroups(dp, mp, d, m, data, model, sp, s, seq, replica)

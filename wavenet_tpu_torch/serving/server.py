@@ -20,7 +20,11 @@ receives its own waveform chunks as they are produced.
     steps lie after the row's emitted prefix and decode is causal, so a
     batched mel request equals its singleton replay bit for bit.  The
     features stay on the model's device; only the mel frames cross from
-    the host.  Primed requests stay singletons.
+    the host.  Primed requests stay singletons.  A mel model's request
+    without mel takes the batchable lane and decodes with no conditioning
+    term, as the reference's does (its y=None): through the same kernel's
+    unconditional variant, on the model's weights without v_cond
+    (_unconditioned).
   * A speaker-conditioned model takes each request's speaker id (checked
     at submit); speakers are not part of the batching signature, so rows
     of different speakers share a batch (each row's gate offsets are its
@@ -141,6 +145,17 @@ class ResponseStream:
                 else np.zeros((0,), np.float32))
 
 
+def unconditioned(model):
+    """A mel model's weights without the conditioning term: the same
+    tensors (not copies) under the config without mel, less v_cond and the
+    upsampler.  It decodes the mel model with no conditioning term,
+    as the reference decodes a request that brings no mel."""
+    from wavenet_tpu_torch.models.api import WaveNet
+    params = {k: v for k, v in model.params.items()
+              if k not in ("v_cond", "upsampler")}
+    return WaveNet(model.cfg.replace(mel=None), params)
+
+
 class WaveNetServer:
     """Microbatching synthesis engine around a port WaveNet facade.
 
@@ -163,6 +178,7 @@ class WaveNetServer:
                  chunk_seconds: float = 0.5,
                  length_quantum_seconds: float = 0.5, mesh=None):
         self.model = model
+        self._unconditioned = None
         self.cfg = model.cfg
         # the mesh's lanes, made in the same order on every rank
         self._lanes = (None if mesh is None
@@ -242,8 +258,6 @@ class WaveNetServer:
                                "does)")
         if mel is not None:
             mel = self._check_mel(mel, num_samples, prime)
-        elif self.cfg.mel is not None:
-            raise ValueError("a mel-conditioned model needs mel= frames")
         req = _Request(int(num_samples), int(seed), float(temperature),
                        mel, prime, None if speaker is None else int(speaker))
         with self._submit_lock:
@@ -484,7 +498,7 @@ class WaveNetServer:
                                max(P - 1, 0), scan_len)
 
         emitted = [0] * n_real
-        for chunk in self.model.stream(
+        for chunk in self._model_for(y is not None).stream(
                 num_samples=scan_len, chunk_samples=self.chunk_samples,
                 batch=B, seeds=seeds, prime_tokens=prime_tokens,
                 temperature=group[0].temperature, y=y, speaker=speaker):
@@ -498,6 +512,15 @@ class WaveNetServer:
             if all(emitted[i] >= group[i].num_samples
                    for i in range(n_real)):
                 break  # bucket tail serves nobody; stop the scan early
+
+    def _model_for(self, with_mel: bool):
+        """The model a group decodes on: self.model, or for a mel model's
+        group without mel its unconditioned view."""
+        if with_mel or self.cfg.mel is None:
+            return self.model
+        if self._unconditioned is None:
+            self._unconditioned = unconditioned(self.model)
+        return self._unconditioned
 
     def _features(self, mels, nums, rows, span: int, scan_len: int):
         """[len(rows), span + scan_len, M] upsampled features on the
@@ -566,7 +589,7 @@ class WaveNetServer:
                                      range(rows.start, rows.stop), span,
                                      h["scan_len"])
         done = 0
-        for chunk in self.model.stream(
+        for chunk in self._model_for(local_y is not None).stream(
                 num_samples=h["scan_len"], chunk_samples=h["chunk"],
                 batch=h["B"], seeds=h["seeds"], prime_tokens=prime,
                 temperature=h["temperature"], speaker=h["speaker"],

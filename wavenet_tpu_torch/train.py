@@ -42,6 +42,22 @@ the nccl backend for a CUDA device and gloo for the CPU unless
 device twice).  The batch size is the global one; each rank feeds its
 rows.  Only rank 0 logs, writes the metrics file and the checkpoints,
 samples and traces.
+
+The mesh's seq and model axes (world size = data x seq x model):
+
+  torchrun --nproc_per_node 2 -m wavenet_tpu_torch.train --preset full \
+      --synthetic --override seq_parallel=2 --ckpt runs/sp
+  torchrun --nproc_per_node 2 -m wavenet_tpu_torch.train --preset full \
+      --synthetic --override model_parallel=2 \
+      --override pipeline_microbatch=2 --ckpt runs/pp
+
+The route is the reference's (training/trainer.choose_route): seq > 1
+runs overlap-discard on the fused stack when it takes the config, else
+the halo-exchange scan; model > 1 runs the layer pipeline on the stack
+when the stages own whole blocks (num_blocks % model == 0), else the
+Megatron-split scan.  Two ranks on one card need --dist-backend gloo.
+Checkpoints hold the whole model (gathered over `model` before rank 0
+writes), so they load, resume and decode in one process.
 """
 
 from __future__ import annotations
@@ -173,11 +189,11 @@ def _train(args):
             mlog.log(tr.state.step, m)
         return m
 
-    def sample():
+    def sample(params):
         from wavenet_tpu_torch.generate.sampler import generate_wav
         out = os.path.join(args.ckpt, f"sample_step{tr.state.step}.wav")
         speaker = None if cfg.global_classes is None else [0]
-        generate_wav(tr.state.params, cfg, out, args.sample_seconds,
+        generate_wav(params, cfg, out, args.sample_seconds,
                      device=tr.device, speaker=speaker)
         print(f"wrote {out}", file=sys.stderr)
 
@@ -199,8 +215,12 @@ def _train(args):
             n = min(chunk, args.steps - done)
             metrics = run_chunk(n)
             done += n
-            if sample_every and done % sample_every == 0 and primary:
-                sample()
+            if sample_every and done % sample_every == 0:
+                # the whole params: a gather over `model` on every rank of
+                # a model-split mesh
+                params = tr.full_params()
+                if primary:
+                    sample(params)
             if args.eval_every and done % args.eval_every == 0:
                 metrics.update(run_eval())
         return metrics

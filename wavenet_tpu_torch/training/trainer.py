@@ -1,9 +1,8 @@
-"""Training on one device, or data-parallel over processes: the optimizer,
-the train step and `Trainer`.
+"""Training on one device, or over a mesh of processes: the optimizer, the
+train step and `Trainer`.
 
-Counterpart of wavenet_tpu/training/trainer.py on the data axis of its
-mesh (the seq and model axes are not ported).  The
-optimizer follows optax exactly, written as plain tensor code:
+Counterpart of wavenet_tpu/training/trainer.py over its (data, seq, model)
+mesh.  The optimizer follows optax exactly, written as plain tensor code:
   * adam(lr_schedule, b1, b2): eps = 1e-8 outside the square root, bias
     corrections 1 - b^count with count incremented first, and the schedule
     read at the count BEFORE the increment (so warmup's first step uses
@@ -35,6 +34,24 @@ sees the global norm as in the reference; the metrics are global.  Every
 rank starts from rank 0's params (one broadcast) and applies the same
 update, and each save first checks that the replicas are still equal.
 Only rank 0 writes checkpoints; every rank restores the same file.
+The seq and model axes take the reference's routes (choose_route,
+trainer.py:73-113 there), decided by device where the reference decides
+by backend (on the CPU the stack's plain versions stand in for the
+kernels, so every route runs there):
+  * seq > 1: overlap-discard through the fused stack when it takes the
+    config (parallel/seqpar.loss_fn_sp_fused), else the scan with one halo
+    exchange a layer (loss_fn_sp); each rank takes its (data, seq) slice
+    of the batch (parallel/sharding.batch_slice);
+  * model > 1, fused-eligible: the layer pipeline on the stack
+    (parallel/pipeline.loss_fn_pp), params in the "layer" layout;
+  * model > 1 otherwise (and under seq): the scan split Megatron-style
+    (parallel/megatron.py), params in the "megatron" layout.
+Each rank holds its slice of the params, of Adam's moments and of the EMA;
+gradients sum over the (data, seq) replicas (and, on the pipeline, the
+replicated leaves each stage holds a part of over `model`); the clip and
+grad_norm see the whole model's norm.  Saves gather the slices over
+`model` first, so a checkpoint written on a mesh is the whole model: it
+loads and decodes in one process, and a resume cuts it again.
 The state holds params, optimizer moments and EMA as flat
 leaves under '/'-joined names ("upsampler/w0"), the model's nested params
 rebuilt for each loss call; JAX's optax walks the same leaves in the same
@@ -54,7 +71,9 @@ from wavenet_tpu_torch.audio.streaming import StreamingAudioDataset
 from wavenet_tpu_torch.config import WaveNetConfig
 from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops.cuda import train_stack
+from wavenet_tpu_torch.parallel import collectives as col
 from wavenet_tpu_torch.parallel import dataparallel, distributed
+from wavenet_tpu_torch.parallel import megatron, pipeline, seqpar, sharding
 from wavenet_tpu_torch.parallel import mesh as mesh_lib
 from wavenet_tpu_torch.training.metrics import ThroughputMeter
 from wavenet_tpu_torch.utils.pytree_io import flatten_tree, unflatten_tree
@@ -118,9 +137,13 @@ class Optimizer:
     """The reference's make_optimizer(cfg) as plain tensor code.  State is
     a dict of tensors and ints (torch.save-able); update() is functional."""
 
-    def __init__(self, cfg: WaveNetConfig):
+    def __init__(self, cfg: WaveNetConfig, norm=None):
+        """norm: tree -> the global norm the clip and the metrics use
+        (default _global_norm; a sharded trainer passes one that adds the
+        other ranks' slices)."""
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
+        self.norm = norm or _global_norm
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         z = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
@@ -133,7 +156,7 @@ class Optimizer:
         """clip + adam + lr on gradient tree g; returns (params, state)."""
         cfg = self.cfg
         if cfg.grad_clip_norm is not None:
-            norm = _global_norm(g)
+            norm = self.norm(g)
             if not bool(norm < cfg.grad_clip_norm):
                 g = {k: (v / norm) * cfg.grad_clip_norm for k, v in g.items()}
         b1, b2 = cfg.adam_b1, cfg.adam_b2
@@ -155,12 +178,12 @@ class Optimizer:
         k = self.cfg.grad_accum
         if k == 1:
             p, s = self._apply(grads, state, params)
-            return p, s, True, {"grad_norm": _global_norm(grads)}
+            return p, s, True, {"grad_norm": self.norm(grads)}
         n = state["mini_step"]
         acc = {key: a + (grads[key] - a) / float(n + 1)
                for key, a in state["acc_grads"].items()}
-        norms = {"grad_norm": _global_norm(acc),
-                 "microbatch_grad_norm": _global_norm(grads)}
+        norms = {"grad_norm": self.norm(acc),
+                 "microbatch_grad_norm": self.norm(grads)}
         if n < k - 1:
             return params, dict(state, mini_step=n + 1, acc_grads=acc), \
                 False, norms
@@ -170,8 +193,8 @@ class Optimizer:
         return p, s, True, norms
 
 
-def make_optimizer(cfg: WaveNetConfig) -> Optimizer:
-    return Optimizer(cfg)
+def make_optimizer(cfg: WaveNetConfig, norm=None) -> Optimizer:
+    return Optimizer(cfg, norm)
 
 
 def ema_update(ema, params, decay: float):
@@ -183,17 +206,49 @@ Dataset = Union[AudioDataset, StreamingAudioDataset]
 
 
 def _check_parallel(cfg: WaveNetConfig) -> None:
-    """Refuse what the trainer does not take: the seq and model axes
-    (NotImplementedError; the model axis decodes and serves, but its
-    training half is not ported) and a data axis other than the process
-    group's world size (ValueError)."""
+    """Refuse a mesh other than the process group's world size
+    (ValueError)."""
     wn.check_trainable(cfg)
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            "training over the model axis (model_parallel > 1: the "
-            "sharded scan and the pipelined stack) is not ported yet "
-            "(ROADMAP queue 1 item 11); decode and serving take it")
     mesh_lib.mesh_shape(cfg, distributed.world_size())
+
+
+# the routes of a step, and the param layout over `model` each takes
+ROUTE_LAYOUT = {"dp": None, "sp": "megatron", "sp_fused": None,
+                "pp": "layer", "tp": "megatron"}
+
+
+def use_pipeline(cfg: WaveNetConfig) -> bool:
+    """The fused stack under model sharding is the layer pipeline (the
+    reference's use_pipeline, without its backend test)."""
+    return (cfg.fused_stack and cfg.model_parallel > 1
+            and cfg.seq_parallel == 1
+            and cfg.batch_size % max(cfg.data_parallel, 1) == 0
+            and pipeline.supported(cfg, cfg.train_window,
+                                   cfg.model_parallel))
+
+
+def choose_route(cfg: WaveNetConfig, device) -> str:
+    """The step's route over the mesh, as the reference picks it
+    (trainer.py:73-113 there): "sp_fused" (overlap-discard on the stack),
+    "sp" (the halo-exchange scan, Megatron-split under a model axis),
+    "pp" (the stack as a layer pipeline), "tp" (the Megatron-split scan)
+    or "dp" (one device's step on the rank's rows).  On a CUDA device a
+    fused route whose widths the kernels refuse raises
+    NotImplementedError; it does not fall back to the scan."""
+    sp, mp = cfg.seq_parallel, cfg.model_parallel
+    route = "dp"
+    if sp > 1:
+        fused = (cfg.fused_stack and mp == 1 and seqpar.sp_fused_supported(
+            cfg, cfg.train_window, sp))
+        route = "sp_fused" if fused else "sp"
+    elif mp > 1:
+        route = "pp" if use_pipeline(cfg) else "tp"
+    if route in ("sp_fused", "pp") and torch.device(device).type == "cuda":
+        train_stack.check_kernel_supported(cfg)
+    layout = ROUTE_LAYOUT[route]
+    if layout is not None and mp > 1:
+        sharding.validate(cfg, mp, layout)
+    return route
 
 
 def use_fused_stack(cfg: WaveNetConfig, T: int, device) -> bool:
@@ -214,12 +269,12 @@ def _leaves(params) -> Dict[str, torch.Tensor]:
 
 
 class Trainer:
-    """Training on one device, or on this rank's device of a data-parallel
-    process group: deterministic data, the train step, eval, and
-    exact-resume checkpoints.  dataset: an AudioDataset or a
-    StreamingAudioDataset.  params: optional initial params (e.g. carried
-    over from the JAX package); default: init_params seeded by cfg.seed.
-    Under a process group every rank starts from rank 0's."""
+    """Training on one device, or on this rank's device of a mesh of
+    processes: deterministic data, the train step, eval, and exact-resume
+    checkpoints.  dataset: an AudioDataset or a StreamingAudioDataset.
+    params: optional initial params (e.g. carried over from the JAX
+    package); default: init_params seeded by cfg.seed.  Under a process
+    group every rank starts from rank 0's (its slice of them)."""
 
     def __init__(self, cfg: WaveNetConfig, dataset: Dataset,
                  checkpoint_dir: Optional[str] = None, device="cuda",
@@ -228,9 +283,14 @@ class Trainer:
         self.cfg = cfg
         self.dataset = dataset
         self.device = torch.device(device)
-        self.use_fused = use_fused_stack(cfg, cfg.train_window, self.device)
-        # the data axis' group and this rank's rows (None: one process)
-        self.mesh = self.group = self.rows = None
+        self.route = choose_route(cfg, self.device)
+        self.layout = ROUTE_LAYOUT[self.route] \
+            if cfg.model_parallel > 1 else None
+        self.use_fused = (self.route == "dp" and use_fused_stack(
+            cfg, cfg.train_window, self.device))
+        # the data axis' group and this rank's rows (None: one process);
+        # off the data-only route, this rank's MeshGroups
+        self.mesh = self.group = self.rows = self.groups = None
         if dist.is_initialized():
             if self.device.type == "cuda":
                 # the mesh would otherwise bind cuda:LOCAL_RANK (two ranks
@@ -238,15 +298,23 @@ class Trainer:
                 torch.cuda.set_device(self.device)
             self.mesh = mesh_lib.make_mesh(cfg, self.device.type)
             self.group = self.mesh.get_group(mesh_lib.DATA_AXIS)
-            if distributed.world_size() > 1:
+            if self.route != "dp":
+                self.groups = mesh_lib.new_mesh_groups(self.mesh)
+                b = cfg.batch_size // self.groups.dp
+                i = self.groups.data_index
+                self.rows = slice(i * b, (i + 1) * b)
+            elif distributed.world_size() > 1:
                 self.rows = distributed.local_batch_slice(cfg.batch_size)
         if params is None:
             params = wn.init_params(
                 cfg, torch.Generator().manual_seed(cfg.seed), self.device)
-        params = _leaves(dataparallel.broadcast_params(
+        params = dataparallel.broadcast_params(
             {k: torch.as_tensor(v).to(self.device)
-             for k, v in flatten_tree(params).items()}, self.group))
-        self.tx = make_optimizer(cfg)
+             for k, v in flatten_tree(params).items()},
+            self.group if self.groups is None else None)
+        params = _leaves(self._shard(params))
+        self.tx = make_optimizer(cfg, None if self.layout is None
+                                 else self._sharded_norm)
         ema = ({k: v.detach().clone() for k, v in params.items()}
                if cfg.ema_decay is not None else None)
         self.state = TrainState(params, self.tx.init(params), 0, ema)
@@ -259,22 +327,98 @@ class Trainer:
                                           writer=distributed.is_primary())
 
     # ------------------------------------------------------------------
+    # the model axis: slices of the whole params and back
+    def _model_axis(self) -> col.Axis:
+        return col.axis_of(self.groups, "model")
+
+    def _shard(self, tree: Dict[str, torch.Tensor]):
+        """This rank's slice of whole flat leaves (the route's layout)."""
+        if self.layout is None:
+            return tree
+        ax = self._model_axis()
+        return sharding.shard_params(tree, self.cfg, ax.size, ax.index,
+                                     self.layout)
+
+    def _gather(self, tree: Dict[str, torch.Tensor]):
+        """The whole flat leaves of this rank's slices (every rank calls
+        it: an all-gather over `model` per split leaf)."""
+        if self.layout is None:
+            return tree
+        ax = self._model_axis()
+        return sharding.gather_params(tree, self.cfg, ax.size, ax.group,
+                                      self.layout)
+
+    def _sharded_norm(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The whole model's global norm from this rank's slices: the
+        replicated leaves' squares here, the split leaves' summed over
+        `model`."""
+        def ss(keys):
+            total = torch.zeros((), device=self.device)
+            for k in keys:
+                total = total + torch.sum(tree[k] * tree[k])
+            return total
+        keys = sorted(tree)
+        split = [k for k in keys
+                 if sharding.split_dim(k, self.layout) is not None]
+        part = col.all_reduce(ss(split), self._model_axis().group)
+        return torch.sqrt(ss([k for k in keys if k not in split]) + part)
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The whole current params (flat leaves); on a model-split mesh
+        every rank must call it."""
+        return self._gather({k: v.detach()
+                             for k, v in self.state.params.items()})
+
+    # ------------------------------------------------------------------
+    def _loss(self, params, tokens, mel, speaker):
+        """(this rank's loss share, global metrics) through the route."""
+        cfg, route = self.cfg, self.route
+        if route == "dp":
+            return dataparallel.loss_fn_dp(
+                params, cfg, tokens, mel=mel, use_fused=self.use_fused,
+                speaker=speaker, group=self.group)
+        if route == "pp":
+            return pipeline.loss_fn_pp(params, cfg, self.groups, tokens,
+                                       mel=mel, speaker=speaker,
+                                       microbatch=cfg.pipeline_microbatch)
+        if route == "tp":
+            return megatron.loss_fn_tp(params, cfg, self.groups, tokens,
+                                       mel=mel, speaker=speaker)
+        g = self.groups
+        part = sharding.batch_slice({"tokens": tokens}, 1, g.sp, 0,
+                                    g.seq_index, seq_sharded=True)
+        fn = seqpar.loss_fn_sp_fused if route == "sp_fused" \
+            else seqpar.loss_fn_sp
+        return fn(params, cfg, g, part["inputs"], part["targets"], mel=mel,
+                  speaker=speaker)
+
+    def _reduce(self, grads: Dict[str, torch.Tensor]):
+        """Sum the gradients over the ranks that share each leaf."""
+        if self.groups is None:
+            return dataparallel.reduce_gradients(grads, self.group)
+        if self.route == "pp":
+            part = {k: v for k, v in grads.items()
+                    if pipeline.model_partial(k)}
+            grads = dict(grads, **dataparallel.reduce_gradients(
+                part, self.groups.model))
+        return dataparallel.reduce_gradients(grads, self.groups.replica)
+
     def step(self, tokens: torch.Tensor,
              mel: Optional[torch.Tensor] = None,
              speaker: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
         """One optimizer step (or accumulation microstep) on [B, W+1]
         tokens (and a mel model's [B, F, M] frames, a speaker model's [B]
-        ids), this rank's rows under data parallelism; returns the
-        (global) metrics as 0-d tensors (not fetched)."""
+        ids), this rank's rows on a mesh (its time slice is cut here on
+        the seq routes); returns the (global) metrics as 0-d tensors (not
+        fetched)."""
         cfg, st = self.cfg, self.state
-        loss, aux = dataparallel.loss_fn_dp(
-            unflatten_tree(st.params), cfg, tokens, mel=mel,
-            use_fused=self.use_fused, speaker=speaker, group=self.group)
+        loss, aux = self._loss(unflatten_tree(st.params), tokens, mel,
+                               speaker)
         keys = sorted(st.params)
         grads = dict(zip(keys, torch.autograd.grad(
             loss, [st.params[k] for k in keys])))
-        grads = dataparallel.reduce_gradients(grads, self.group)
+        grads = self._reduce(grads)
         with torch.no_grad():
             params, opt_state, applied, norms = self.tx.update(
                 grads, st.opt_state, st.params)
@@ -365,10 +509,8 @@ class Trainer:
             for _ in range(num_batches):
                 batch, it = self._sample(ds, it)
                 tokens, mel, speaker = self._batch(batch)
-                _, aux = dataparallel.loss_fn_dp(
-                    unflatten_tree(self.state.params), self.cfg, tokens,
-                    mel=mel, use_fused=self.use_fused, speaker=speaker,
-                    group=self.group)
+                _, aux = self._loss(unflatten_tree(self.state.params),
+                                    tokens, mel, speaker)
                 for k, v in aux.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
         return {f"eval_{k}": v / num_batches for k, v in sums.items()}
@@ -379,23 +521,28 @@ class Trainer:
         every rank); wait=False returns once the state's host copy is
         taken (the file lands in the background).  Under a process group
         every rank calls it: the replicas are checked equal, and rank 0
-        writes."""
+        writes.  On a model-split mesh the slices are gathered first: the
+        file holds the whole params, moments and EMA."""
         if self.ckpt is None:
             raise ValueError("no checkpoint_dir was given")
         st = self.state
-        dataparallel.check_replicas(st.params, self.group)
+        opt = self._map_opt(st.opt_state, self._gather)
+        params = self._gather(st.params)
+        ema = None if st.ema is None else self._gather(st.ema)
+        dataparallel.check_replicas(
+            params, self.group if self.groups is None else None)
         if self.ckpt.writer:
-            self.ckpt.save(st.step, {"params": st.params,
-                                     "opt_state": st.opt_state,
-                                     "ema": st.ema},
+            self.ckpt.save(st.step, {"params": params, "opt_state": opt,
+                                     "ema": ema},
                            self.iter_state, wait=wait)
         if wait:
             self._barrier()
 
     def _barrier(self) -> None:
-        """Under a process group: wait until every rank gets here."""
+        """Under a process group: wait until every rank gets here (every
+        rank of the mesh, not only of the data axis)."""
         if self.group is not None:
-            dist.barrier(group=self.group)
+            dist.barrier(group=self.group if self.groups is None else None)
 
     def restore(self, step: Optional[int] = None) -> TrainState:
         """Load a checkpoint (the latest by default) into the trainer.  An
@@ -404,11 +551,19 @@ class Trainer:
         if self.ckpt is None:
             raise ValueError("no checkpoint_dir was given")
         raw, self.iter_state = self.ckpt.restore(step, self.device)
-        params = _leaves(raw["params"])
+        params = _leaves(self._shard(raw["params"]))
         ema = None
         if self.cfg.ema_decay is not None:
-            ema = raw.get("ema") or {k: v.detach().clone()
-                                     for k, v in params.items()}
-        self.state = TrainState(params, raw["opt_state"], int(raw["step"]),
-                                ema)
+            ema = raw.get("ema")
+            ema = ({k: v.detach().clone() for k, v in params.items()}
+                   if not ema else self._shard(ema))
+        self.state = TrainState(params,
+                                self._map_opt(raw["opt_state"], self._shard),
+                                int(raw["step"]), ema)
         return self.state
+
+    @staticmethod
+    def _map_opt(opt_state: dict, fn) -> dict:
+        """opt_state with fn applied to each of its param-shaped trees."""
+        return {k: fn(v) if isinstance(v, dict) else v
+                for k, v in opt_state.items()}
