@@ -23,7 +23,9 @@ streaming dataset) and data-parallel training at `full` under torchrun
 decode kernels fanned out over the data axis, the collective loop over
 the model axis (phase 18), and training at `full` over the mesh's seq
 axis (overlap-discard) and model axis (the layer pipeline) on the stack
-kernels (phase 19).  Any failed check
+kernels (phase 19), and deployment artifacts (serving/aot.py) exported
+through the generate CLI's --export-aot, loaded in fresh processes and
+timed from a cold start (phase 20).  Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -209,15 +211,33 @@ Phases (one line of numbers each):
      rank records them); the run's final checkpoint (gathered whole
      before rank 0 writes) loads in this process through
      WaveNet.from_checkpoint and decodes 800 samples there.
-The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16) set
-every kernel's count to 0 right before and read them right after; phases
-17, 18 and 19's rank processes start theirs at 0 and report them at exit
-(or set them to 0 before the path they time).
+ 20. deployment artifacts (serving/aot.py): (a) `full`, 1 s, B = 4,
+     through the generate CLI's --export-aot from a checkpoint of the
+     seeded random weights, (b) `fastgen_bench` B = 64 (the narrow
+     kernel), (c) `full_vocoder` B = 4 with a static 63-frame mel, (d)
+     `full` + 109 speakers B = 4, each exported (no kernel launched) and
+     loaded with load_decoder(device="cuda") in one fresh process that
+     never imports models/api.py: tokens equal to the facade's generate
+     at the same seed bit for bit, one launch of the variant's counter per
+     call, ms per step beside the facade's (each the second of two
+     calls); (e) a 64-sample B = 1 export decoded on the CPU (the program
+     moved off the card) equal to the card's; (f) cold start, seconds
+     from a fresh process to the first tokens through load_decoder and
+     through WaveNet.from_checkpoint + generate (build cache warm), and
+     through load_decoder of (e)'s artifact with --compile-cache at an
+     empty directory (the decode_wide build included; this process runs
+     beside the rest of the phase), each split into start, imports and
+     CUDA context, load, first call.
+The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16, 20)
+set every kernel's count to 0 right before and read them right after;
+phases 17, 18 and 19's rank processes start theirs at 0 and report them at
+exit (or set them to 0 before the path they time).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -274,6 +294,8 @@ MESH_SERVE_SECONDS = (0.25, 0.1, 0.2, 0.15)
 SEQMODEL_STEPS, SEQMODEL_MICROBATCH, SEQMODEL_DECODE = 3, 2, 800
 SEQMODEL_LOSS_TOL, SEQMODEL_GRAD_TOL = 2e-3, 2e-2
 MESH_FAST_BATCH, MESH_FAST_SECONDS = 64, 0.25
+# phase 20: artifact length, seed, the CPU load's length, a worker's limit
+AOT_SECONDS, AOT_SEED, AOT_CPU_SAMPLES, AOT_TIMEOUT_S = 1.0, 17, 64, 300
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -2476,6 +2498,308 @@ def phase_seqmodel(ts, dev, card: str, single: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 20: deployment artifacts (serving/aot.py) and the kernel build cache
+
+_AOT_WORKER = ("import sys; sys.path.insert(0, sys.argv[1]); "
+               "import chip_smoke; "
+               "sys.exit(chip_smoke.aot_worker(sys.argv[2:]))")
+
+
+def aot_worker(argv) -> int:
+    """Phase 20's fresh process: loads each artifact of --spec (a JSON
+    list) with load_decoder and decodes it `calls` times, the counts set
+    to 0 before the first call and read after the last; or, for a spec of
+    kind "facade", WaveNet.from_checkpoint plus generate.  Prints one line
+    "AOT_WORKER {json}": per spec its seconds, counts and ms per step, the
+    wall clock (time.time()) on entry, once the device is ready, after
+    the first load and at the first tokens on the host, and whether
+    models/api.py was imported."""
+    marks = {"entered": time.time()}
+    import argparse
+
+    import numpy as np
+    import torch
+    from wavenet_tpu_torch.utils import compcache
+    p = argparse.ArgumentParser()
+    p.add_argument("--spec", required=True)
+    p.add_argument("--out", required=True)
+    compcache.add_cli_flag(p)
+    args = p.parse_args(argv)
+    compcache.enable_from_args(args)
+    from wavenet_tpu_torch.ops.cuda import decode as pnarrow
+    from wavenet_tpu_torch.ops.cuda import decode_wide as pwide
+    register_counters(pnarrow, pwide)
+    specs = json.loads(args.spec)
+    if specs[0]["device"] == "cuda":
+        torch.zeros(1, device="cuda")            # the CUDA context
+    marks["ready"] = time.time()
+    results = {}
+    for spec in specs:
+        t = time.monotonic()
+        if spec.get("kind") == "facade":
+            from wavenet_tpu_torch.models.api import WaveNet
+            model = WaveNet.from_checkpoint(spec["ckpt"],
+                                            device=spec["device"])
+            run = functools.partial(
+                model.generate, num_samples=spec["num_samples"],
+                batch=spec["batch"], seed=spec["seed"])
+            n = spec["num_samples"]
+        else:
+            from wavenet_tpu_torch.serving import load_decoder
+            dec = load_decoder(spec["path"], device=spec["device"])
+            mel = None if spec.get("mel") is None else np.load(spec["mel"])
+            run = functools.partial(dec.generate, seed=spec["seed"], mel=mel,
+                                    speaker=spec.get("speaker"))
+            n = dec.num_samples
+        load_s = time.monotonic() - t
+        marks.setdefault("loaded", time.time())
+        reset_counts()
+        call_s, toks = [], None
+        for _ in range(spec["calls"]):
+            t = time.monotonic()
+            toks = run().cpu()                   # read back: synchronised
+            call_s.append(time.monotonic() - t)
+            marks.setdefault("first_tokens", time.time())
+        if toks is not None:
+            np.save(os.path.join(args.out, spec["name"] + ".npy"),
+                    toks.numpy())
+        results[spec["name"]] = {
+            "load_s": load_s, "call_s": call_s,
+            "ms_per_step": 1e3 * call_s[-1] / n if call_s else None,
+            "counts": {k: c.value for k, c in COUNTERS.items() if c.value}}
+    results["marks"] = marks
+    results["facade_imported"] = "wavenet_tpu_torch.models.api" in sys.modules
+    print("AOT_WORKER " + json.dumps(results), flush=True)
+    return 0
+
+
+class _AotProcess:
+    """aot_worker in a fresh process (the leader of its own process group),
+    started at construction.  result() waits for it and returns (its
+    results, seconds from the spawn to its first tokens, those seconds
+    split into the interpreter's start, imports and the CUDA context, the
+    first load and the first call); close() kills it if it still runs."""
+
+    def __init__(self, specs, out: str, *extra):
+        self.spawned = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _AOT_WORKER, ROOT, "--spec",
+             json.dumps(specs), "--out", out, *extra], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+    def result(self) -> tuple:
+        try:
+            text, _ = self.proc.communicate(timeout=AOT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.close()
+            raise AssertionError(f"phase 20: a worker ran past "
+                                 f"{AOT_TIMEOUT_S} s")
+        check(self.proc.returncode == 0, f"phase 20: a worker exited "
+                                         f"{self.proc.returncode}:\n"
+                                         f"{text[-4000:]}")
+        line = [ln for ln in text.splitlines()
+                if ln.startswith("AOT_WORKER ")]
+        check(len(line) == 1, f"phase 20: the worker printed no result:\n"
+                              f"{text[-4000:]}")
+        res = json.loads(line[0][len("AOT_WORKER "):])
+        m = res["marks"]
+        split = {"start_s": m["entered"] - self.spawned,
+                 "imports_and_context_s": m["ready"] - m["entered"],
+                 "load_s": m["loaded"] - m["ready"],
+                 "first_call_s": m["first_tokens"] - m["loaded"]}
+        return res, m["first_tokens"] - self.spawned, split
+
+    def close(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.communicate()
+
+
+def _aot_checks(dev, ck: str, paths: dict, tmp: str, out: str) -> tuple:
+    """Phase 20 (a)-(e) and (f) (i)-(ii): the library exports, the
+    facade's tokens and times, one fresh process loading every artifact,
+    and one fresh process through WaveNet.from_checkpoint.  Returns (the
+    numbers by artifact, (i)'s seconds and split, (ii)'s)."""
+    import numpy as np
+    import torch
+    from wavenet_tpu_torch.config import fastgen_bench, full, full_vocoder
+    from wavenet_tpu_torch.generate.sampler import kernel_module
+    from wavenet_tpu_torch.models import wavenet as wn
+    from wavenet_tpu_torch.models.api import WaveNet
+    from wavenet_tpu_torch.serving import export_decoder
+    gen = torch.Generator
+    names = {"a": "full", "b": "fastgen_bench", "c": "full_vocoder",
+             "d": f"full+{SPEAKERS} speakers"}
+    models = {"a": (WaveNet.from_checkpoint(ck, device=dev), B, {})}
+    fcfg = fastgen_bench()
+    models["b"] = (WaveNet(fcfg, wn.init_params(
+        fcfg, gen().manual_seed(0), dev)), NARROW_B, {})
+    vcfg = full_vocoder()
+    frames = -(-int(AOT_SECONDS * vcfg.sample_rate) // vcfg.mel.hop_length)
+    mel = np.random.RandomState(20).normal(
+        size=(B, frames, vcfg.mel.num_mels)).astype(np.float32)
+    np.save(os.path.join(tmp, "mel.npy"), mel)
+    models["c"] = (WaveNet(vcfg, wn.init_params(
+        vcfg, gen().manual_seed(0), dev)), B, {"mel": mel})
+    scfg = full().replace(global_classes=SPEAKERS)
+    ids = [(37 * i + 5) % SPEAKERS for i in range(B)]
+    models["d"] = (WaveNet(scfg, wn.init_params(
+        scfg, gen().manual_seed(0), dev)), B, {"speaker": ids})
+    reset_counts()
+    for k in "bcd":
+        m, batch, _ = models[k]
+        export_decoder(m.params, m.cfg, paths[k],
+                       num_samples=int(AOT_SECONDS * m.cfg.sample_rate),
+                       batch=batch)
+    check_only([], "phase 20 export")
+
+    facade = {}
+    for k, (m, batch, kw) in models.items():
+        n = int(AOT_SECONDS * m.cfg.sample_rate)
+        seconds = []
+        for _ in range(2):
+            t = time.monotonic()
+            want = m.generate(num_samples=n, batch=batch, seed=AOT_SEED,
+                              **kw).cpu().numpy()
+            seconds.append(time.monotonic() - t)
+        facade[k] = (want, 1e3 * seconds[-1] / n)
+    e_want = models["a"][0].generate(num_samples=AOT_CPU_SAMPLES, batch=1,
+                                     seed=AOT_SEED).cpu().numpy()
+
+    specs = [{"name": k, "path": paths[k], "device": dev.type,
+              "seed": AOT_SEED, "calls": 2,
+              "mel": os.path.join(tmp, "mel.npy") if k == "c" else None,
+              "speaker": ids if k == "d" else None} for k in "abcd"]
+    specs += [{"name": "e_cuda", "path": paths["e"], "device": dev.type,
+               "seed": AOT_SEED, "calls": 1},
+              {"name": "e_cpu", "path": paths["e"], "device": "cpu",
+               "seed": AOT_SEED, "calls": 1},
+              {"name": "a_cpu", "path": paths["a"], "device": "cpu",
+               "seed": AOT_SEED, "calls": 0}]
+    res, cold_aot, split_aot = _AotProcess(specs, out).result()
+    check(not res["facade_imported"],
+          "phase 20: loading an artifact imported models/api.py")
+    numbers = {}
+    for k, (m, batch, _) in models.items():
+        n = int(AOT_SECONDS * m.cfg.sample_rate)
+        got = np.load(os.path.join(out, f"{k}.npy"))
+        check(got.shape == (batch, n) and np.array_equal(got, facade[k][0]),
+              f"phase 20 ({k}): the artifact's tokens differ from the "
+              f"facade's")
+        counter = counter_name(kernel_module(m.cfg, dev), m.cfg)
+        check(res[k]["counts"] == {counter: 2},
+              f"phase 20 ({k}): two artifact calls launched "
+              f"{res[k]['counts']}, expected {{{counter!r}: 2}}")
+        numbers[k] = {"model": names[k], "batch": batch, "kernel": counter,
+                      "launches_per_call":
+                          res[k]["counts"].get(counter, 0) / 2,
+                      "artifact_ms_per_step": res[k]["ms_per_step"],
+                      "facade_ms_per_step": facade[k][1],
+                      "artifact_load_s": res[k]["load_s"],
+                      "artifact_first_call_s": res[k]["call_s"][0]}
+    e_cpu = np.load(os.path.join(out, "e_cpu.npy"))
+    e_cuda = np.load(os.path.join(out, "e_cuda.npy"))
+    check(np.array_equal(e_cpu, e_cuda) and np.array_equal(e_cuda, e_want),
+          "phase 20 (e): the CPU load's tokens differ from the card's")
+    check(not res["e_cpu"]["counts"] and res["e_cuda"]["counts"] ==
+          {"decode_wide.launches": 1} and not res["a_cpu"]["counts"],
+          f"phase 20 (e): launches {res['e_cpu']['counts']} (cpu), "
+          f"{res['e_cuda']['counts']} (cuda)")
+
+    _, cold_facade, split_facade = _AotProcess(
+        [{"name": "f", "kind": "facade", "ckpt": ck, "seed": AOT_SEED,
+          "device": dev.type,
+          "num_samples": int(AOT_SECONDS * models["a"][0].cfg.sample_rate),
+          "batch": B, "calls": 1}], out).result()
+    check(np.array_equal(np.load(os.path.join(out, "f.npy")),
+                         np.load(os.path.join(out, "a.npy"))),
+          "phase 20 (f): the facade process's tokens differ")
+    return numbers, cold_aot, split_aot, cold_facade, split_facade
+
+
+def phase_aot(dev, card: str) -> dict:
+    """Phase 20: deployment artifacts.  (a) `full` at AOT_SECONDS, B = 4,
+    exported through the generate CLI's --export-aot from a checkpoint of
+    the seeded random weights; (b) `fastgen_bench` at B = 64 (the narrow
+    kernel), (c) `full_vocoder` with a static mel covering AOT_SECONDS and
+    (d) `full` with SPEAKERS speakers, exported by export_decoder.  One
+    fresh process loads each with load_decoder(device="cuda") and decodes
+    it twice: tokens equal to the facade's generate at the same seed bit
+    for bit, one launch of the right kernel variant per call, ms per step
+    beside the facade's (each the second of two calls), models/api.py
+    never imported.  (e) a 64-sample B = 1 export of (a)'s checkpoint
+    decoded on the CPU (load_decoder(device="cpu"), the program moved off
+    the card) and on the card: equal; (a)'s artifact passes the CPU
+    platform check.  (f) cold start, seconds from a fresh process to the
+    first tokens: (i) load_decoder (the first process above), (ii)
+    WaveNet.from_checkpoint + generate, both with the build cache warm,
+    (iii) load_decoder of (e)'s artifact with --compile-cache at an empty
+    directory (the decode_wide build included), a process that runs
+    beside all of the above, so the phase does not wait for its nvcc."""
+    import numpy as np
+    import torch
+    from wavenet_tpu_torch.config import full
+    from wavenet_tpu_torch.generate import __main__ as generate
+    from wavenet_tpu_torch.models import wavenet as wn
+    from wavenet_tpu_torch.models.api import WaveNet
+    phase_t = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ckpt")
+        cfg = full()
+        WaveNet(cfg, wn.init_params(cfg, torch.Generator().manual_seed(0),
+                                    dev)).save(ck)
+        paths = {k: os.path.join(tmp, f"{k}.wnx") for k in "abcde"}
+        reset_counts()                           # the export launches nothing
+        generate.main(["--ckpt", ck, "--seconds", str(AOT_SECONDS),
+                       "--batch", str(B), "--export-aot", paths["a"],
+                       "--device", str(dev)])
+        generate.main(["--ckpt", ck, "--seconds",
+                       str(AOT_CPU_SAMPLES / cfg.sample_rate), "--batch",
+                       "1", "--export-aot", paths["e"], "--device",
+                       str(dev)])
+        check_only([], "phase 20 export")
+        out = os.path.join(tmp, "out")
+        os.makedirs(out)
+        empty = os.path.join(tmp, "empty_cache")
+        # (iii): nvcc builds decode_wide into an empty cache while the rest
+        # of the phase runs beside it (its one decode: 64 steps of one row)
+        build = _AotProcess([{"name": "e_cold", "path": paths["e"],
+                              "device": dev.type, "seed": AOT_SEED,
+                              "calls": 1}], out, "--compile-cache", empty)
+        try:
+            numbers, cold_aot, split_aot, cold_facade, split_facade = \
+                _aot_checks(dev, ck, paths, tmp, out)
+            cold, cold_build, split_build = build.result()
+        finally:
+            build.close()
+        built = sorted(os.listdir(empty))
+        check(len(built) == 1 and built[0].startswith("libdecode_wide-"),
+              f"phase 20 (f): the empty cache holds {built}")
+        check(cold["e_cold"]["counts"] == {"decode_wide.launches": 1},
+              f"phase 20 (f): launches {cold['e_cold']['counts']}")
+        check(np.array_equal(np.load(os.path.join(out, "e_cold.npy")),
+                             np.load(os.path.join(out, "e_cuda.npy"))),
+              "phase 20 (f): the empty cache's tokens differ")
+    cold_start = {"load_decoder_s": cold_aot, "split": split_aot,
+                  "from_checkpoint_s": cold_facade, "split_facade":
+                  split_facade, "load_decoder_empty_cache_s": cold_build,
+                  "split_empty_cache": split_build}
+    print(f"phase 20 aot: artifacts vs the facade at seed {AOT_SEED}, "
+          f"{AOT_SECONDS} s each (full B={B}, fastgen_bench B={NARROW_B}, "
+          f"full_vocoder B={B} with a static mel, full + {SPEAKERS} "
+          f"speakers B={B}): tokens_equal=True "
+          f"facade_imported_in_loader=False {json.dumps(numbers)} | (e) "
+          f"{AOT_CPU_SAMPLES} samples B=1 cpu == cuda == facade: True | (f) "
+          f"cold start, seconds from a fresh process to the first tokens "
+          f"((iii) with the 64-sample artifact, beside the rest of the "
+          f"phase): {json.dumps(cold_start)} | phase_seconds="
+          f"{time.monotonic() - phase_t} card={card!r}", flush=True)
+    return {"numbers": numbers, "cold_start": cold_start}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2577,6 +2901,7 @@ def main() -> int:
     phase_dp(ts, dev, card, trained)
     phase_mesh(dev, card)
     phase_seqmodel(ts, dev, card, trained)
+    phase_aot(dev, card)
     print(f"chip_smoke: every phase passed in {time.monotonic() - run_t} s",
           flush=True)
 

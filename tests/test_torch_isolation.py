@@ -49,7 +49,8 @@ for n in ("train", "training.trainer", "training.checkpoint",
           "parallel.distributed", "parallel.mesh", "parallel.dataparallel",
           "parallel.sharding", "parallel.distdecode", "parallel.seqpar",
           "parallel.pipeline", "parallel.megatron",
-          "parallel.collectives"):
+          "parallel.collectives", "serving.aot", "ops.cuda.decode_op",
+          "utils.compcache"):
     assert "wavenet_tpu_torch." + n in names, n
 print(len(names))
 """

@@ -696,3 +696,43 @@ def test_probe_kernels_equal_their_plain_versions(dev):
             probes.probe_shift_concat(case, inp[ring], inp["shift_x"]).cpu(),
             probes.probe_shift_concat_reference(case, cpu[ring],
                                                 cpu["shift_x"]))
+
+
+@pytest.mark.parametrize("variant", ["plain", "mel", "speaker"])
+@pytest.mark.parametrize("R", [32, 128])
+def test_decode_op_equals_the_kernel(dev, monkeypatch, R, variant):
+    """torch.ops.wavenet_tpu_torch.generate (the op an AOT artifact calls)
+    on CUDA tensors: one launch of the kernel the widths select (narrow at
+    R = 32, wide at R = 128), of the variant's counter, tokens equal to
+    that kernel's direct call at the same seeds, and never the plain
+    version; a second call reuses the kernel layout."""
+    from wavenet_tpu_torch.ops.cuda import decode_common, decode_op
+    from wavenet_tpu_torch.utils.pytree_io import flatten_tree
+    mod = pwide if R == 128 else pnarrow
+    cfg = _narrow_cfg(32, variant).replace(residual_channels=R,
+                                           skip_channels=128)
+    params = wn.init_params(cfg, torch.Generator().manual_seed(R), dev)
+    flat = flatten_tree(params)
+    B, N = 3, 50
+    seeds = rng.derive_row_seeds(11, B).to(dev)
+    y = (torch.randn(B, N, 8, generator=torch.Generator().manual_seed(2))
+         .to(dev) if cfg.mel else None)
+    sp = (torch.tensor([0, 4, 2], dtype=torch.int32, device=dev)
+          if cfg.global_classes else None)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain decode")
+    monkeypatch.setattr(mod, "decode_chunk_reference", refuse)
+    which = 2 if cfg.global_classes else 1 if cfg.mel else 0
+    for _ in range(2):
+        before = list(_counts(mod))
+        got = torch.ops.wavenet_tpu_torch.generate(
+            [flat[k] for k in sorted(flat)], seeds, y, sp, N, 1.0,
+            cfg.to_json())
+        before[which] += 1
+        assert list(_counts(mod)) == before
+    w = decode_op.decode_weights([flat[k] for k in sorted(flat)],
+                                 cfg.to_json())
+    want = decode_common.generate_one_shot(mod.decode_chunk, w, cfg, N, B,
+                                           None, 1.0, seeds, dev, y, sp)
+    assert torch.equal(got, want)

@@ -22,15 +22,16 @@ from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.audio import dataset as tds
 from wavenet_tpu_torch.audio import mulaw
 from wavenet_tpu_torch.cpp import loader
+from wavenet_tpu_torch.utils import compcache
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_library_builds_beside_the_port_kernels():
     assert loader.available()
-    assert loader.SO == loader._ROOT / "build" / "wavenet_tpu_torch" / \
-        "fastloader.so"
-    assert str(loader.SO) != str(jloader._SO)
+    assert loader.library_path() == loader._ROOT / "build" / \
+        "wavenet_tpu_torch" / "fastloader.so"
+    assert str(loader.library_path()) != str(jloader._SO)
     assert loader.SRC.samefile(jloader._SRC)
 
 
@@ -165,7 +166,9 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     bad = tmp_path / "bad.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(loader, "SRC", bad)
-    monkeypatch.setattr(loader, "SO", tmp_path / "fastloader.so")
+    monkeypatch.setattr(loader, "library_path",
+                        lambda: tmp_path / "fastloader.so")
+    monkeypatch.setattr(compcache, "_loaded", None)
     monkeypatch.setattr(loader, "_lib", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         loader.library()
@@ -183,7 +186,8 @@ def test_library_that_does_not_load_is_rebuilt(tmp_path, monkeypatch):
     another platform, or corrupt) is rebuilt once, then works."""
     so = tmp_path / "fastloader.so"
     so.write_bytes(b"not an ELF file")
-    monkeypatch.setattr(loader, "SO", so)
+    monkeypatch.setattr(loader, "library_path", lambda: so)
+    monkeypatch.setattr(compcache, "_loaded", None)
     monkeypatch.setattr(loader, "_lib", None)
     x = np.linspace(-1, 1, 33, dtype=np.float32)
     np.testing.assert_array_equal(loader.mulaw_encode(x), mulaw.encode_np(x))
@@ -196,7 +200,8 @@ def test_concurrent_first_builds(tmp_path):
     so = tmp_path / "fastloader.so"
     code = ("import sys; from pathlib import Path; "
             "from wavenet_tpu_torch.cpp import loader; "
-            "loader.SO = Path(sys.argv[1]); "
+            "from wavenet_tpu_torch.utils import compcache; "
+            "compcache.enable(str(Path(sys.argv[1]).parent)); "
             "import numpy as np; "
             "q = loader.mulaw_encode(np.linspace(-1, 1, 9, dtype=np.float32));"
             "print(q.tolist())")

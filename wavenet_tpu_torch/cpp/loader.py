@@ -1,8 +1,9 @@
 """ctypes bindings of the native data loader, cpp/fastloader.cpp at the
 repository root (the source the JAX package's loader builds too).
 
-The library compiles with g++ at first use into
-build/wavenet_tpu_torch/fastloader.so (beside the port's CUDA libraries,
+The library compiles with g++ at first use into fastloader.so in the
+kernel build cache (`library_path()`: utils/compcache.build_dir(), by
+default build/wavenet_tpu_torch/, beside the port's CUDA libraries and
 apart from the JAX package's build/fastloader.so, so the two packages never
 race on one file), and again whenever the source is newer.  It builds into
 a process-unique temporary name and is renamed into place, since several
@@ -28,18 +29,24 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from wavenet_tpu_torch.utils import compcache
+
 _ROOT = Path(__file__).resolve().parents[2]
 SRC = _ROOT / "cpp" / "fastloader.cpp"
-SO = _ROOT / "build" / "wavenet_tpu_torch" / "fastloader.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> None:
-    SO.parent.mkdir(parents=True, exist_ok=True)
-    tmp = SO.with_name(f"{SO.name}.{os.getpid()}.tmp")
+def library_path() -> Path:
+    """Where the library is built and loaded from."""
+    return compcache.build_dir() / "fastloader.so"
+
+
+def _build(so: Path) -> None:
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC), "-lpthread"]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
@@ -50,7 +57,7 @@ def _build() -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed building {SRC}:\n{r.stdout}\n"
                            f"{r.stderr}")
-    os.replace(tmp, SO)
+    os.replace(tmp, so)
 
 
 def library() -> ctypes.CDLL:
@@ -60,17 +67,19 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if not SO.exists() or SO.stat().st_mtime < SRC.stat().st_mtime:
-            _build()
+        so = library_path()
+        if not so.exists() or so.stat().st_mtime < SRC.stat().st_mtime:
+            _build(so)
         try:
-            lib = ctypes.CDLL(str(SO))
+            lib = ctypes.CDLL(str(so))
         except OSError:
             # a library built on another host (a copied build directory)
-            _build()
+            _build(so)
             try:
-                lib = ctypes.CDLL(str(SO))
+                lib = ctypes.CDLL(str(so))
             except OSError as e:
-                raise RuntimeError(f"cannot load {SO}: {e}") from e
+                raise RuntimeError(f"cannot load {so}: {e}") from e
+        compcache.mark_loaded(so.parent)
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")

@@ -12,6 +12,8 @@ sample audio from a checkpoint of the port's trainer and write wav files.
       --ckpt runs/full --batch 8 --data-parallel 2       # 4 rows a rank
   torchrun --nproc_per_node 2 -m wavenet_tpu_torch.generate \
       --ckpt runs/full --batch 4 --model-parallel 2      # channels split
+  python -m wavenet_tpu_torch.generate --ckpt runs/full --seconds 1 \
+      --batch 4 --export-aot full.wnx                    # an AOT artifact
 
 The fast path decodes through the kernel that takes the model (the narrow
 or the wide decode kernel on the card, generate/sampler.py); --naive runs
@@ -31,6 +33,12 @@ rank's rows on a data-only mesh, the collective loop on a model-sharded
 one) and the wavs equal a single process's at the same --seed; only rank
 0 writes them.  --stream and --naive are single-device paths and are
 refused there, as the reference refuses them.
+
+--export-aot FILE.wnx writes a deployment artifact instead of sampling
+(serving/aot.py: a torch.export program over the decode op, frozen at
+--seconds, --batch and --temperature); serving.load_decoder loads it
+without model code.  --compile-cache [DIR] builds and reuses the kernels in
+DIR (utils/compcache.py).
 """
 
 from __future__ import annotations
@@ -86,6 +94,20 @@ def parse_args(argv=None):
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                    help="torch.distributed backend under torchrun (default: "
                         "nccl for a CUDA device, gloo for the CPU)")
+    p.add_argument("--export-aot", default=None, metavar="FILE.wnx",
+                   help="instead of sampling, freeze the decode for "
+                        "(--seconds, --batch, --temperature) via torch.export "
+                        "into one deployment artifact "
+                        "(wavenet_tpu_torch.serving.load_decoder loads it "
+                        "without model code)")
+    p.add_argument("--export-platforms", default="cpu,cuda",
+                   help="comma-separated devices the --export-aot artifact "
+                        "may be loaded on (default cpu,cuda: the decode "
+                        "kernels on cuda, their plain versions on cpu; not "
+                        "the JAX package's cpu,tpu, since TPU lowering is "
+                        "its jax.export's)")
+    from wavenet_tpu_torch.utils import compcache
+    compcache.add_cli_flag(p)
     args = p.parse_args(argv)
     from wavenet_tpu_torch.parallel import distributed
     if args.device is None:
@@ -96,9 +118,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Returns the [batch, T] int32 tokens as a numpy array (None with
-    --stream)."""
+    --stream or --export-aot)."""
     from wavenet_tpu_torch.parallel import distributed
+    from wavenet_tpu_torch.utils import compcache
     args = parse_args(argv)
+    if args.export_aot and (args.prime or args.mel_from
+                            or args.stream is not None or args.naive):
+        sys.exit("--export-aot freezes the whole-loop decode; drop "
+                 "--prime/--mel-from/--stream/--naive")
+    cache_dir = compcache.enable_from_args(args)
+    if cache_dir:
+        print(f"kernel build cache: {cache_dir}")
     meshed = (distributed.launched() or args.model_parallel > 1
               or (args.data_parallel or 1) > 1)
     if meshed and (args.stream is not None or args.naive):
@@ -138,6 +168,8 @@ def _generate(args, meshed: bool):
                                     use_ema=not args.no_ema,
                                     device=args.device)
     cfg, dev = model.cfg, model.device
+    if args.export_aot:
+        return _export_aot(args, model)
 
     prime = None
     if args.prime:
@@ -227,6 +259,26 @@ def _generate(args, meshed: bool):
     write_wavs(args.out, toks, cfg)
     print(f"wrote {args.out}", file=sys.stderr)
     return toks.numpy()
+
+
+def _export_aot(args, model) -> None:
+    """Write the --export-aot artifact (rank 0 only under torchrun)."""
+    from wavenet_tpu_torch.parallel import distributed
+    from wavenet_tpu_torch.serving import export_decoder
+    cfg = model.cfg
+    platforms = tuple(
+        s.strip() for s in args.export_platforms.split(",") if s.strip())
+    if not distributed.is_primary():
+        return None
+    export_decoder(model.params, cfg, args.export_aot,
+                   num_samples=int(args.seconds * cfg.sample_rate),
+                   batch=args.batch, temperature=args.temperature,
+                   platforms=platforms or None)
+    print(f"wrote {args.export_aot} "
+          f"({args.seconds}s x batch {args.batch}, "
+          f"platforms {','.join(platforms) or 'native'}"
+          f"{', speaker input' if cfg.global_classes else ''})")
+    return None
 
 
 def _generate_mesh(args, model, n: int, prime, y, speaker):

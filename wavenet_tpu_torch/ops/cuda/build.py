@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) with nvcc + ctypes.
 
 Each .cu file compiles on first use into a shared library with a plain C
-interface under build/wavenet_tpu_torch/ at the repository root, for
-sm_90a (Hopper).  The library's file name carries a hash of the sources and
-flags, so an edited source (or header) builds a new library; a source newer
-than its library also rebuilds it.  No torch headers are compiled in, which
+interface in the kernel build cache (utils/compcache.build_dir():
+build/wavenet_tpu_torch/ at the repository root unless --compile-cache or
+$WAVENET_TPU_COMPILE_CACHE names another directory), for sm_90a (Hopper).
+The library's file name carries a hash of the sources and flags
+(`sources_hash`), so an edited source (or header) builds a new library; a
+source newer than its library also rebuilds it.  No torch headers are compiled in, which
 keeps a build to seconds.  A build or load failure raises: there is no
 fallback to the plain PyTorch path on a CUDA device.
 
@@ -26,9 +28,10 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from wavenet_tpu_torch.utils import compcache
+
 _PKG = Path(__file__).resolve().parents[2]          # wavenet_tpu_torch/
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "wavenet_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -84,17 +87,23 @@ def nvcc_path() -> str:
                        "built on this machine")
 
 
-def _library_path(name: str) -> Path:
+def sources_hash() -> str:
+    """Content hash of the kernel sources and the nvcc flags: the tag in
+    every library's file name, so an edited source builds a new one."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):          # .cu and .cuh
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _library_path(name: str) -> Path:
+    return compcache.build_dir() / f"lib{name}-{sources_hash()}.so"
 
 
 def _start_build(name: str, so: Path):
     """Start nvcc on csrc/<name>.cu; returns (process, temp output path)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     # compile to a process-unique temp path and rename into place, so two
     # processes racing a first build never load a half-written library
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -123,6 +132,12 @@ def _stale(so: Path) -> bool:
     return not so.exists() or so.stat().st_mtime < newest_src
 
 
+def _open(so: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    compcache.mark_loaded(so.parent)
+    return lib
+
+
 def load_all(names) -> Dict[str, ctypes.CDLL]:
     """The ctypes handles of csrc/<name>.cu for every name; the libraries
     that need a build compile in parallel (one nvcc each, all started
@@ -135,7 +150,7 @@ def load_all(names) -> Dict[str, ctypes.CDLL]:
                 continue
             so = _library_path(name)
             if not _stale(so):
-                _libs[name] = ctypes.CDLL(str(so))
+                _libs[name] = _open(so)
                 continue
             try:
                 pending.append((name, so, *_start_build(name, so)))
@@ -144,7 +159,7 @@ def load_all(names) -> Dict[str, ctypes.CDLL]:
         for name, so, proc, tmp in pending:      # wait for every nvcc
             try:
                 _finish_build(name, so, proc, tmp)
-                _libs[name] = ctypes.CDLL(str(so))
+                _libs[name] = _open(so)
             except RuntimeError as e:
                 failure = failure or e
         if failure is not None:

@@ -86,6 +86,8 @@ def parse_args(argv=None):
                    help="synthesize this much audio through every batch "
                         "bucket at boot (builds the kernel before the "
                         "first request)")
+    from wavenet_tpu_torch.utils import compcache
+    compcache.add_cli_flag(p)
     args = p.parse_args(argv)
     if args.npz and (args.step is not None or args.no_ema):
         p.error("--step and --no-ema select a checkpoint's weights; an "
@@ -109,7 +111,11 @@ def load_model(args):
 
 def main(argv=None) -> int:
     from wavenet_tpu_torch.parallel import distributed
+    from wavenet_tpu_torch.utils import compcache
     args = parse_args(argv)
+    cache_dir = compcache.enable_from_args(args)
+    if cache_dir:
+        print(f"kernel build cache: {cache_dir}")
     meshed = (distributed.launched() or args.model_parallel > 1
               or (args.data_parallel or 1) > 1)
     started = meshed and distributed.initialize(args.dist_backend,

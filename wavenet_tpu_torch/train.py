@@ -110,6 +110,8 @@ def parse_args(argv=None):
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                    help="torch.distributed backend under torchrun (default: "
                         "nccl for a CUDA device, gloo for the CPU)")
+    from wavenet_tpu_torch.utils import compcache
+    compcache.add_cli_flag(p)
     args = p.parse_args(argv)
     if args.device is None:
         from wavenet_tpu_torch.parallel import distributed
@@ -138,7 +140,11 @@ def build_config(args):
 
 def main(argv=None):
     from wavenet_tpu_torch.parallel import distributed
+    from wavenet_tpu_torch.utils import compcache
     args = parse_args(argv)
+    cache_dir = compcache.enable_from_args(args)
+    if cache_dir:
+        print(f"kernel build cache: {cache_dir}", file=sys.stderr)
     started = distributed.initialize(args.dist_backend, device=args.device)
     try:
         return _train(args)

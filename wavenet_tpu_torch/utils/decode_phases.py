@@ -44,6 +44,7 @@ from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops.cuda import build
 from wavenet_tpu_torch.ops.cuda import decode as pn
 from wavenet_tpu_torch.ops.cuda import decode_wide as pw
+from wavenet_tpu_torch.utils import compcache
 
 # the macro that takes each part out, by kernel
 PARTS = {"no_exchange": "WN_PHASE_NO_EXCHANGE", "no_z": "WN_PHASE_NO_Z",
@@ -86,7 +87,7 @@ def build_all(flags: dict, kernel: str = "wide") -> dict:
     all started together)."""
     source, mod, _, _ = KERNELS[kernel]
     libs, procs = {}, {}
-    d = build.BUILD_DIR / "decode_phases" / kernel
+    d = compcache.build_dir() / "decode_phases" / kernel
     d.mkdir(parents=True, exist_ok=True)
     for name, extra in flags.items():
         out = d / f"{name}.so"
