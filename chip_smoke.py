@@ -1149,7 +1149,10 @@ def probe_numbers(probes, dev) -> dict:
     the device ms (device_ms) of one call of each of its cases summed,
     likewise plain_ms and the bound, and library_ms where one PyTorch call
     computes the same function (torch.tanh for P2's first output); P2's
-    ms and library_ms are medians of GATE_ROUNDS rounds in turns."""
+    ms and library_ms are medians of GATE_ROUNDS rounds in turns, beside
+    the launch floor's.  P2 is also held on a misaligned, ragged input and
+    P3 at T = 17 and 300, and P3's ms and bounds are printed per case."""
+    import numpy as np
     import torch
     inp, cpu = probes.probe_inputs(dev), probes.probe_inputs("cpu")
     f32b = 4
@@ -1187,46 +1190,90 @@ def probe_numbers(probes, dev) -> dict:
         check(u <= probes.GATE_ULPS, f"P2 {name}: {u} ulps from torch's CPU "
               f"values (> {probes.GATE_ULPS})")
     err = max(abs_err(a, b) for a, b in zip(got, want))
-    # P2 and torch.tanh timed in turns, the order swapped each round: ms and
-    # library_ms are the medians of GATE_ROUNDS rounds, printed with their
-    # ranges (both sit near one launch's floor)
-    p2_ts, tanh_ts = [], []
-    pair = ((p2_ts, lambda: probes.probe_gate(x)),
-            (tanh_ts, lambda: torch.tanh(x)))
+    # ragged inputs: a view one element into its buffer, n = 8,190 (off
+    # 8-byte alignment: every element one at a time), and n = 8,191 from
+    # the buffer's start (pairs, then the odd element alone)
+    for off, n in ((1, 8190), (0, 8191)):
+        buf = torch.from_numpy(np.linspace(-30.0, 30.0, n + off,
+                                           dtype=np.float32))
+        got = probes.probe_gate(buf.to(dev)[off:])
+        us = [probes.ulps(a, b) for a, b in
+              zip(got, probes.probe_gate_reference(buf[off:]))]
+        check(max(us) <= probes.GATE_ULPS and got[0].shape == (n,),
+              f"P2 at offset {off}, n = {n}: {us} ulps from torch's CPU "
+              f"values (> {probes.GATE_ULPS})")
+        print(f"phase 15 probe_gate ragged: n={n} offset={off} ulps={us}",
+              flush=True)
+    # P2, torch.tanh and the launch floor (one add on a one-element tensor:
+    # a yardstick, never called by the port) timed in turns, the order
+    # reversed each round: ms and library_ms are the medians of GATE_ROUNDS
+    # rounds, printed with their ranges (all sit near one launch's floor)
+    one = torch.zeros(1, device=dev)
+    p2_ts, tanh_ts, floor_ts = [], [], []
+    turns = ((p2_ts, lambda: probes.probe_gate(x)),
+             (tanh_ts, lambda: torch.tanh(x)),
+             (floor_ts, lambda: one.add_(1.0)))
     for i in range(GATE_ROUNDS):
-        for ts, fn in pair[::1 if i % 2 == 0 else -1]:
+        for ts, fn in turns[::1 if i % 2 == 0 else -1]:
             ts.append(device_ms(fn))
-    p2_ts.sort()
-    tanh_ts.sort()
     mid = GATE_ROUNDS // 2
+    for ts in (p2_ts, tanh_ts, floor_ts):
+        ts.sort()
     print(f"phase 15 probe_gate in turns with torch.tanh, {GATE_ROUNDS} "
           f"rounds: P2 median_ms={p2_ts[mid]} range={p2_ts[0]}-{p2_ts[-1]}"
           f" torch.tanh median_ms={tanh_ts[mid]} "
           f"range={tanh_ts[0]}-{tanh_ts[-1]}", flush=True)
+    print(f"phase 15 launch floor (one-element add, device_ms, the same "
+          f"rounds): median_ms={floor_ts[mid]} "
+          f"range={floor_ts[0]}-{floor_ts[-1]}", flush=True)
     out["probe_gate"] = {
         "max_abs_err": err, "ms": p2_ts[mid],
         "plain_ms": device_ms(lambda: probes.probe_gate_reference(x)),
         "library_ms": tanh_ts[mid],
         **bound(4 * x.numel() * f32b, 20 * x.numel(), PEAK_F32)}
     # P3: a [256,128]x[128,64] and b [256,64]x[64,128] bf16 products, c
-    # an f32 [256,128]x[128,64] one
-    err, ms, pms, t_b, t_o = 0.0, 0.0, 0.0, 0.0, 0.0
-    for case, ops in (("a", ("a", "b", "w")), ("b", ("h", "w_rs")),
-                      ("c", ("xf", "yf", "wf"))):
-        args = [inp[k] for k in ops]
-        got = probes.probe_lane_ops(case, *args)
-        want = probes.probe_lane_ops_reference(case, *(cpu[k] for k in ops))
-        for a, b in zip(got, want):
-            e = abs_err(a, b)
-            check(e <= 1e-6 * float(b.abs().max()) if case == "c"
-                  else e == 0.0, f"P3 {case}: kernel != plain ({e})")
-            err = max(err, e)
-        ms += device_ms(lambda: probes.probe_lane_ops(case, *args))
-        pms += device_ms(lambda: probes.probe_lane_ops_reference(case, *args))
+    # an f32 [256,128]x[128,64] one, on the f64 tensor cores; the bound by
+    # the bf16 peak (a and b; the least time the card could take) and by
+    # the f64 tensor cores' (the instruction the kernel runs)
+    err = 0.0
+    for T in (256, 17, 300):
+        lin, lcpu = ((inp, cpu) if T == 256 else
+                     (probes.lane_inputs(T, dev),
+                      probes.lane_inputs(T, "cpu")))
+        for case in probes.LANE_CASES:
+            ops = probes.LANE_OPS[case]
+            got = probes.probe_lane_ops(case, *(lin[k] for k in ops))
+            want = probes.probe_lane_ops_reference(case,
+                                                   *(lcpu[k] for k in ops))
+            for a, b in zip(got, want):
+                e = abs_err(a, b)
+                check(e <= 1e-6 * float(b.abs().max()) if case == "c"
+                      else e == 0.0, f"P3 {case}, T = {T}: kernel != plain "
+                      f"({e})")
+                err = max(err, e)
+    print("phase 15 probe_lane_ops: cases a, b exact and c within 1e-6 of "
+          "its largest element at T = 256, 17, 300", flush=True)
+    ms, pms, t_b, t_o, t_64 = 0.0, 0.0, 0.0, 0.0, 0.0
+    for case in probes.LANE_CASES:
+        args = [inp[k] for k in probes.LANE_OPS[case]]
+        c_ms = device_ms(lambda: probes.probe_lane_ops(case, *args))
+        c_pms = device_ms(lambda: probes.probe_lane_ops_reference(case,
+                                                                  *args))
         nb = (sum(t.numel() * t.element_size() for t in args)
-              + sum(o.numel() * f32b for o in got))
-        t_b += nb / PEAK_BYTES
-        t_o += 2 * 256 * 128 * 64 / (PEAK_F32 if case == "c" else PEAK_BF16)
+              + (2 if case == "b" else 1) * 256 * 64 * f32b)
+        flop = 2 * 256 * 128 * 64
+        c_b, c_o = nb / PEAK_BYTES, flop / (PEAK_F32 if case == "c"
+                                            else PEAK_BF16)
+        print(f"phase 15 probe_lane_ops case {case}: ms={c_ms} "
+              f"plain_ms={c_pms} bytes_ms={c_b * 1e3} "
+              f"ops_ms={c_o * 1e3} ops_f64_ms={flop / PEAK_F32 * 1e3}",
+              flush=True)
+        ms, pms = ms + c_ms, pms + c_pms
+        t_b, t_o, t_64 = t_b + c_b, t_o + c_o, t_64 + flop / PEAK_F32
+    print(f"phase 15 probe_lane_ops summed: ms={ms} bound_ms="
+          f"{max(t_b, t_o) * 1e3} bound_f64_ms={max(t_b, t_64) * 1e3} "
+          f"(bytes {t_b * 1e3}, operations {t_o * 1e3}, at the f64 peak "
+          f"{t_64 * 1e3})", flush=True)
     out["probe_lane_ops"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": None,
         "bound_ms": max(t_b, t_o) * 1e3,

@@ -667,7 +667,10 @@ def test_probe_kernels_equal_their_plain_versions(dev):
     expectations; P2 elementwise within 4 ulps of torch's CPU tanh and
     sigmoid (the card's tanhf and expf against the CPU's; the count is
     measured by the verify tool); P3 a and b exact, c within 1e-6 of its
-    largest element; P4 exact."""
+    largest element, also at T = 17 and 300 (ragged row tiles), and a
+    misaligned operand refused; P4 exact.  P2 also on a view one element
+    into its buffer, n = 8,190 and 5 (one element at a time), and at
+    n = 8,191 from its start (pairs and an odd last element)."""
     from wavenet_tpu_torch.ops.cuda import probes
     before = probes.scratch_launches.value
     for mode, (_, rows, tiles, expect) in probes.SCRATCH_MODES.items():
@@ -680,16 +683,33 @@ def test_probe_kernels_equal_their_plain_versions(dev):
     for got, want in zip(probes.probe_gate(inp["gate_x"]),
                          probes.probe_gate_reference(cpu["gate_x"])):
         assert probes.ulps(got, want) <= probes.GATE_ULPS == 4
-    for case, ops in (("a", ("a", "b", "w")), ("b", ("h", "w_rs")),
-                      ("c", ("xf", "yf", "wf"))):
-        got = probes.probe_lane_ops(case, *(inp[k] for k in ops))
-        want = probes.probe_lane_ops_reference(case, *(cpu[k] for k in ops))
-        for a, b in zip(got, want):
-            if case == "c":
-                assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(
-                    b.abs().max())
-            else:
-                assert torch.equal(a.cpu(), b)
+    for off, n in ((1, 8190), (1, 5), (0, 8191)):
+        buf = torch.linspace(-30.0, 30.0, n + off)
+        gate = probes.gate_launches.value
+        got = probes.probe_gate(buf.to(dev)[off:])
+        assert probes.gate_launches.value == gate + 1
+        for a, b in zip(got, probes.probe_gate_reference(buf[off:])):
+            assert a.shape == (n,) and probes.ulps(a, b) <= 4
+    for T in (256, 17, 300):
+        lin, lcpu = ((inp, cpu) if T == 256 else
+                     (probes.lane_inputs(T, dev),
+                      probes.lane_inputs(T, "cpu")))
+        for case in probes.LANE_CASES:
+            ops = probes.LANE_OPS[case]
+            lane = probes.lane_launches.value
+            got = probes.probe_lane_ops(case, *(lin[k] for k in ops))
+            assert probes.lane_launches.value == lane + 1
+            want = probes.probe_lane_ops_reference(case,
+                                                   *(lcpu[k] for k in ops))
+            for a, b in zip(got, want):
+                if case == "c":
+                    assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(
+                        b.abs().max())
+                else:
+                    assert torch.equal(a.cpu(), b), (case, T)
+    x = torch.empty(300 * 64 + 1, device=dev)[1:].view(300, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        probes.probe_lane_ops("c", x, lin["yf"], lin["wf"])
     for case in probes.SHIFT_CASES:
         ring = "snaps" if case == "B" else "ring"
         assert torch.equal(

@@ -166,6 +166,26 @@ def test_probe_gate_matches_jax(inputs):
                                   (got[0] * got[1]).numpy())
 
 
+@pytest.mark.parametrize("n", [1, 5, 8190, 8191])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_probe_gate_matches_jax_ragged(offset, n):
+    """n not a multiple of 4, from the buffer's start or from a view one
+    element into it (on the card: pairs and an odd last element, or one
+    element at a time): within 4 ulps of JAX's interpret-mode values, as
+    at the probe's n."""
+    buf = torch.from_numpy(np.linspace(-30.0, 30.0, n + offset,
+                                       dtype=np.float32))
+    x = buf[offset:]
+    assert x.storage_offset() == offset and x.is_contiguous()
+    want = pl.pallas_call(
+        _tanh_kern, out_shape=(jax.ShapeDtypeStruct((n,), jnp.float32),) * 3,
+        interpret=True)(_j(x.clone()))
+    got = probes.probe_gate(x)
+    for name, w, g in zip(("tanh", "sigmoid", "gate"), want, got):
+        assert g.dtype == torch.float32 and g.shape == (n,)
+        assert _ulps(g.numpy(), w) <= 4, name
+
+
 # ---- P3: rows 10-12, tools/tpu_lane_ops_check.py ----
 
 def _lane_jax(kernel, ins, n_out):
@@ -175,17 +195,16 @@ def _lane_jax(kernel, ins, n_out):
     return out if isinstance(out, tuple) else (out,)
 
 
-@pytest.mark.parametrize("case", probes.LANE_CASES)
-def test_probe_lane_ops_matches_jax(case, inputs):
+def _check_lane(case, inputs):
     lane = _tool("tpu_lane_ops_check")
-    ops = {"a": ("a", "b", "w"), "b": ("h", "w_rs"),
-           "c": ("xf", "yf", "wf")}[case]
-    args = [inputs[k] for k in ops]
+    args = [inputs[k] for k in probes.LANE_OPS[case]]
     kernel = {"a": lane.kernel_a, "b": lane.kernel_b,
               "c": lane.kernel_c}[case]
     want = _lane_jax(kernel, [_j(t) for t in args], 2 if case == "b" else 1)
     got = probes.probe_lane_ops(case, *args)
     assert len(got) == len(want)
+    for g in got:
+        assert g.shape == (args[0].shape[0], 64)
     if case == "c":
         w = np.asarray(want[0])
         assert np.abs(got[0].numpy() - w).max() <= 1e-6 * np.abs(w).max()
@@ -208,6 +227,19 @@ def test_probe_lane_ops_matches_jax(case, inputs):
             np.abs(np.asarray(w)))
         assert (np.abs(g.numpy().astype(np.float64) - np.asarray(w))
                 <= bound).all()
+
+
+@pytest.mark.parametrize("case", probes.LANE_CASES)
+def test_probe_lane_ops_matches_jax(case, inputs):
+    _check_lane(case, inputs)
+
+
+@pytest.mark.parametrize("case", probes.LANE_CASES)
+@pytest.mark.parametrize("T", [17, 300])
+def test_probe_lane_ops_matches_jax_ragged(T, case):
+    """T not a multiple of the kernel's 16-row tile (lane_inputs, drawn
+    from a numpy seed): the same checks as at the probe's T = 256."""
+    _check_lane(case, probes.lane_inputs(T, "cpu"))
 
 
 # ---- P4: rows 13-16, tools/tpu_concat_probe.py ----

@@ -44,6 +44,9 @@ SCRATCH_MODES: Dict[str, Tuple[int, int, int, list]] = {
     "ring_launches": (4, 1, 4, [[0, 1, 3, 6]]),
 }
 LANE_CASES = ("a", "b", "c")
+# P3: a case's operands, keys of probe_inputs / lane_inputs
+LANE_OPS = {"a": ("a", "b", "w"), "b": ("h", "w_rs"),
+            "c": ("xf", "yf", "wf")}
 SHIFT_CASES = ("A", "B", "C", "D")
 # tools/tpu_concat_probe.py: TT, R, d, off
 TT, R, D, OFF = 512, 64, 32, 64
@@ -79,28 +82,43 @@ def _on(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def _normal(rs: np.random.RandomState):
+    def normal(*shape):
+        return torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+    return normal
+
+
+def _lane_draws(normal, T: int) -> Dict[str, torch.Tensor]:
+    """P3's operands at T rows, in the order they are drawn."""
+    bf = torch.bfloat16
+    return {"a": normal(T, 64).to(bf), "b": normal(T, 64).to(bf),
+            "w": normal(128, 64).to(bf), "h": normal(T, 64).to(bf),
+            "w_rs": normal(64, 128).to(bf), "xf": normal(T, 64),
+            "yf": normal(T, 64), "wf": normal(64, 128)}
+
+
 def probe_inputs(device="cuda") -> Dict[str, torch.Tensor]:
     """The probes' operands, drawn from numpy seeds: P2's 8,192-point
     linspace over [-30, 30] [64, 128]; P3's a, b, h [256, 64] bf16, w
     [128, 64] bf16, w_rs [64, 128] bf16, x, y [256, 64] f32, w_f [64, 128]
     f32 (standard normal); P4's ring [256, 64] f32, its 4-D snapshot
     [1, 1, 256, 64] and x [512, 64] f32."""
-    rs = np.random.RandomState(0)
-
-    def normal(*shape):
-        return torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
-
-    bf = torch.bfloat16
-    out = {
-        "gate_x": torch.from_numpy(np.linspace(
-            -30.0, 30.0, 8 * 1024, dtype=np.float32).reshape(64, 128)),
-        "a": normal(256, 64).to(bf), "b": normal(256, 64).to(bf),
-        "w": normal(128, 64).to(bf), "h": normal(256, 64).to(bf),
-        "w_rs": normal(64, 128).to(bf), "xf": normal(256, 64),
-        "yf": normal(256, 64), "wf": normal(64, 128),
-        "ring": normal(256, R), "shift_x": normal(TT, R),
-    }
+    normal = _normal(np.random.RandomState(0))
+    out = {"gate_x": torch.from_numpy(np.linspace(
+        -30.0, 30.0, 8 * 1024, dtype=np.float32).reshape(64, 128)),
+        **_lane_draws(normal, 256)}
+    out["ring"] = normal(256, R)
+    out["shift_x"] = normal(TT, R)
     out["snaps"] = normal(1, 1, 256, R)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def lane_inputs(T: int, device="cuda",
+                seed: int = 1) -> Dict[str, torch.Tensor]:
+    """P3's operands (the keys of LANE_OPS) at T rows, drawn from a numpy
+    seed as probe_inputs draws them: a T that is not a multiple of 16
+    checks the kernel's ragged row tile."""
+    out = _lane_draws(_normal(np.random.RandomState(seed)), T)
     return {k: v.to(device) for k, v in out.items()}
 
 
@@ -183,7 +201,7 @@ def probe_gate_reference(x: torch.Tensor):
 def probe_gate(x: torch.Tensor):
     """(tanh(x), sigmoid(x), tanh(x) * sigmoid(x)) f32, elementwise: on
     the card through gate.cuh's functions (the kernels' gate), on the CPU
-    torch's."""
+    torch's.  Any contiguous x, at any offset."""
     if _on(x) == "cpu":
         return probe_gate_reference(x)
     build.check_tensor("x", x, x.shape, torch.float32, x.device)
@@ -224,7 +242,9 @@ def probe_lane_ops_reference(case: str, *ops):
 
 def probe_lane_ops(case: str, *ops):
     """P3 case a, b or c (operands as probe_lane_ops_reference takes them):
-    the kernel on the card, the plain version on the CPU."""
+    the kernel on the card, the plain version on the CPU.  On the card
+    every operand must start 16-byte aligned (the kernel stages them by
+    16-byte copies): a view at an offset raises ValueError."""
     if _on(ops[0]) == "cpu":
         return probe_lane_ops_reference(case, *ops)
     dev, T = ops[0].device, ops[0].shape[0]
@@ -248,6 +268,10 @@ def probe_lane_ops(case: str, *ops):
     for name, t, shape, dtype in shapes:
         build.check_tensor(name, t, shape, dtype, dev)
     lib = library()
+    for name, t, _, _ in shapes:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the "
+                             f"kernel stages it by 16-byte copies)")
     o1 = torch.empty(T, 64, device=dev)
     o2 = torch.empty(T, 64, device=dev) if case == "b" else None
     with torch.cuda.device(dev):

@@ -461,12 +461,13 @@ def family_probes(dev, quick: bool, golden_dir) -> None:
         if stored is not None:
             _ulp_report(f"P2 {name} vs JAX cpu (measured)", gate[i],
                         stored["gate_" + "tsg"[i]], cpu_in["gate_x"])
-    for case, ops in (("a", ("a", "b", "w")), ("b", ("h", "w_rs")),
-                      ("c", ("xf", "yf", "wf"))):
+    for case, ops in probes.LANE_OPS.items():
         got = probes.probe_lane_ops(case, *(inp[k] for k in ops))
         want = probes.probe_lane_ops_reference(case, *(cpu_in[k]
                                                        for k in ops))
-        if case == "c":          # f32 in another order: inside 1e-6 or FAIL
+        # case c: the kernel's f64 sum rounded once against torch's f32
+        # product, inside 1e-6 or FAIL
+        if case == "c":
             grel, _ = drift_stats(got[0], want[0])
             _record("P3 lane c (f32)", "BIT-EXACT" if grel <= 1e-6
                     else "FAIL", f"(max rel diff {grel:.3e}, band 1e-06)")
