@@ -350,6 +350,26 @@ def device_ms(fn, n: int = 20) -> float:
     return e0.elapsed_time(e1) / n
 
 
+def alone_ms(fn, n: int = 20) -> float:
+    """Median milliseconds of device time of one fn() with no other call's
+    launches beside it, as the verify tool makes its probe calls (each
+    followed by a host copy): each call sits between its own two events
+    behind a short sleep, so neither the host's enqueueing nor an overlap
+    with the call before it is in the reading."""
+    import torch
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    fn()                                         # warm up (allocations)
+    torch.cuda.synchronize()
+    for e0, e1 in events:
+        torch.cuda._sleep(1_000_000)
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sorted(e0.elapsed_time(e1) for e0, e1 in events)[n // 2]
+
+
 def register_counters(*modules) -> None:
     """COUNTERS["<module>.<name>"]: every LaunchCounter of the modules."""
     from wavenet_tpu_torch.ops.cuda.build import LaunchCounter
@@ -1148,15 +1168,20 @@ def probe_numbers(probes, dev) -> dict:
     values.  max_abs_err is the largest difference measured.  Per probe,
     the device ms (device_ms) of one call of each of its cases summed,
     likewise plain_ms and the bound, and library_ms where one PyTorch call
-    computes the same function (torch.tanh for P2's first output); P2's
-    ms and library_ms are medians of GATE_ROUNDS rounds in turns, beside
-    the launch floor's.  P2 is also held on a misaligned, ragged input and
-    P3 at T = 17 and 300, and P3's ms and bounds are printed per case."""
+    computes the same function (torch.tanh for P2's first output).  P1's
+    modes, P2, P4's cases, torch.tanh, the launch floor and P4's same-bytes
+    yardstick are timed in GATE_ROUNDS rounds in turns: P2's ms and
+    library_ms and P1's and P4's summed ms are medians of those rounds,
+    each printed with its range.  P1's modes, P4's cases and the floor are
+    also timed one call alone (alone_ms), as the verify tool calls them.
+    P1's "ring_launches" is also called twice with nothing between the
+    calls, P2 is held on a misaligned, ragged input, P3 at T = 17 and 300,
+    P4 at TT = 300, R = 63 and on an x off 16-byte alignment, and P3's ms
+    and bounds are printed per case."""
     import numpy as np
     import torch
     inp, cpu = probes.probe_inputs(dev), probes.probe_inputs("cpu")
     f32b = 4
-    out = {}
 
     def bound(nbytes: float, ops: float, peak: float) -> dict:
         t_b, t_o = nbytes / PEAK_BYTES, ops / peak
@@ -1166,21 +1191,27 @@ def probe_numbers(probes, dev) -> dict:
     def abs_err(got, want) -> float:
         return float((got.cpu() - want).abs().max())
 
-    # P1: each mode writes [rows, tiles, 8, 128] f32 and reads nothing
-    err, ms, pms, nbytes = 0.0, 0.0, 0.0, 0
+    # P1: each mode writes [rows, tiles, 8, 128] f32 and reads nothing;
+    # "ring_launches" runs twice with no synchronisation between the calls
+    # (the second call's ring is the memory the first one just freed: its
+    # first launch may touch it only after the first call's last launch)
+    p1_err, p1_pms, p1_bytes = 0.0, 0.0, 0
     for mode, (_, rows, tiles, expect) in probes.SCRATCH_MODES.items():
-        got = probes.probe_scratch(mode, dev).cpu()
+        calls = [probes.probe_scratch(mode, dev)]
+        if mode == "ring_launches":
+            calls.append(probes.probe_scratch(mode, dev))
         want = probes.probe_scratch_reference(mode)
-        check(torch.equal(got, want) and torch.equal(
-            got[:, :, 0, 0], torch.tensor(expect, dtype=torch.float32)),
-            f"P1 {mode}: kernel != plain or the probe's expectation")
-        err = max(err, abs_err(got, want))
-        ms += device_ms(lambda: probes.probe_scratch(mode, dev))
-        pms += device_ms(lambda: probes.probe_scratch_reference(mode, dev))
-        nbytes += got.numel() * f32b
-    out["probe_scratch"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-                            "library_ms": None,
-                            **bound(nbytes, 0, PEAK_F32)}
+        for i, got in enumerate(calls):
+            got = got.cpu()
+            check(torch.equal(got, want) and torch.equal(
+                got[:, :, 0, 0], torch.tensor(expect, dtype=torch.float32)),
+                f"P1 {mode} (call {i + 1} of {len(calls)}): kernel != "
+                f"plain or the probe's expectation")
+            p1_err = max(p1_err, abs_err(got, want))
+        p1_pms += device_ms(lambda: probes.probe_scratch_reference(mode, dev))
+        p1_bytes += want.numel() * f32b
+    print("phase 15 probe_scratch: every mode exact, ring_launches also "
+          "twice back to back", flush=True)
     # P2: 8,192 inputs, three outputs; ~20 f32 operations per element
     x = inp["gate_x"]
     got = probes.probe_gate(x)
@@ -1189,7 +1220,7 @@ def probe_numbers(probes, dev) -> dict:
         u = probes.ulps(a, b)
         check(u <= probes.GATE_ULPS, f"P2 {name}: {u} ulps from torch's CPU "
               f"values (> {probes.GATE_ULPS})")
-    err = max(abs_err(a, b) for a, b in zip(got, want))
+    p2_err = max(abs_err(a, b) for a, b in zip(got, want))
     # ragged inputs: a view one element into its buffer, n = 8,190 (off
     # 8-byte alignment: every element one at a time), and n = 8,191 from
     # the buffer's start (pairs, then the odd element alone)
@@ -1204,33 +1235,6 @@ def probe_numbers(probes, dev) -> dict:
               f"values (> {probes.GATE_ULPS})")
         print(f"phase 15 probe_gate ragged: n={n} offset={off} ulps={us}",
               flush=True)
-    # P2, torch.tanh and the launch floor (one add on a one-element tensor:
-    # a yardstick, never called by the port) timed in turns, the order
-    # reversed each round: ms and library_ms are the medians of GATE_ROUNDS
-    # rounds, printed with their ranges (all sit near one launch's floor)
-    one = torch.zeros(1, device=dev)
-    p2_ts, tanh_ts, floor_ts = [], [], []
-    turns = ((p2_ts, lambda: probes.probe_gate(x)),
-             (tanh_ts, lambda: torch.tanh(x)),
-             (floor_ts, lambda: one.add_(1.0)))
-    for i in range(GATE_ROUNDS):
-        for ts, fn in turns[::1 if i % 2 == 0 else -1]:
-            ts.append(device_ms(fn))
-    mid = GATE_ROUNDS // 2
-    for ts in (p2_ts, tanh_ts, floor_ts):
-        ts.sort()
-    print(f"phase 15 probe_gate in turns with torch.tanh, {GATE_ROUNDS} "
-          f"rounds: P2 median_ms={p2_ts[mid]} range={p2_ts[0]}-{p2_ts[-1]}"
-          f" torch.tanh median_ms={tanh_ts[mid]} "
-          f"range={tanh_ts[0]}-{tanh_ts[-1]}", flush=True)
-    print(f"phase 15 launch floor (one-element add, device_ms, the same "
-          f"rounds): median_ms={floor_ts[mid]} "
-          f"range={floor_ts[0]}-{floor_ts[-1]}", flush=True)
-    out["probe_gate"] = {
-        "max_abs_err": err, "ms": p2_ts[mid],
-        "plain_ms": device_ms(lambda: probes.probe_gate_reference(x)),
-        "library_ms": tanh_ts[mid],
-        **bound(4 * x.numel() * f32b, 20 * x.numel(), PEAK_F32)}
     # P3: a [256,128]x[128,64] and b [256,64]x[64,128] bf16 products, c
     # an f32 [256,128]x[128,64] one, on the f64 tensor cores; the bound by
     # the bf16 peak (a and b; the least time the card could take) and by
@@ -1274,30 +1278,115 @@ def probe_numbers(probes, dev) -> dict:
           f"{max(t_b, t_o) * 1e3} bound_f64_ms={max(t_b, t_64) * 1e3} "
           f"(bytes {t_b * 1e3}, operations {t_o * 1e3}, at the f64 peak "
           f"{t_64 * 1e3})", flush=True)
-    out["probe_lane_ops"] = {
-        "max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": None,
-        "bound_ms": max(t_b, t_o) * 1e3,
-        "bound_by": "bytes" if t_b >= t_o else "operations"}
-    # P4: a case reads D ring rows and TT - D rows of x and writes [TT, R],
-    # f32 (the rest of the ring and of x is not read)
-    err, ms, pms = 0.0, 0.0, 0.0
+    lane = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "library_ms": None, "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+    # P4: a case reads D ring rows and TT - D rows of x and writes [TT, R]
+    # f32 (the rest of the ring and of x is not read); held at the probe's
+    # shape, at TT = 300, R = 63 (a width of no whole 16-byte quads) and on
+    # an x one element into its buffer (off 16-byte alignment)
+    p4_err, p4_pms = 0.0, 0.0
+    for T, W, off in ((probes.TT, probes.R, 0), (300, 63, 0),
+                      (probes.TT, probes.R, 1)):
+        sin, scpu = ((inp, cpu) if (T, W, off) == (probes.TT, probes.R, 0)
+                     else (probes.shift_inputs(T, W, dev, offset=off),
+                           probes.shift_inputs(T, W, "cpu", offset=off)))
+        check(sin["shift_x"].data_ptr() % 16 == 4 * off,
+              f"P4's x at offset {off} is not where the check wants it")
+        for case in probes.SHIFT_CASES:
+            ring = "snaps" if case == "B" else "ring"
+            got = probes.probe_shift_concat(case, sin[ring],
+                                            sin["shift_x"]).cpu()
+            want = probes.probe_shift_concat_reference(case, scpu[ring],
+                                                       scpu["shift_x"])
+            check(torch.equal(got, want), f"P4 {case} at TT = {T}, R = "
+                  f"{W}, x offset {off}: kernel != plain")
+            p4_err = max(p4_err, abs_err(got, want))
+    xs = inp["shift_x"]
     for case in probes.SHIFT_CASES:
         ring = inp["snaps" if case == "B" else "ring"]
-        got = probes.probe_shift_concat(case, ring, inp["shift_x"]).cpu()
-        want = probes.probe_shift_concat_reference(
-            case, cpu["snaps" if case == "B" else "ring"], cpu["shift_x"])
-        check(torch.equal(got, want), f"P4 {case}: kernel != plain")
-        err = max(err, abs_err(got, want))
-        ms += device_ms(lambda: probes.probe_shift_concat(
-            case, ring, inp["shift_x"]))
-        pms += device_ms(lambda: probes.probe_shift_concat_reference(
-            case, ring, inp["shift_x"]))
+        p4_pms += device_ms(lambda: probes.probe_shift_concat_reference(
+            case, ring, xs))
+    print("phase 15 probe_shift_concat: every case exact at TT = 512, R = "
+          "64, at TT = 300, R = 63, and on x one element into its buffer",
+          flush=True)
+    # in turns, the order reversed each round: the launch floor (one add on
+    # a one-element tensor), P2, torch.tanh, P1's modes and P4's cases,
+    # each back to back (device_ms: under PDL one launch's set-up overlaps
+    # the last one's run) and alone (alone_ms: no overlap between calls,
+    # only within mode 4's chain), and P4's same-bytes yardstick (x * 2
+    # into a preallocated output: P4's bytes without the shift); the floor,
+    # torch.tanh and the yardstick are never called by the port
+    one, yard = torch.zeros(1, device=dev), torch.empty_like(xs)
+    turns = {"floor": lambda: device_ms(lambda: one.add_(1.0)),
+             "floor alone": lambda: alone_ms(lambda: one.add_(1.0)),
+             "P2": lambda: device_ms(lambda: probes.probe_gate(x)),
+             "torch.tanh": lambda: device_ms(lambda: torch.tanh(x)),
+             "P4 yardstick": lambda: device_ms(
+                 lambda: torch.mul(xs, 2.0, out=yard))}
+    calls = {}                   # name: launches a call
+    for mode, (kmode, _, tiles, _) in probes.SCRATCH_MODES.items():
+        calls[f"P1 {mode}"] = (lambda m=mode: probes.probe_scratch(m, dev),
+                               tiles if kmode == 4 else 1)
+    for case in probes.SHIFT_CASES:
+        ring = "snaps" if case == "B" else "ring"
+        calls[f"P4 {case}"] = (
+            lambda c=case, r=inp[ring]: probes.probe_shift_concat(c, r, xs),
+            1)
+    for name, (fn, _) in calls.items():
+        turns[name] = lambda f=fn: device_ms(f)
+        turns[name + " alone"] = lambda f=fn: alone_ms(f)
+    times = {name: [] for name in turns}
+    order = list(turns.items())
+    for i in range(GATE_ROUNDS):
+        for name, timed in order[::1 if i % 2 == 0 else -1]:
+            times[name].append(timed())
+    mid = GATE_ROUNDS // 2
+    med = {}
+    for name, ts in times.items():
+        ts.sort()
+        med[name] = ts[mid]
+
+    def spread(name: str) -> str:
+        ts = times[name]
+        return f"median_ms={ts[mid]} range={ts[0]}-{ts[-1]}"
+    print(f"phase 15 probe_gate in turns with torch.tanh, {GATE_ROUNDS} "
+          f"rounds: P2 {spread('P2')} torch.tanh {spread('torch.tanh')}",
+          flush=True)
+    print(f"phase 15 launch floor (one-element add, the same rounds): back "
+          f"to back {spread('floor')}; alone {spread('floor alone')}",
+          flush=True)
+    for name, (_, n) in calls.items():
+        t, ta = med[name], med[name + " alone"]
+        print(f"phase 15 {name} in turns with the floor: back to back "
+              f"{spread(name)} launches={n} per_launch_ms={t / n} floors="
+              f"{t / med['floor']}; alone {spread(name + ' alone')} "
+              f"floors={ta / med['floor alone']}", flush=True)
+    print(f"phase 15 P4 yardstick (torch.mul(x, 2.0, out=o) on shift_x, "
+          f"the same bytes): {spread('P4 yardstick')}", flush=True)
+    p1_ms = sum(med["P1 " + m] for m in probes.SCRATCH_MODES)
+    p4_ms = sum(med["P4 " + c] for c in probes.SHIFT_CASES)
+    print(f"phase 15 summed medians: probe_scratch ms={p1_ms} "
+          f"probe_shift_concat ms={p4_ms}; alone: probe_scratch ms="
+          f"{sum(med['P1 ' + m + ' alone'] for m in probes.SCRATCH_MODES)} "
+          f"probe_shift_concat ms="
+          f"{sum(med['P4 ' + c + ' alone'] for c in probes.SHIFT_CASES)}",
+          flush=True)
     nbytes = len(probes.SHIFT_CASES) * f32b * probes.R * (
         probes.D + (probes.TT - probes.D) + probes.TT)
-    out["probe_shift_concat"] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": pms, "library_ms": None,
-                                 **bound(nbytes, 0, PEAK_F32)}
-    return out
+    return {
+        "probe_scratch": {"max_abs_err": p1_err, "ms": p1_ms,
+                          "plain_ms": p1_pms, "library_ms": None,
+                          **bound(p1_bytes, 0, PEAK_F32)},
+        "probe_gate": {
+            "max_abs_err": p2_err, "ms": med["P2"],
+            "plain_ms": device_ms(lambda: probes.probe_gate_reference(x)),
+            "library_ms": med["torch.tanh"],
+            **bound(4 * x.numel() * f32b, 20 * x.numel(), PEAK_F32)},
+        "probe_lane_ops": lane,
+        "probe_shift_concat": {"max_abs_err": p4_err, "ms": p4_ms,
+                               "plain_ms": p4_pms, "library_ms": None,
+                               **bound(nbytes, 0, PEAK_F32)}}
 
 
 def phase_verify(probes, dev, card: str) -> tuple:

@@ -668,9 +668,13 @@ def test_probe_kernels_equal_their_plain_versions(dev):
     sigmoid (the card's tanhf and expf against the CPU's; the count is
     measured by the verify tool); P3 a and b exact, c within 1e-6 of its
     largest element, also at T = 17 and 300 (ragged row tiles), and a
-    misaligned operand refused; P4 exact.  P2 also on a view one element
-    into its buffer, n = 8,190 and 5 (one element at a time), and at
-    n = 8,191 from its start (pairs and an odd last element)."""
+    misaligned operand refused; P4 exact, 4 launches for its 4 cases, also
+    at TT = 300, R = 63 and on an x one element into its buffer.  P2 also
+    on a view one element into its buffer, n = 8,190 and 5 (one element at
+    a time), and at n = 8,191 from its start (pairs and an odd last
+    element).  P1's "ring_launches" also twice with nothing between the
+    calls (the second's ring is the memory the first just freed; its
+    launches run under PDL)."""
     from wavenet_tpu_torch.ops.cuda import probes
     before = probes.scratch_launches.value
     for mode, (_, rows, tiles, expect) in probes.SCRATCH_MODES.items():
@@ -679,6 +683,11 @@ def test_probe_kernels_equal_their_plain_versions(dev):
         want = torch.tensor(expect, dtype=torch.float32)
         assert torch.equal(got[:, :, 0, 0], want)
     assert probes.scratch_launches.value == before + 4 + 4
+    calls = [probes.probe_scratch("ring_launches", dev) for _ in range(2)]
+    assert probes.scratch_launches.value == before + 8 + 8
+    for got in calls:
+        assert torch.equal(got.cpu(),
+                           probes.probe_scratch_reference("ring_launches"))
     inp, cpu = probes.probe_inputs(dev), probes.probe_inputs("cpu")
     for got, want in zip(probes.probe_gate(inp["gate_x"]),
                          probes.probe_gate_reference(cpu["gate_x"])):
@@ -710,12 +719,22 @@ def test_probe_kernels_equal_their_plain_versions(dev):
     x = torch.empty(300 * 64 + 1, device=dev)[1:].view(300, 64)
     with pytest.raises(ValueError, match="aligned"):
         probes.probe_lane_ops("c", x, lin["yf"], lin["wf"])
-    for case in probes.SHIFT_CASES:
-        ring = "snaps" if case == "B" else "ring"
-        assert torch.equal(
-            probes.probe_shift_concat(case, inp[ring], inp["shift_x"]).cpu(),
-            probes.probe_shift_concat_reference(case, cpu[ring],
-                                                cpu["shift_x"]))
+    for T, R, off in ((probes.TT, probes.R, 0), (300, 63, 0),
+                      (probes.TT, probes.R, 1)):
+        sin, scpu = ((inp, cpu) if (T, R, off) == (probes.TT, probes.R, 0)
+                     else (probes.shift_inputs(T, R, dev, offset=off),
+                           probes.shift_inputs(T, R, "cpu", offset=off)))
+        assert sin["shift_x"].data_ptr() % 16 == 4 * off
+        shift = probes.shift_launches.value
+        for case in probes.SHIFT_CASES:
+            ring = "snaps" if case == "B" else "ring"
+            assert torch.equal(
+                probes.probe_shift_concat(case, sin[ring],
+                                          sin["shift_x"]).cpu(),
+                probes.probe_shift_concat_reference(case, scpu[ring],
+                                                    scpu["shift_x"])), (
+                case, T, R, off)
+        assert probes.shift_launches.value == shift + 4
 
 
 @pytest.mark.parametrize("variant", ["plain", "mel", "speaker"])

@@ -257,6 +257,28 @@ def test_probe_shift_concat_matches_jax(case, inputs):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("case", probes.SHIFT_CASES)
+@pytest.mark.parametrize("T,R", [(300, 63), (96, 4)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_probe_shift_concat_matches_jax_ragged(offset, T, R, case):
+    """Other TT and R than the probe's (R = 63: no whole 16-byte units on
+    the card; TT = 96 = 3 d), on x from its buffer's start or one element
+    into it (off 16-byte alignment: one f32 a unit on the card), drawn
+    from a numpy seed: equal to kA-kD in interpret mode at that TT (the
+    tool's kernels read TT from their module)."""
+    cat = _tool("tpu_concat_probe")
+    cat.TT = T
+    kernel = {"A": cat.kA, "B": cat.kB, "C": cat.kC, "D": cat.kD}[case]
+    inp = probes.shift_inputs(T, R, "cpu", offset=offset)
+    ring, x = inp["snaps" if case == "B" else "ring"], inp["shift_x"]
+    assert x.shape == (T, R) and x.storage_offset() == offset
+    want = pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((T, R), jnp.float32),
+        interpret=True)(_j(ring), _j(x))
+    got = probes.probe_shift_concat(case, ring, x)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_probe_wrappers_refuse_other_devices(inputs):
     """Only a CPU tensor takes a plain version; other devices raise (a CUDA
     tensor takes the kernel, tests/test_torch_kernels.py)."""

@@ -23,15 +23,44 @@
 //      product exact in f64, rounded to f32 once.
 //   P4 probe_shift (tools/tpu_concat_probe.py::kA-kD): the time-axis
 //      concatenations of the causal shift, ring or snapshot slice + value
-//      (forward) and value tail + ring slice (backward dz ring), as one
-//      gather per output element.
+//      (forward) and value tail + ring slice (backward dz ring), row by
+//      row.
 //
 // What bounds each on this card, at the verify tool's sizes, and what the
 // design does about it:
-//   * P1 and P4 move 8-512 KB and compute nothing: a launch's own cost
-//     (~2 us back to back) is their time, far above their bytes' (<0.2 us).
-//     One launch each (mode 4 one a tile, by design), a block per grid row
-//     or 256 elements.
+//   * P1 and P4 move 8-512 KB and compute nothing: the launch (~2.25 us a
+//     kernel back to back, a one-element add's) is their time, far above
+//     their bytes' (<0.2 us).  What a design can take off is the rest:
+//     the work past the launch, and, where launches follow one another
+//     in a stream, the gap between them.
+//     - P1, modes 0-3: one launch, a block of 256 threads per grid row
+//       (1-2 blocks), thread i owning quad i of every [8, 128] tile, so
+//       the scratch is read and written by 16-byte shared accesses with
+//       no barrier (scratch_kernel's comment has the argument) and each
+//       tile stored by 16-byte stores.
+//     - P1, mode 4: one launch a tile, each carrying the ring [rows, 8,
+//       128] in device memory to the next, as the decode kernels carry
+//       their rings across chunk launches.  Each launch is made under
+//       programmatic dependent launch (PDL: cudaLaunchKernelEx with
+//       programmatic stream serialization): it lets the next launch begin
+//       at once (griddepcontrol.launch_dependents) and waits
+//       (griddepcontrol.wait) for the one before to complete, its writes
+//       visible, before it touches any global memory.  The next launch's
+//       set-up thus overlaps this one instead of following its drain.
+//     - P4: the grid lies over rows, a block of 128 threads over 128 /
+//       (R / 4) rows, each thread one 16-byte unit of its row (the row's
+//       source, ring or x, picked once): at TT = 512, R = 64, 64 blocks,
+//       the 128 KB a case reads and the 128 KB it writes in one
+//       16-byte ld.global.nc and one 16-byte store a thread, one memory
+//       round trip past the launch, no division by R.  Staging through
+//       shared memory would add a copy with nothing to reuse.  Where R %
+//       4 != 0 or ring, x or out is off 16-byte alignment (x a view at an
+//       offset), the same launch takes one f32 a unit.
+//     - P1's modes 0-3 and P4 are launched under PDL too, with every
+//       global access after the wait: in a stream of such launches queued
+//       back to back each one's set-up overlaps the one before it.  Where a
+//       call is followed by a host copy (a verify run) only mode 4's chain
+//       overlaps.
 //   * P2 reads 32 KB and writes 96 KB at n = 8,192, ~0.04 us at the memory
 //     rate: launch-bound too, and past the launch bound by the chain each
 //     thread runs (tanhf, expf, a division) more than by its memory
@@ -72,52 +101,108 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTile = 8 * 128;   // one [8, 128] f32 tile: a thread an element
+constexpr int kTile = 8 * 128;   // one [8, 128] f32 tile
+constexpr int kQuads = kTile / 4;  // P1: a thread a quad (4 f32) of a tile
 constexpr int kGateThreads = 256;
 constexpr int kLaneWarps = 4;    // P3's warps a block, each a share of K
 constexpr int kLaneThreads = 32 * kLaneWarps;
+constexpr int kShiftThreads = 128;  // P4: a block's threads
+// PDL inside a kernel: let the stream's next kernel launch now (its blocks
+// then wait at their own pdl_wait), and wait until every grid this one
+// depends on has completed with its writes visible.  A kernel touches no
+// global memory before pdl_wait: the memory it reads or writes may be the
+// previous kernel's (the caching allocator hands one call the buffers the
+// call before it freed).
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
-// P1, modes 0-3: block = grid row, 1024 threads = one tile's elements.
-__global__ void __launch_bounds__(kTile)
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// 16-byte shared-memory accesses, kept as written (P1's scratch is what
+// the probe checks, so it is never held in registers instead).
+__device__ __forceinline__ float4 lds16(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"((unsigned)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts16(float* p, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(p)),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 splat4(float s) {
+  return make_float4(s, s, s, s);
+}
+
+__device__ __forceinline__ float4 add4(float4 v, float s) {
+  return make_float4(__fadd_rn(v.x, s), __fadd_rn(v.y, s),
+                     __fadd_rn(v.z, s), __fadd_rn(v.w, s));
+}
+
+__device__ __forceinline__ float4 mul4(float4 v, float s) {
+  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s),
+                     __fmul_rn(v.z, s), __fmul_rn(v.w, s));
+}
+
+// P1, modes 0-3: block = grid row, walking its tiles in order.  Thread i
+// owns quad i (elements 4 i .. 4 i + 3) of every tile, of both halves of
+// the ring [16, 128] and of both halves of buf [16, 128] (mode 3).  No
+// barrier: every thread reads only shared words it wrote itself (mode 3's
+// ring[0:8] = buf[8:16] moves element 4 i + k of buf's second half to
+// element 4 i + k of the ring, both thread i's), so program order orders
+// every access.
+__global__ void __launch_bounds__(kQuads)
 scratch_kernel(float* __restrict__ out, int mode, int tiles) {
-  __shared__ float ring[2 * kTile];      // [16, 128]; modes 0-2 use [8, 128]
-  __shared__ float buf[2 * kTile];       // [16, 128] (mode 3)
-  const int e = threadIdx.x;
-  float* o = out + (size_t)blockIdx.x * tiles * kTile;
-  for (int j = 0; j < tiles; ++j) {
-    if (j == 0) {                        // pl.when(program_id == 0)
-      ring[e] = 0.0f;
-      ring[kTile + e] = 0.0f;
-    }
-    __syncthreads();
+  __shared__ __align__(16) float ring[2 * kTile];
+  __shared__ __align__(16) float buf[2 * kTile];
+  const int q = 4 * threadIdx.x;
+  pdl_launch_dependents();
+  sts16(ring + q, splat4(0.0f));         // pl.when(program_id == 0)
+  sts16(ring + kTile + q, splat4(0.0f));
+  pdl_wait();
+  float4* o = reinterpret_cast<float4*>(
+      out + (size_t)blockIdx.x * tiles * kTile) + threadIdx.x;
+  for (int j = 0; j < tiles; ++j, o += kQuads) {
     if (mode <= 1) {                     // acc += 1; out = acc
-      ring[e] += 1.0f;
-      o[j * kTile + e] = ring[e];
+      const float4 v = add4(lds16(ring + q), 1.0f);
+      sts16(ring + q, v);
+      *o = v;
     } else if (mode == 2) {              // out = ring; ring += j + 1
-      o[j * kTile + e] = ring[e];
-      ring[e] += (float)(j + 1);
+      const float4 v = lds16(ring + q);
+      *o = v;
+      sts16(ring + q, add4(v, (float)(j + 1)));
     } else {                             // buf = j + 1; out = ring[0:8];
-      buf[e] = (float)(j + 1);           // ring[0:8] = buf[8:16]
-      buf[kTile + e] = (float)(j + 1);
-      __syncthreads();
-      o[j * kTile + e] = ring[e];
-      __syncthreads();
-      ring[e] = buf[kTile + e];
+      sts16(buf + q, splat4((float)(j + 1)));   // ring[0:8] = buf[8:16]
+      sts16(buf + kTile + q, splat4((float)(j + 1)));
+      *o = lds16(ring + q);
+      sts16(ring + q, lds16(buf + kTile + q));
     }
-    __syncthreads();
   }
 }
 
-// P1, mode 4: tile j of every grid row as its own launch, the ring
-// [rows, 8, 128] in device memory carried from launch to launch.
-__global__ void __launch_bounds__(kTile)
+// P1, mode 4: tile j of every grid row as its own launch under PDL, the
+// ring [rows, 8, 128] in device memory carried from launch to launch:
+// launch j reads it after pdl_wait, so after launch j - 1 has written it.
+__global__ void __launch_bounds__(kQuads)
 scratch_tile_kernel(float* __restrict__ out, float* __restrict__ ring,
                     int tiles, int j) {
-  const int e = threadIdx.x;
-  float* r = ring + (size_t)blockIdx.x * kTile;
-  if (j == 0) r[e] = 0.0f;
-  out[((size_t)blockIdx.x * tiles + j) * kTile + e] = r[e];
-  r[e] += (float)(j + 1);
+  pdl_launch_dependents();
+  pdl_wait();
+  float4* r = reinterpret_cast<float4*>(ring + (size_t)blockIdx.x * kTile) +
+              threadIdx.x;
+  const float4 v = j == 0 ? splat4(0.0f) : *r;
+  reinterpret_cast<float4*>(out + ((size_t)blockIdx.x * tiles + j) *
+                                      kTile)[threadIdx.x] = v;
+  *r = add4(v, (float)(j + 1));
 }
 
 // P2, one element.
@@ -249,27 +334,69 @@ lane_kernel(const void* __restrict__ a_, const void* __restrict__ b_,
   }
 }
 
-// P4: out [TT, R] f32, one thread an element.  mode 0 (and 1, the ring
-// read from a [1, 1, rows, R] snapshot: the same memory): concat(ring[off:
-// off + d], x[:TT - d]) * 2; mode 2: concat(x[d:], ring[off:off + d]) * 2;
-// mode 3: as 2 on v = x * 1.5, rounded to f32 before the * 2.
-__global__ void shift_kernel(int mode, const float* __restrict__ ring,
-                             const float* __restrict__ x,
-                             float* __restrict__ out, int TT, int R, int d,
-                             int off) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= TT * R) return;
-  const int t = i / R, c = i % R;
-  float v;
+// P4: out [TT, R] f32.  mode 0 (and 1, the ring read from a [1, 1, rows,
+// R] snapshot: the same memory): concat(ring[off: off + d], x[:TT - d]) *
+// 2; mode 2: concat(x[d:], ring[off:off + d]) * 2; mode 3: as 2 on v = x *
+// 1.5, rounded to f32 before the * 2.  Thread (c, y) of block b takes row
+// t = b blockDim.y + y, whose source row (ring or x) it picks once, and
+// the row's units c, c + blockDim.x, ...: a unit is a float4 with kQuad
+// (R % 4 == 0, every pointer 16-byte aligned), else one f32.
+template <bool kQuad>
+__global__ void __launch_bounds__(kShiftThreads)
+shift_kernel(int mode, const float* __restrict__ ring,
+             const float* __restrict__ x, float* __restrict__ out, int TT,
+             int R, int d, int off) {
+  pdl_launch_dependents();
+  pdl_wait();
+  const int t = blockIdx.x * blockDim.y + threadIdx.y;
+  if (t >= TT) return;
+  const float* src;
+  bool x15 = false;                      // mode 3's v = x * 1.5
   if (mode <= 1) {
-    v = t < d ? ring[(size_t)(off + t) * R + c] : x[(size_t)(t - d) * R + c];
+    src = t < d ? ring + (size_t)(off + t) * R : x + (size_t)(t - d) * R;
   } else if (t < TT - d) {
-    v = x[(size_t)(t + d) * R + c];
-    if (mode == 3) v = __fmul_rn(v, 1.5f);
+    src = x + (size_t)(t + d) * R;
+    x15 = mode == 3;
   } else {
-    v = ring[(size_t)(off + t - (TT - d)) * R + c];
+    src = ring + (size_t)(off + t - (TT - d)) * R;
   }
-  out[i] = __fmul_rn(v, 2.0f);
+  float* dst = out + (size_t)t * R;
+  if (kQuad) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int c = threadIdx.x; c < (R >> 2); c += blockDim.x) {
+      float4 v = __ldg(s4 + c);
+      if (x15) v = mul4(v, 1.5f);
+      d4[c] = mul4(v, 2.0f);
+    }
+  } else {
+    for (int c = threadIdx.x; c < R; c += blockDim.x) {
+      float v = __ldg(src + c);
+      if (x15) v = __fmul_rn(v, 1.5f);
+      dst[c] = __fmul_rn(v, 2.0f);
+    }
+  }
+}
+
+// kern on [grid, block] in stream s under programmatic stream
+// serialization (it may start before the stream's previous kernel ends and
+// waits for it at pdl_wait).  A refused launch returns its error: nothing
+// retries without the attribute.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kern)(Params...), dim3 grid, dim3 block,
+                   cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -285,11 +412,13 @@ int wn_probe_scratch(float* out, float* ring, int mode, int rows, int tiles,
   if (rows < 1 || tiles < 1 || mode < 0 || mode > 4 ||
       (mode == 4 && (ring == nullptr || tile < 0 || tile >= tiles)))
     return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)out | (uintptr_t)ring) & 15)
+    return (int)cudaErrorMisalignedAddress;
   if (mode == 4)
-    scratch_tile_kernel<<<rows, kTile, 0, s>>>(out, ring, tiles, tile);
-  else
-    scratch_kernel<<<rows, kTile, 0, s>>>(out, mode, tiles);
-  return (int)cudaGetLastError();
+    return (int)launch(scratch_tile_kernel, dim3(rows), dim3(kQuads), s,
+                       out, ring, tiles, tile);
+  return (int)launch(scratch_kernel, dim3(rows), dim3(kQuads), s, out, mode,
+                     tiles);
 }
 
 // P2.  x [n] f32 -> tanh, sigmoid, gate [n] f32.
@@ -333,15 +462,24 @@ int wn_probe_lane(int which, const void* a, const void* b, const void* w,
 }
 
 // P4.  mode 0-3 (kA-kD); ring [>= off + d, R] f32, x [TT, R] f32, out
-// [TT, R] f32.
+// [TT, R] f32, at any alignment: float4 units where R % 4 == 0 and all
+// three are 16-byte aligned, else f32 units.  A block is kShiftThreads
+// threads over kShiftThreads / min(units a row, kShiftThreads) rows.
 int wn_probe_shift(int mode, const float* ring, const float* x, float* out,
                    int TT, int R, int d, int off, void* stream) {
-  if (mode < 0 || mode > 3 || TT < 1 || R < 1 || d < 0 || d > TT)
+  if (mode < 0 || mode > 3 || TT < 1 || R < 1 || d < 0 || d > TT || off < 0)
     return (int)cudaErrorInvalidValue;
-  const int n = TT * R;
-  shift_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      mode, ring, x, out, TT, R, d, off);
-  return (int)cudaGetLastError();
+  const bool quad = R % 4 == 0 &&
+      (((uintptr_t)ring | (uintptr_t)x | (uintptr_t)out) & 15) == 0;
+  const int units = quad ? R / 4 : R;
+  const int bx = units < kShiftThreads ? units : kShiftThreads;
+  const int by = kShiftThreads / bx;
+  const dim3 grid((TT + by - 1) / by), block(bx, by);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(quad ? launch(shift_kernel<true>, grid, block, s, mode, ring,
+                             x, out, TT, R, d, off)
+                    : launch(shift_kernel<false>, grid, block, s, mode, ring,
+                             x, out, TT, R, d, off));
 }
 
 const char* wn_error_string(int code) {

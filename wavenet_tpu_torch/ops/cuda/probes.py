@@ -122,6 +122,21 @@ def lane_inputs(T: int, device="cuda",
     return {k: v.to(device) for k, v in out.items()}
 
 
+def shift_inputs(T: int, width: int, device="cuda", seed: int = 1,
+                 offset: int = 0) -> Dict[str, torch.Tensor]:
+    """P4's operands at T rows of `width` columns, drawn from a numpy seed:
+    ring [256, width], its snapshot [1, 1, 256, width] and shift_x [T,
+    width], x a view `offset` elements into its buffer on `device` (an
+    offset of 1 puts it off 16-byte alignment)."""
+    normal = _normal(np.random.RandomState(seed))
+    ring, snaps, x = (normal(256, width), normal(1, 1, 256, width),
+                      normal(T, width))
+    buf = torch.zeros(offset + T * width)
+    buf[offset:] = x.reshape(-1)
+    return {"ring": ring.to(device), "snaps": snaps.to(device),
+            "shift_x": buf.to(device)[offset:].view(T, width)}
+
+
 # ---------------------------------------------------------------------------
 # P1: scratch persistence
 # ---------------------------------------------------------------------------
@@ -149,8 +164,9 @@ def probe_scratch_reference(mode: str, device="cpu") -> torch.Tensor:
 
 def probe_scratch(mode: str, device="cuda") -> torch.Tensor:
     """P1 on `device`: the kernel on the card (one launch, or one per tile
-    for "ring_launches", the ring in device memory between them), the
-    plain version on the CPU."""
+    for "ring_launches", the ring in device memory between them and each
+    launch under programmatic dependent launch), the plain version on the
+    CPU."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return probe_scratch_reference(mode)
@@ -305,7 +321,10 @@ def probe_shift_concat_reference(case: str, ring: torch.Tensor,
 def probe_shift_concat(case: str, ring: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """P4 case A-D on ring ([rows, R], or [1, 1, rows, R] for B) and x
-    [TT, R] f32: the kernel on the card, the plain version on the CPU."""
+    [TT, R] f32: the kernel on the card, the plain version on the CPU.
+    Any R and any contiguous ring and x, at any offset (the kernel takes
+    16-byte units where R % 4 == 0 and every pointer is 16-byte aligned,
+    else single elements)."""
     if _on(x) == "cpu":
         return probe_shift_concat_reference(case, ring, x)
     if case not in SHIFT_CASES:
