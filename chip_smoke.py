@@ -25,7 +25,9 @@ the model axis (phase 18), and training at `full` over the mesh's seq
 axis (overlap-discard) and model axis (the layer pipeline) on the stack
 kernels (phase 19), and deployment artifacts (serving/aot.py) exported
 through the generate CLI's --export-aot, loaded in fresh processes and
-timed from a cold start (phase 20).  Any failed check
+timed from a cold start (phase 20), and the widths the stack kernels
+take through row-tiled layer blocks and padded operands (phase 21).
+Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
 (JSON), the card's name and power limit, and the device summary (JSON).
@@ -228,7 +230,20 @@ Phases (one line of numbers each):
      empty directory (the decode_wide build included; this process runs
      beside the rest of the phase), each split into start, imports and
      CUDA context, load, first call.
-The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16, 20)
+ 21. widths the stack kernels refused before their layer blocks were
+     row-tiled and their operands padded: `full`'s first layer group at
+     B=8 through 64-, 32- and 16-row blocks, equal bit for bit, each
+     tile's ms; phase 4's checks and times (B=2 and 8, T=8192) at `full`
+     with R = 256 (40 groups; 32-row backward blocks), `full` with
+     S = 1,024 (14 groups; 32 rows), `tiny` with 80 mels (nm > 2R) and
+     `full` with R = 30, S = 18 and 109 speakers (run at 32 and 20), with
+     the row tiles each launched; then train.main on `full` with R = 256
+     (B=8, window 8192) 3 steps with a checkpoint at step 2, the counts
+     and row tiles checked, a resume from step 2 bit for bit, a decode of
+     the checkpoint, and the wide decode kernel vs plain on its weights,
+     B=4, 256 steps (the checks of phase 2).
+The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16, 20,
+21)
 set every kernel's count to 0 right before and read them right after;
 phases 17, 18 and 19's rank processes start theirs at 0 and report them at
 exit (or set them to 0 before the path they time).
@@ -296,6 +311,9 @@ SEQMODEL_LOSS_TOL, SEQMODEL_GRAD_TOL = 2e-3, 2e-2
 MESH_FAST_BATCH, MESH_FAST_SECONDS = 64, 0.25
 # phase 20: artifact length, seed, the CPU load's length, a worker's limit
 AOT_SECONDS, AOT_SEED, AOT_CPU_SAMPLES, AOT_TIMEOUT_S = 1.0, 17, 64, 300
+# phase 21: train steps of `full` at R = 256, the step resumed from, and
+# the decode steps of its checkpoint held against plain
+WIDTH_STEPS, WIDTH_RESUME_AT, WIDTH_DECODE_STEPS = 3, 2, 256
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1031,18 +1049,23 @@ def _losses(path: str) -> dict:
 
 
 def phase_train(ts, dmod, dev, card: str, preset: str = "full",
-                phase: int = 5, speakers: bool = False) -> dict:
-    """Train `preset` (with SPEAKERS classes when `speakers`) through the
-    CLI's main(), resume, and decode the checkpoint through dmod's kernel
-    (a mel model vocodes a clip, a speaker model decodes two speakers);
-    returns the launch counts of the three kernels (of their mel or
-    speaker variants for such a model)."""
+                phase: int = 5, speakers: bool = False, overrides=(),
+                steps: int = TRAIN_STEPS, resume_at: int = RESUME_AT,
+                rows=(64, 64), keep_model: bool = False) -> dict:
+    """Train `preset` (with SPEAKERS classes when `speakers`, and
+    `overrides` of its config) through the CLI's main() for `steps` steps,
+    resume from step `resume_at`, and decode the checkpoint through dmod's
+    kernel (a mel model vocodes a clip, a speaker model decodes two
+    speakers); the stack's layer blocks must have launched at `rows` rows
+    (forward, backward).  Returns the launch counts of the three kernels
+    (of their mel or speaker variants for such a model), the tiles'
+    calls, and with keep_model the checkpoint's model."""
     import math
     import numpy as np
     import torch
     from wavenet_tpu_torch import train
     from wavenet_tpu_torch.models.api import WaveNet
-    overrides = [f"train_window={TS_T}"]
+    overrides = [f"train_window={TS_T}", *overrides]
     if speakers:
         overrides.append(f"global_classes={SPEAKERS}")
     common = ["--preset", preset, "--synthetic", "--device", "cuda",
@@ -1060,36 +1083,40 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()                           # the training path starts here
+        ts.tile_calls.clear()
         ma = train.main(common + [
-            "--steps", str(TRAIN_STEPS), "--ckpt", a, "--ckpt-every",
-            str(RESUME_AT), "--metrics-file", os.path.join(tmp, "a.jsonl")])
+            "--steps", str(steps), "--ckpt", a, "--ckpt-every",
+            str(resume_at), "--metrics-file", os.path.join(tmp, "a.jsonl")])
         torch.cuda.synchronize()
         fwd_n, bwd_n = fwd_c.value, bwd_c.value
+        tiles = dict(ts.tile_calls)
+        check(set(tiles) == {f"fwd{rows[0]}", f"bwd{rows[1]}"},
+              f"layer blocks launched at {tiles}, expected {rows} rows")
         # per step and layer group: Lg + 1 forward kernels and
         # (10 + 2 mel + 2 speaker) Lg + 2 backward kernels (train_stack.cu)
         ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
         L = cfg.num_layers
-        want = (TRAIN_STEPS * (L + ng),
-                TRAIN_STEPS * ((10 + 2 * mel + 2 * speakers) * L + 2 * ng))
+        want = (steps * (L + ng),
+                steps * ((10 + 2 * mel + 2 * speakers) * L + 2 * ng))
         check((fwd_n, bwd_n) == want, "training launched (fwd, bwd) = "
               f"{(fwd_n, bwd_n)} train_stack kernels, expected {want}")
         check_only([fwd_name, bwd_name], f"phase {phase} training")
         os.makedirs(b)
-        for f in ("params.json", f"ckpt_{RESUME_AT:08d}.pt"):
+        for f in ("params.json", f"ckpt_{resume_at:08d}.pt"):
             shutil.copy(os.path.join(a, f), b)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         train.main(common + [
-            "--steps", str(TRAIN_STEPS - RESUME_AT), "--ckpt", b, "--resume",
+            "--steps", str(steps - resume_at), "--ckpt", b, "--resume",
             "--metrics-file", os.path.join(tmp, "b.jsonl")])
         la = _losses(os.path.join(tmp, "a.jsonl"))
         lb = _losses(os.path.join(tmp, "b.jsonl"))
-        check(sorted(la) == list(range(1, TRAIN_STEPS + 1))
+        check(sorted(la) == list(range(1, steps + 1))
               and all(math.isfinite(v) for v in la.values()),
               f"losses of the uninterrupted run: {la}")
-        check(sorted(lb) == list(range(RESUME_AT + 1, TRAIN_STEPS + 1))
+        check(sorted(lb) == list(range(resume_at + 1, steps + 1))
               and all(lb[s] == la[s] for s in lb),
               f"resumed losses {lb} differ from {la}")
-        last = f"ckpt_{TRAIN_STEPS:08d}.pt"
+        last = f"ckpt_{steps:08d}.pt"
         pa = torch.load(os.path.join(a, last), weights_only=True)["params"]
         pb = torch.load(os.path.join(b, last), weights_only=True)["params"]
         check(sorted(pa) == sorted(pb)
@@ -1122,17 +1149,20 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
               and int(toks.max()) < model.cfg.quantization_channels,
               "bad decode of the trained model")
     print(f"phase {phase} trained and served: preset={preset} "
-          f"overrides={overrides} steps={TRAIN_STEPS} "
-          f"losses={[la[s] for s in sorted(la)]} resumed_from={RESUME_AT} "
+          f"overrides={overrides} steps={steps} "
+          f"losses={[la[s] for s in sorted(la)]} resumed_from={resume_at} "
           f"resume_bit_exact=True ms_per_step={1e3 / ma['steps_per_sec']} "
           f"audio_seconds_per_sec={ma['audio_seconds_per_sec']} "
           f"peak_device_memory_gb={peak_gb} "
           f"train_stack_fwd_launches={fwd_n} train_stack_bwd_launches="
-          f"{bwd_n} decode_launches={dec_n} decoded_samples={n} "
-          f"card={card!r}", flush=True)
-    return {"train_stack_fwd": fwd_n, "train_stack_bwd": bwd_n,
-            "decode": dec_n, "losses": [la[s] for s in sorted(la)],
-            "ms_per_step": 1e3 / ma["steps_per_sec"]}
+          f"{bwd_n} layer_block_calls_by_rows={tiles} decode_launches="
+          f"{dec_n} decoded_samples={n} card={card!r}", flush=True)
+    out = {"train_stack_fwd": fwd_n, "train_stack_bwd": bwd_n,
+           "decode": dec_n, "losses": [la[s] for s in sorted(la)],
+           "ms_per_step": 1e3 / ma["steps_per_sec"], "tiles": tiles}
+    if keep_model:
+        out["model"] = model
+    return out
 
 
 def phase_speakers(pnarrow, pwide, wn, dev, card: str):
@@ -2936,6 +2966,107 @@ def phase_aot(dev, card: str) -> dict:
     return {"numbers": numbers, "cold_start": cold_start}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the widths the stack kernels take since their layer blocks were
+# row-tiled and their operands padded
+# ---------------------------------------------------------------------------
+
+def width_cases():
+    """(name, config, its layer groups at T = 8192, the (forward,
+    backward) row tile) of each width phase 21 checks: each refused by the
+    kernels before, each fused by the reference (one with speakers)."""
+    from wavenet_tpu_torch.config import MelConfig, full, tiny
+    return (("full R=256", full().replace(residual_channels=256), 40,
+             (64, 32)),
+            ("full S=1024", full().replace(skip_channels=1024), 14, (64, 32)),
+            ("tiny 80 mels", tiny().replace(mel=MelConfig()), 1, (64, 64)),
+            ("full R=30 S=18 speakers", full().replace(
+                residual_channels=30, skip_channels=18,
+                global_classes=SPEAKERS), 1, (64, 64)))
+
+
+def row_tiles_equal(ts, wn, dev, card: str) -> dict:
+    """`full`'s first layer group (9 layers) at [TS_TRAIN_B, TS_T] through
+    the kernels at each row tile: every tile's forward and backward equal
+    the 64-row ones bit for bit; each tile's forward and backward ms."""
+    import numpy as np
+    import torch
+    from wavenet_tpu_torch.config import full
+    cfg = full()
+    params = wn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    lo, hi = ts.group_plan(cfg, ts.pick_tile(cfg, TS_T))[0]
+    dils = tuple(cfg.dilations[lo:hi])
+    ops = ts.prep_weights(*(params[k][lo:hi] for k in ts.GROUP_KEYS))
+    rs = np.random.RandomState(21)
+    toks = torch.from_numpy(rs.randint(0, cfg.quantization_channels, (
+        TS_TRAIN_B, TS_T)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        x = wn.embed_tokens(params, cfg, toks,
+                            wn._shifted_tokens(toks)).contiguous()
+        skip = torch.zeros(TS_TRAIN_B, TS_T, cfg.skip_channels, device=dev)
+        dskip = torch.from_numpy(rs.randn(TS_TRAIN_B, TS_T, cfg.skip_channels)
+                                 .astype(np.float32) * 1e-4).to(dev)
+        dxo = torch.zeros_like(x)
+        ms, want = {}, None
+        for rows in ts.ROW_TILES:
+            kf = ts.group_fwd(x, skip, ops, dils, rows=rows)
+            got = kf + ts.group_bwd(kf[2], dskip, dxo, ops, dils, rows=rows)
+            if want is None:
+                want = got
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{rows} rows differ from 64 rows")
+            ms[rows] = (cuda_ms(lambda: ts.group_fwd(x, skip, ops, dils,
+                                                     rows=rows), 3),
+                        cuda_ms(lambda: ts.group_bwd(kf[2], dskip, dxo, ops,
+                                                     dils, rows=rows), 3))
+            del kf, got
+    print(f"phase 21 row tiles: full group {(lo, hi)} B={TS_TRAIN_B} "
+          f"T={TS_T}, forward and backward at 32 and 16 rows equal to 64 "
+          f"rows bit for bit; (fwd_ms, bwd_ms) by rows {ms} card={card!r}",
+          flush=True)
+    return ms
+
+
+def phase_widths(ts, wn, pwide, dev, card: str) -> dict:
+    """Phase 21: every row tile gives the same bits (row_tiles_equal); the
+    stack kernels vs plain at each of width_cases (phase 4's checks and
+    times at B = 2 and 8, with the row tiles each launched and the
+    widths it ran at); then `full` at R = 256 trained WIDTH_STEPS steps
+    through the train CLI with a bit-exact resume, and its checkpoint
+    decoded through the wide kernel, WIDTH_DECODE_STEPS steps vs plain
+    with 0 flips.
+    Returns the train run's numbers."""
+    import torch
+    phase_t = time.monotonic()
+    row_tiles_equal(ts, wn, dev, card)
+    for name, cfg, ng, rows in width_cases():
+        params = wn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        ts.tile_calls.clear()
+        nums = phase_train_stack(ts, wn, cfg, params, dev, card, phase=21,
+                                 num_groups=ng)
+        tiles = dict(ts.tile_calls)
+        check(set(tiles) == {f"fwd{rows[0]}", f"bwd{rows[1]}"},
+              f"{name}: layer blocks launched at {tiles}, expected {rows}")
+        nm = 0 if cfg.mel is None else cfg.mel.num_mels
+        print(f"phase 21 {name}: R={cfg.residual_channels} "
+              f"S={cfg.skip_channels} nm={nm} run at "
+              f"{ts.padded_widths(cfg.residual_channels, cfg.skip_channels, nm)}"
+              f" layer_block_calls_by_rows={tiles} B={TS_TRAIN_B} T={TS_T} "
+              f"{json.dumps(nums)} card={card!r}", flush=True)
+        del params
+    trained = phase_train(ts, pwide, dev, card, phase=21,
+                          overrides=("residual_channels=256",),
+                          steps=WIDTH_STEPS, resume_at=WIDTH_RESUME_AT,
+                          rows=(64, 32), keep_model=True)
+    model = trained.pop("model")
+    w = pwide.flatten_params(model.params, model.cfg)
+    phase_kernel(pwide, model.cfg, w, dev, card, phase=21,
+                 steps=WIDTH_DECODE_STEPS)
+    print(f"phase 21 seconds={time.monotonic() - phase_t} card={card!r}",
+          flush=True)
+    return trained
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3038,6 +3169,7 @@ def main() -> int:
     phase_mesh(dev, card)
     phase_seqmodel(ts, dev, card, trained)
     phase_aot(dev, card)
+    phase_widths(ts, wn, pwide, dev, card)
     print(f"chip_smoke: every phase passed in {time.monotonic() - run_t} s",
           flush=True)
 

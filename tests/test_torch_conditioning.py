@@ -360,12 +360,15 @@ def test_cuda_tensor_with_mel_never_takes_the_plain_path(monkeypatch, which):
 
 
 def test_kernel_widths_with_mel():
-    """The kernels take num_mels multiples of 4 up to 2R (every mel preset);
-    other counts raise on the card instead of taking another path."""
+    """The kernels take every mel count the fused stack takes: every mel
+    preset, a count that is not a multiple of 4 (run padded to one) and
+    M > 2R, each at 64-row layer blocks."""
     for preset in ("conditional", "full_vocoder"):
         assert tts.kernel_supported(tconfig.get_config(preset)), preset
     assert tts.kernel_supported(_cfgs()[1])                 # M = 8, R = 16
     _, tc = _cfgs(mel=dict(MEL, num_mels=6))
-    assert not tts.kernel_supported(tc) and tts.supported(tc, T)
+    assert tts.kernel_supported(tc) and tts.supported(tc, T)
+    assert tts.padded_widths(16, 16, 6) == (16, 16, 8)
     _, tc = _cfgs(mel=dict(MEL, num_mels=40))               # M > 2R
-    assert not tts.kernel_supported(tc)
+    assert tts.kernel_supported(tc) and tts.supported(tc, T)
+    assert (tts.fwd_rows(16, 40), tts.bwd_rows(16, 16, 40)) == (64, 64)

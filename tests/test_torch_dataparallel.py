@@ -117,12 +117,12 @@ def test_seq_and_model_axes_still_raise(axis):
     if axis == "seq_parallel":
         assert mesh.mesh_shape(cfg, 2) == (1, 2, 1)
         assert mesh.mesh_shape(cfg.replace(data_parallel=0), 4) == (2, 2, 1)
-        assert choose_route(cfg, "cpu") == "sp_fused"
-        assert choose_route(cfg.replace(fused_stack=False), "cpu") == "sp"
+        assert choose_route(cfg) == "sp_fused"
+        assert choose_route(cfg.replace(fused_stack=False)) == "sp"
     else:
         assert mesh.mesh_shape(cfg, 2) == (1, 1, 2)
-        assert choose_route(cfg, "cpu") == "tp"      # 1 block: no stages
-        assert choose_route(cfg.replace(num_blocks=2), "cpu") == "pp"
+        assert choose_route(cfg) == "tp"      # 1 block: no stages
+        assert choose_route(cfg.replace(num_blocks=2)) == "pp"
     ds = AudioDataset.synthetic(tconfig.tiny().replace(train_window=128),
                                 num_clips=1, clip_seconds=0.05)
     with pytest.raises(ValueError, match="process group has 1.*torchrun"):

@@ -399,9 +399,8 @@ def test_model_axis_still_refused_by_training():
     scan), and the split it cannot make still raises."""
     from wavenet_tpu_torch.training.trainer import choose_route
     cfg = tconfig.tiny().replace(model_parallel=2, train_window=128)
-    assert choose_route(cfg, "cpu") == "tp"
-    assert choose_route(cfg.replace(num_blocks=2), "cpu") == "pp"
-    assert choose_route(cfg.replace(num_blocks=2, fused_stack=False),
-                        "cpu") == "tp"
+    assert choose_route(cfg) == "tp"
+    assert choose_route(cfg.replace(num_blocks=2)) == "pp"
+    assert choose_route(cfg.replace(num_blocks=2, fused_stack=False)) == "tp"
     with pytest.raises(ValueError, match="skip_channels=17"):
-        choose_route(cfg.replace(skip_channels=17, fused_stack=False), "cpu")
+        choose_route(cfg.replace(skip_channels=17, fused_stack=False))

@@ -199,7 +199,7 @@ def test_trainer_takes_the_scan():
                {"compute_dtype": "float32"}):
         tc = tconfig.WaveNetConfig(**dict(K3, batch_size=2, train_window=64,
                                           **kw))
-        assert not ttrainer.use_fused_stack(tc, tc.train_window, "cuda")
+        assert not ttrainer.use_fused_stack(tc, tc.train_window)
         ds = tds.AudioDataset.synthetic(tc, num_clips=2, clip_seconds=0.05)
         tr = ttrainer.Trainer(tc, ds, device="cpu")
         assert not tr.use_fused

@@ -465,6 +465,87 @@ def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))
 
 
+def _group_case(R, S, nm, speaker, B, T, dmax, seed):
+    """One layer group's inputs at widths (R, S, nm), with a speaker's
+    offsets g when `speaker`: (dils, ops, x, skip, y, g, dskip, dx_out)."""
+    cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
+                                residual_channels=R, skip_channels=S)
+    g = torch.Generator().manual_seed(seed)
+    dev = torch.device("cuda")
+    p = wn.init_params(cfg, g, dev)
+    dils = cfg.dilations
+    Lg = len(dils)
+    rnd = lambda *shape, sc: (torch.randn(*shape, generator=g) * sc).to(dev)
+    vc = rnd(Lg, nm, 2, R, sc=0.1) if nm else None
+    ops = ts.prep_weights(*(p[k] for k in ts.GROUP_KEYS), vc)
+    x = rnd(B, T, R, sc=0.5).to(torch.bfloat16).float()
+    y = rnd(B, T, nm, sc=2.0).to(torch.bfloat16) if nm else None
+    gc = rnd(B, Lg, 2 * R, sc=0.5) if speaker else None
+    return (dils, ops, x, rnd(B, T, S, sc=0.1), y, gc, rnd(B, T, S, sc=0.01),
+            rnd(B, T, R, sc=0.01))
+
+
+@pytest.mark.parametrize("R,S,nm,speaker,B,T,dmax,rows", [
+    (256, 256, 0, False, 2, 256, 16, (64, 32)),      # `full`, R = 256
+    (128, 1024, 0, False, 2, 200, 16, (64, 32)),     # `full`, S = 1,024
+    (128, 512, 0, True, 2, 200, 16, (64, 32)),       # S = 512, speakers
+    (192, 1024, 80, False, 2, 128, 8, (64, 32)),     # wide, with mel
+    (128, 1392, 0, False, 2, 128, 8, (64, 16)),      # 16 rows
+    (32, 16, 80, False, 2, 256, 16, (64, 64)),       # `tiny`, 80 mels
+    (8, 16, 24, True, 2, 200, 8, (64, 64)),          # nm > 2R, speakers
+    (30, 18, 0, True, 3, 200, 16, (64, 64)),         # padded to 32, 20
+    (18, 10, 6, False, 2, 200, 8, (64, 64))])        # padded to 20, 12, 8
+def test_train_stack_new_widths_match_plain(dev, R, S, nm, speaker, B, T,
+                                            dmax, rows):
+    """Widths the kernels refused before: their planned row tiles (the
+    forward's, the backward's), nm > 2R, and widths that are not multiples
+    of 4, run padded.  Kernel vs plain as at every other width: the
+    forward bit for bit, the gradients within the bands, two kernel runs
+    bit for bit, and the variant's launch count."""
+    dils, ops, x, skip, y, gc, dskip, dxo = _group_case(
+        R, S, nm, speaker, B, T, dmax, seed=9)
+    Rp, Sp, nmp = ts.padded_widths(R, S, nm)
+    assert (ts.fwd_rows(Rp, nmp), ts.bwd_rows(Rp, Sp, nmp)) == rows
+    Lg = len(dils)
+    c = ts._counters(nm, gc, True), ts._counters(nm, gc, False)
+    before = (c[0].value, c[1].value)
+    ts.tile_calls.clear()
+    kf = ts.group_fwd(x, skip, ops, dils, y, gc)
+    kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils, y, gc)
+    assert ts.tile_calls == {f"fwd{rows[0]}": 1, f"bwd{rows[1]}": 1}
+    assert (c[0].value, c[1].value) == (
+        before[0] + Lg + 1,
+        before[1] + (10 + 2 * bool(nm) + 2 * speaker) * Lg + 2)
+    pf = ts.group_fwd_reference(x, skip, ops, dils, y, gc)
+    pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils, y, gc)
+    assert all(torch.equal(a, b) for a, b in zip(kf, pf))
+    assert len(kb) == len(pb)
+    for a, b in zip(kb, pb):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+    kf2 = ts.group_fwd(x, skip, ops, dils, y, gc)
+    kb2 = ts.group_bwd(kf2[2], dskip, dxo, ops, dils, y, gc)
+    assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))
+
+
+@pytest.mark.parametrize("R,S,nm,speaker", [(128, 256, 0, False),
+                                            (64, 96, 20, True),
+                                            (20, 12, 0, False)])
+def test_train_stack_row_tiles_give_the_same_bits(dev, R, S, nm, speaker):
+    """Every row tile computes each element's sum the same way, so a
+    layer group forced to 32 and 16 rows gives the 64-row result bit for
+    bit, forward and backward (T = 200: tiles that straddle batch rows)."""
+    dils, ops, x, skip, y, gc, dskip, dxo = _group_case(
+        R, S, nm, speaker, 2, 200, 16, seed=10)
+    runs = []
+    for rows in ts.ROW_TILES:
+        kf = ts.group_fwd(x, skip, ops, dils, y, gc, rows=rows)
+        runs.append(kf + ts.group_bwd(kf[2], dskip, dxo, ops, dils, y, gc,
+                                      rows=rows))
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
 def _narrow_cfg(R, variant):
     """The widths of the reference's decode tests (R = S = 16), `tiny`
     (R = 32, S = 16) and `fastgen_bench` (R = 64, S = 128), 8 layers, with

@@ -226,9 +226,12 @@ def test_group_plan_with_speakers_matches_reference(case):
     if want is not None:
         assert plan == want
         assert tts.group_plan(tc.replace(global_classes=None), TT) != want
-    # the kernels take R = 64, S = 512, not R = 128, S = 512 (their
-    # backward tile would need 240 KiB of shared memory)
-    assert tts.kernel_supported(tc) == (case != "full_s512")
+    # the kernels take every one: R = 128, S = 512 with backward blocks of
+    # 32 rows (64 would need 240 KiB of shared memory), the rest at 64
+    assert tts.kernel_supported(tc)
+    R, S = tc.residual_channels, tc.skip_channels
+    nm = 0 if tc.mel is None else tc.mel.num_mels
+    assert tts.bwd_rows(R, S, nm) == (32 if case == "full_s512" else 64)
 
 
 def _write_wav(path, n, seed):

@@ -243,20 +243,22 @@ def test_entry_points_default_to_cuda():
 
 
 def test_trainer_route_follows_the_reference():
-    """fused_stack and supported(cfg, T) alone pick the fused stack, on
-    either device; on the card, widths the kernels do not take refuse to
-    train instead of taking the scan (checked before any CUDA call)."""
+    """fused_stack and supported(cfg, T) alone pick the fused stack, the
+    same on either device: on the card the stack kernels take every width
+    supported() takes (R = 18 runs padded to 20), so a width not a
+    multiple of 4 trains fused too, as in the reference."""
+    from wavenet_tpu_torch.ops.cuda import train_stack as tts
     tiny = tconfig.tiny()
-    assert ttrainer.use_fused_stack(tiny, tiny.train_window, "cuda")
-    assert ttrainer.use_fused_stack(tiny, tiny.train_window, "cpu")
+    assert ttrainer.use_fused_stack(tiny, tiny.train_window)
     assert not ttrainer.use_fused_stack(
-        tiny.replace(fused_stack=False), tiny.train_window, "cuda")
-    assert not ttrainer.use_fused_stack(tiny, 100, "cuda")  # untileable
+        tiny.replace(fused_stack=False), tiny.train_window)
+    assert not ttrainer.use_fused_stack(tiny, 100)  # untileable
     _, tc = _cfgs(residual_channels=18)
-    assert ttrainer.use_fused_stack(tc, tc.train_window, "cpu")
+    assert ttrainer.use_fused_stack(tc, tc.train_window)
+    assert tts.kernel_supported(tc)
     ds = tds.AudioDataset.synthetic(tc, num_clips=1, clip_seconds=0.05)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.Trainer(tc, ds, device="cuda")
+    tr = ttrainer.Trainer(tc, ds, device="cpu")
+    assert tr.route == "dp" and tr.use_fused
 
 
 @pytest.mark.parametrize("case", ["data_parallel", "model_parallel",

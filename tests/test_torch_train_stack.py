@@ -23,7 +23,7 @@ from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.models import wavenet as twn
 from wavenet_tpu_torch.ops import shift as tshift
 from wavenet_tpu_torch.ops.cuda import train_stack as tts
-from wavenet_tpu_torch.utils.pytree_io import params_from_numpy
+from wavenet_tpu_torch.utils.pytree_io import flatten_tree, params_from_numpy
 
 torch.set_num_threads(1)
 
@@ -267,16 +267,168 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch, which):
     assert not calls
 
 
-def test_kernel_refuses_widths_it_does_not_take():
-    """The kernels take R, S multiples of 4 within one block's shared
-    memory (every preset); on a CUDA tensor other widths raise
-    NotImplementedError naming the ROADMAP item, never another path."""
-    for preset in ("tiny", "small", "full", "fastgen_bench"):
-        assert tts.kernel_supported(tconfig.get_config(preset)), preset
-    assert tts.kernel_supported(_cfgs()[1])             # R = S = 16
-    assert not tts.kernel_supported(_cfgs(residual_channels=256)[1])
-    _, tc = _cfgs(residual_channels=18)
-    assert not tts.kernel_supported(tc) and tts.supported(tc, T)
-    x = _OnCuda(torch.zeros(2, T, 18))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tts.forward_skip_fused({}, tc, x)
+class _Lib:
+    """Records every call of the library's entry points."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+def _meta_params(tc):
+    """The stack's params of tc as meta tensors that need grads."""
+    L, R, S = tc.num_layers, tc.residual_channels, tc.skip_channels
+    shapes = {"w_cur": (L, R, 2, R), "w_prev": (L, R, 2, R), "b": (L, 2, R),
+              "w_res": (L, R, R), "b_res": (L, R), "w_skip": (L, R, S),
+              "b_skip": (L, S)}
+    if tc.mel is not None:
+        shapes["v_cond"] = (L, tc.mel.num_mels, 2, R)
+    return {k: torch.empty(*v, device="meta", requires_grad=True)
+            for k, v in shapes.items()}
+
+
+def test_kernel_refuses_widths_it_does_not_take(monkeypatch):
+    """No width that supported() takes is refused any more: `full` at
+    R = 256 (a backward block of 32 rows), R = 18 (padded to 20) and
+    `tiny` with 80 mels (nm > 2R) reach the library, forward and
+    backward, with the planned row tile and the padded widths, and nothing
+    raises.  Traced on meta tensors that the wrappers take for CUDA ones,
+    with the library, the device and the stream stubbed."""
+    import contextlib
+    import ctypes
+    import types
+    lib = _Lib()
+    monkeypatch.setattr(tts, "_prepare", lambda x, dils, what: (
+        lib, tuple(x.shape), (ctypes.c_int * len(dils))(*dils)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    cases = [(tconfig.full().replace(residual_channels=256), 8192,
+              (256, 256, 0), (64, 32), 40),
+             (_cfgs(residual_channels=18)[1], T, (20, 16, 0), (64, 64), 1),
+             (tconfig.tiny().replace(mel=tconfig.MelConfig()), 2048,
+              (32, 16, 80), (64, 64), 1)]
+    for tc, T_, widths, rows, groups in cases:
+        assert tts.supported(tc, T_) and tts.kernel_supported(tc)
+        assert len(tts.group_plan(tc, tts.pick_tile(tc, T_))) == groups
+        lib.calls.clear()
+        params = _meta_params(tc)
+        x = torch.empty(2, T_, tc.residual_channels, device="meta",
+                        requires_grad=True)
+        y = None if tc.mel is None else torch.empty(
+            2, T_, tc.mel.num_mels, device="meta")
+        skip = tts.forward_skip_fused(params, tc, x, y=y)
+        assert skip.shape == (2, T_, tc.skip_channels)
+        skip.sum().backward()
+        assert x.grad.shape == x.shape
+        assert all(p.grad.shape == p.shape for p in params.values())
+        R, S, nm = widths
+        fwd = [a for n, a in lib.calls if n == "wn_ts_group_fwd"]
+        bwd = [a for n, a in lib.calls if n == "wn_ts_group_bwd"]
+        assert len(fwd) == len(bwd) == groups
+        for a in fwd:
+            assert a[18:23] == (R, S, nm, rows[0],
+                                tts._fwd_smem(R, nm, rows[0]))
+            assert a[22] <= 227 * 1024
+        for a in bwd:
+            assert a[13:16] == (R, S, nm)
+            assert a[-4:-2] == (rows[1], tts._bwd_smem(R, S, nm, rows[1]))
+            assert a[-3] <= 227 * 1024
+
+
+PADDED = {"r18_s10": dict(residual_channels=18, skip_channels=10),
+          "r18_s10_speaker": dict(residual_channels=18, skip_channels=10,
+                                  global_classes=5, global_channels=8),
+          "r8_mel24": dict(residual_channels=8, skip_channels=16, mel=24)}
+
+
+@pytest.mark.parametrize("case", list(PADDED))
+def test_padded_widths_match_plain_and_jax(case, monkeypatch):
+    """The route the kernels take at these widths, through the plain
+    versions: pad_ops and the padded inputs (R, S to multiples of 4) ->
+    plain group forward and backward -> cut back.  (1) Over the whole
+    stack against the unpadded plain version: the skip sum and every
+    layer input bit for bit (a padded channel adds exact zeros), each
+    gradient within 1e-5 of its largest element (f32 sums over more,
+    zero, terms).  (2) The loss and every gradient through the fused
+    stack against the JAX package's fused stack in Pallas interpret mode,
+    within the reference suite's bands; nm = 24 > 2R at R = 8 too."""
+    from functools import partial
+    kw = dict(PADDED[case], num_blocks=1)
+    nm = kw.pop("mel", 0)
+    if nm:
+        mel = dict(num_mels=nm, hop_length=16, win_length=64, fmax=4000.0,
+                   upsample_factors=(4, 4))
+        jc, tc = _cfgs(mel=jconfig.MelConfig(**mel), **kw)
+        tc = tc.replace(mel=tconfig.MelConfig(**mel))
+    else:
+        jc, tc = _cfgs(**kw)
+    jp, npp = _params(jc)
+    B = 3
+    toks = _tokens(B, T + 1)
+    ids = np.array([3, 1, 3], np.int32)
+    frames = np.random.RandomState(3).randn(B, T // 16, nm).astype(
+        np.float32)
+    jkw, tkw = {}, {}
+    if nm:
+        jkw["mel"], tkw["mel"] = jnp.asarray(frames), torch.from_numpy(frames)
+    if tc.global_classes is not None:
+        jkw["speaker"], tkw["speaker"] = jnp.asarray(ids), torch.from_numpy(
+            ids)
+    fwd = partial(tts.fwd_padded, tts.group_fwd_reference)
+    bwd = partial(tts.bwd_padded, tts.group_bwd_reference)
+
+    # (1) the stack, padded against unpadded
+    tp = params_from_numpy(npp, "cpu")
+    t = torch.from_numpy(toks[:, :-1])
+    with torch.no_grad():
+        x = twn.embed_tokens(tp, tc, t, twn._shifted_tokens(t))
+        y = g = None
+        if nm:
+            y = torch.from_numpy(np.random.RandomState(4).randn(
+                B, T, nm).astype(np.float32)).to(torch.bfloat16)
+        if tc.global_classes is not None:
+            g = twn.global_cond_offsets(tp, tc, torch.from_numpy(ids))
+        groups = tts.group_plan(tc, tts.pick_tile(tc, T))
+        ct = torch.from_numpy(np.random.RandomState(5).randn(
+            B, T, tc.skip_channels).astype(np.float32))
+        want = tts.stack_forward(tp, tc, groups, x,
+                                 tts.group_fwd_reference, y, g)
+        got = tts.stack_forward(tp, tc, groups, x, fwd, y, g)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a[2], b[2])
+        gw = tts.stack_backward(want[1], ct, tts.group_bwd_reference, y)
+        gg = tts.stack_backward(got[1], ct, bwd, y)
+    assert [n for n, _ in gg] == [n for n, _ in gw]
+    for (n, a), (_, b) in zip(gg, gw):
+        assert a.shape == b.shape, n
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), n
+
+    # (2) the loss and its gradients against JAX's fused stack
+    monkeypatch.setattr(tts, "group_fwd", fwd)
+    monkeypatch.setattr(tts, "group_bwd", bwd)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jwn.loss_fn(p, jc, jnp.asarray(toks), use_fused=True,
+                              interpret=True, **jkw), has_aux=True)(jp)
+    tpl = params_from_numpy(npp, "cpu")
+    flat = flatten_tree(tpl)
+    for v in flat.values():
+        v.requires_grad_(True)
+    tl, _ = twn.loss_fn(tpl, tc, torch.from_numpy(toks), use_fused=True,
+                        **tkw)
+    tg = torch.autograd.grad(tl, list(flat.values()))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=2e-3)
+    jflat = flatten_tree(jax.tree.map(np.asarray, jg))
+    assert sorted(jflat) == sorted(flat)
+    for k, gr in zip(flat, tg):
+        a = np.asarray(jflat[k], np.float32)
+        scale = max(np.abs(a).max(), 1e-3)
+        np.testing.assert_allclose(gr.numpy() / scale, a / scale, atol=2e-2,
+                                   err_msg=k)

@@ -33,14 +33,14 @@
 //
 // What the design does about it, and what it leaves for later:
 //   * The TPU walks time tiles of one batch row in sequence on one core and
-//     carries each layer's causal context in rings.  Here every 64-row tile
-//     is its own block (B*T/64 blocks per layer launch, all SMs busy), and
-//     the causal operand x[t - d] is read straight from the layer's input in
-//     device memory, so there are no rings and no snapshots.  The price is
-//     one launch per layer and the layer inputs kept in device memory: the
-//     forward stores each layer's bf16 input, [Lg + 1, B, T, R] per group
-//     (the TPU's `xs` stash; ~0.75 GB at `full`), which the backward reads
-//     instead of recomputing the group.
+//     carries each layer's causal context in rings.  Here every row tile
+//     is its own block (B*T / TM blocks per layer launch, all SMs busy),
+//     and the causal operand x[t - d] is read straight from the layer's
+//     input in device memory, so there are no rings and no snapshots.  The
+//     price is one launch per layer and the layer inputs kept in device
+//     memory: the forward stores each layer's bf16 input, [Lg + 1, B, T, R]
+//     per group (the TPU's `xs` stash; ~0.75 GB at `full`), which the
+//     backward reads instead of recomputing the group.
 //   * The transposed causal shift (dx[t] += dprev[t + d]) reads rows that
 //     another block writes, so it is its own elementwise pass.
 //   * The mel term is one more block product in each layer kernel, summed
@@ -50,8 +50,8 @@
 //     kernel's epilogue: one block owns a row per launch, so there are no
 //     atomics and the order is fixed.
 //   * The speaker term g [B, Lg, 2R] is time-constant: each tile row m adds
-//     the offset of its own batch row m / T (a 64-row tile spans two batch
-//     rows whenever T % 64 != 0).  dg is a column sum of dz segmented by
+//     the offset of its own batch row m / T (a tile spans two batch rows
+//     whenever T is not a multiple of its rows).  dg is a column sum of dz segmented by
 //     batch row: partial sums over splits that never straddle two rows,
 //     then each row's splits added in order.
 //   * Weight gradients are reductions over all B*T rows.  They run as
@@ -81,6 +81,17 @@
 //     shared memory and the recomputed h equals the forward's bit for bit.  A
 //     forward block needs 82 KiB of shared memory at `full` (93 KiB with
 //     mel): two blocks per SM.
+//   * A layer block's row tile is a template parameter (Warps<TM>): 64
+//     rows at every preset, 32 or 16 where the widths make a block of 64
+//     rows larger than an SM's 227 KiB (every shared-memory term but the
+//     W stages is TM x a row's width: at R = S = 256 the backward's 64-row
+//     block needs 272 KiB, its 32-row one 144 KiB).  The 8 warps keep
+//     their 16-row slabs and split a pass's 128 columns among more column
+//     groups, so each warp holds TM / 8 n8 tiles; each output element's
+//     sum, and so every result, is the same at every tile.  Widths that
+//     are not multiples of 4 are zero-padded by the wrapper
+//     (ops/cuda/train_stack.py: pad_ops), which changes no bit of the
+//     forward's real channels.
 //   * The backward's products that carry an f32 cotangent (mma_pass_t:
 //     dh = dcat @ Wrs^T, dboth = dz @ Wz^T, with mel dy = dz @ V_cond^T,
 //     and the weight gradients dWz = xcat^T dz, dWrs = h^T dcat, dV_cond
@@ -123,7 +134,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kTM = 64;         // rows per block in the row kernels
 constexpr int kKC = 32;         // contraction rows of W staged at a time
 constexpr int kNP = 128;        // output columns per pass
 constexpr int kStage = kKC * kNP;   // bf16 elements of one W stage
@@ -193,17 +203,35 @@ __device__ __forceinline__ int wsd(int k, int c) {
   return k * kNP + (c ^ ((k & 3) << 2));
 }
 
+// The warps of a layer block over its row tile of TM rows (64, 32 or 16)
+// and a pass's 128 columns: TM / 16 slabs of 16 rows by 128 TM / 16
+// columns, warp w owning rows 16 (w % (TM / 16)) + [0, 16) and the
+// columns of its column group w / (TM / 16), TM / 8 n8 tiles.  At 64 rows
+// that is 4 x 2 warps of eight tiles; at 32, 2 x 4 of four; at 16, 1 x 8
+// of two.  Each output element's sum is the same at every TM.
+template <int TM>
+struct Warps {
+  static_assert(TM == 64 || TM == 32 || TM == 16, "row tile");
+  static constexpr int kSlabs = TM / 16;
+  static constexpr int kNT = TM / 8;       // n8 tiles a warp
+  __device__ static int slab() { return (threadIdx.x >> 5) % kSlabs; }
+  __device__ static int group() { return (threadIdx.x >> 5) / kSlabs; }
+};
+
 // The stage column of n8 tile j of this thread's warp in mma_pass: warp w
-// owns columns 64 (w / 4) + [0, 64); with kGate, tiles 0-3 are columns
-// 32 (w / 4) + [0, 32) of the pass's first half (z_f) and tiles 4-7 the
-// same columns of its second half (z_g).
-template <bool kGate>
+// owns columns 8 kNT group(w) + [0, 8 kNT); with kGate, tiles
+// [0, kNT / 2) are columns 4 kNT group(w) + [0, 4 kNT) of the pass's
+// first half (z_f) and the other tiles the same columns of its second
+// half (z_g).
+template <bool kGate, int TM>
 __device__ __forceinline__ int pass_col(int j) {
-  const int wc = threadIdx.x >> 7;
-  return kGate ? (j >> 2) * 64 + wc * 32 + (j & 3) * 8 : wc * 64 + j * 8;
+  constexpr int kNT = Warps<TM>::kNT, kH = kNT / 2;
+  const int wc = Warps<TM>::group();
+  return kGate ? (j / kH) * 64 + wc * (kH * 8) + (j % kH) * 8
+               : wc * (kNT * 8) + j * 8;
 }
 
-// One pass of out = A . W over a 64-row by 128-column output tile on the
+// One pass of out = A . W over a TM-row by 128-column output tile on the
 // f64 tensor cores, both operands bf16: every product is exact in f64, and
 // so is their sum while the terms lie within ~2^37 of each other (a bf16
 // product carries 16 significand bits; beyond that f64 rounds 29 bits
@@ -212,12 +240,13 @@ __device__ __forceinline__ int pass_col(int j) {
 // rounded to float32) gives the same bits; an f32 sum in another order
 // than the plain version's would not, and a 40-layer stack carries such
 // last-bit differences into its bf16 roundings (utils/stack_drift.py).
-// A: [64][tile_ld(K)] bf16 in shared memory (stage_rows), widened to f64
+// A: [TM][tile_ld(K)] bf16 in shared memory (stage_rows), widened to f64
 // as its fragments are read.  W(k, n) = w[k * ldw + n]: stage column c is
 // W's column n0 + c, or with kGate n0 + c for c < 64 and n1 + c - 64
 // above; it reads as zero where n0 + c (kGate: n0 + c % 64) reaches lim.
-// K is a multiple of 4.  Warp w owns rows 16 (w % 4) + [0, 16) and eight
-// n8 tiles at stage columns pass_col(j), out[j] the C fragment of tile j.
+// K is a multiple of 4.  Warp w owns rows 16 slab(w) + [0, 16) and kNT
+// n8 tiles at stage columns pass_col(j), out[j] the C fragment of tile j
+// (Warps<TM>).
 // W is widened to f64 once, as it is staged: each thread loads its share
 // of the next stage into registers while the warps multiply the current
 // one, then stores it widened into the other of two stages of [kD][128]
@@ -225,15 +254,16 @@ __device__ __forceinline__ int pass_col(int j) {
 // Waits for the caller's committed copies and starts with a barrier, so
 // the caller's writes to A_s are seen; the caller may write A_s or W_s
 // again only after another barrier.
-template <bool kGate, int kD>
+template <bool kGate, int kD, int TM>
 __device__ __forceinline__ void mma_pass(const bf16* A_s, int K,
                                          const bf16* __restrict__ w, int ldw,
                                          int n0, int n1, int lim, double* W_s,
-                                         float out[8][4]) {
+                                         float out[][4]) {
+  constexpr int kNT = Warps<TM>::kNT;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  double acc[8][4];
+  double acc[kNT][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[j][v] = 0.0;
   // this thread's share of a stage: rows sk + 8 i, columns sc + [0, 4)
@@ -267,10 +297,11 @@ __device__ __forceinline__ void mma_pass(const bf16* A_s, int K,
   // column g of each n8 tile
   const int ld = tile_ld(K);
   const uint16_t* a_row = reinterpret_cast<const uint16_t*>(A_s) +
-                          (((tid >> 5) & 3) * 16 + g) * ld + t;
-  int b_col[8];
+                          (Warps<TM>::slab() * 16 + g) * ld + t;
+  int b_col[kNT];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) b_col[j] = (pass_col<kGate>(j) + g) ^ (t << 2);
+  for (int j = 0; j < kNT; ++j)
+    b_col[j] = (pass_col<kGate, TM>(j) + g) ^ (t << 2);
   const double* const b_row = W_s + t * kNP;
   const int ns = (K + kD - 1) / kD;
   cp_async_wait0();
@@ -287,27 +318,27 @@ __device__ __forceinline__ void mma_pass(const bf16* A_s, int K,
       if (k >= K) break;
       const double a0 = bf2d(a_row[k]), a1 = bf2d(a_row[8 * ld + k]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kNT; ++j)
         mma_f64(acc[j], a0, a1, Wb[kk * kNP + b_col[j]]);
     }
     if (s + 1 < ns) put((s + 1) & 1);
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
     for (int v = 0; v < 4; ++v) out[j][v] = (float)acc[j][v];
 }
 
-// Stage rows [m0, m0 + 64) of a bf16 operand with K columns (a multiple
-// of kC) into dst [64][tile_ld(K)] by cp.async, kC columns a copy (8: 16
+// Stage rows [m0, m0 + TM) of a bf16 operand with K columns (a multiple
+// of kC) into dst [TM][tile_ld(K)] by cp.async, kC columns a copy (8: 16
 // bytes, where every source chunk is 16-byte aligned; else 4): src(m, k)
 // is the address of columns [k, k + kC) of row m, or null for zeros.
 // Rows past M are zero.  Not committed.
-template <int kC, class Src>
+template <int kC, int TM, class Src>
 __device__ __forceinline__ void stage_rows(bf16* dst, int K, int m0, int M,
                                            const bf16* base, Src src) {
   const int ld = tile_ld(K), nc = K / kC;
-  for (int e = threadIdx.x; e < kTM * nc; e += kThreads) {
+  for (int e = threadIdx.x; e < TM * nc; e += kThreads) {
     const int r = e / nc, k = (e - r * nc) * kC, m = m0 + r;
     const bf16* p = m < M ? src(m, k) : nullptr;
     if (kC == 8)
@@ -319,6 +350,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int K, int m0, int M,
 
 // The tile's xcat = [x | x[t - d]] (zero for t % T < d) from the layer
 // input xs [M][R] bf16.
+template <int TM>
 __device__ __forceinline__ void stage_xcat(bf16* dst,
                                            const bf16* __restrict__ xs,
                                            int m0, int M, int T, int R,
@@ -328,21 +360,22 @@ __device__ __forceinline__ void stage_xcat(bf16* dst,
     return m % T < d ? nullptr : xs + (size_t)(m - d) * R + (k - R);
   };
   if (R % 8 == 0)
-    stage_rows<8>(dst, 2 * R, m0, M, xs, src);
+    stage_rows<8, TM>(dst, 2 * R, m0, M, xs, src);
   else
-    stage_rows<4>(dst, 2 * R, m0, M, xs, src);
+    stage_rows<4, TM>(dst, 2 * R, m0, M, xs, src);
 }
 
 // The tile's mel features y [M][nm] bf16.
+template <int TM>
 __device__ __forceinline__ void stage_y(bf16* dst, const bf16* __restrict__ y,
                                         int m0, int M, int nm) {
   auto src = [=](int m, int k) -> const bf16* {
     return y + (size_t)m * nm + k;
   };
   if (nm % 8 == 0)
-    stage_rows<8>(dst, nm, m0, M, y, src);
+    stage_rows<8, TM>(dst, nm, m0, M, y, src);
   else
-    stage_rows<4>(dst, nm, m0, M, y, src);
+    stage_rows<4, TM>(dst, nm, m0, M, y, src);
 }
 
 // z and the gate over the tile, one function for both layer kernels, so
@@ -355,7 +388,7 @@ __device__ __forceinline__ void stage_y(bf16* dst, const bf16* __restrict__ y,
 // and z_g columns (mma_pass<true>), so every thread holds both z of its
 // gate columns and z stays in registers.  The mel term is summed in its
 // own accumulator; gl: the layer's speaker offsets (row b at gl + b gs).
-template <int kD, class Epi>
+template <int kD, int TM, class Epi>
 __device__ __forceinline__ void z_gate(const bf16* xc_s, const bf16* y_s,
                                        double* W_s,
                                        const bf16* __restrict__ wz,
@@ -364,15 +397,17 @@ __device__ __forceinline__ void z_gate(const bf16* xc_s, const bf16* y_s,
                                        const float* __restrict__ gl, int gs,
                                        int m0, int M, int T, int R, int nm,
                                        Epi epi) {
+  constexpr int kNT = Warps<TM>::kNT, kH = kNT / 2;
   const int R2 = 2 * R, lane = threadIdx.x & 31;
-  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);   // and r0 + 8
+  const int r0 = Warps<TM>::slab() * 16 + (lane >> 2);   // and r0 + 8
   const int cb = (lane & 3) * 2;
   for (int c0 = 0; c0 < R; c0 += kNP / 2) {
-    float z[8][4];
-    mma_pass<true, kD>(xc_s, R2, wz, R2, c0, R + c0, R, W_s, z);
+    float z[kNT][4];
+    mma_pass<true, kD, TM>(xc_s, R2, wz, R2, c0, R + c0, R, W_s, z);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + pass_col<true>(j & 3) + cb, n = (j >> 2) * R + c;
+    for (int j = 0; j < kNT; ++j) {
+      const int c = c0 + pass_col<true, TM>(j % kH) + cb;
+      const int n = (j / kH) * R + c;
       if (c >= R) continue;
       const float2 bv = *reinterpret_cast<const float2*>(b + n);
       z[j][0] += bv.x;
@@ -381,10 +416,10 @@ __device__ __forceinline__ void z_gate(const bf16* xc_s, const bf16* y_s,
       z[j][3] += bv.y;
     }
     if (nm) {
-      float zy[8][4];
-      mma_pass<true, kD>(y_s, nm, vc, R2, c0, R + c0, R, W_s, zy);
+      float zy[kNT][4];
+      mma_pass<true, kD, TM>(y_s, nm, vc, R2, c0, R + c0, R, W_s, zy);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int v = 0; v < 4; ++v) z[j][v] += zy[j][v];
     }
@@ -395,26 +430,26 @@ __device__ __forceinline__ void z_gate(const bf16* xc_s, const bf16* y_s,
         if (m >= M) continue;
         const float* gr = gl + (size_t)(m / T) * gs;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = c0 + pass_col<true>(j & 3) + cb;
+        for (int j = 0; j < kNT; ++j) {
+          const int c = c0 + pass_col<true, TM>(j % kH) + cb;
           if (c >= R) continue;
           const float2 gv =
-              *reinterpret_cast<const float2*>(gr + (j >> 2) * R + c);
+              *reinterpret_cast<const float2*>(gr + (j / kH) * R + c);
           z[j][2 * h] += gv.x;
           z[j][2 * h + 1] += gv.y;
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + pass_col<true>(j) + cb;
+    for (int j = 0; j < kH; ++j) {
+      const int c = c0 + pass_col<true, TM>(j) + cb;
       if (c >= R) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         epi(r0 + 8 * h, c,
             make_float2(tanhf(z[j][2 * h]), tanhf(z[j][2 * h + 1])),
-            make_float2(sigmoidf(z[j + 4][2 * h]),
-                        sigmoidf(z[j + 4][2 * h + 1])));
+            make_float2(sigmoidf(z[j + kH][2 * h]),
+                        sigmoidf(z[j + kH][2 * h + 1])));
     }
   }
 }
@@ -423,6 +458,8 @@ __device__ __forceinline__ void z_gate(const bf16* xc_s, const bf16* y_s,
 // forward: one layer over all B*T rows
 // ---------------------------------------------------------------------------
 
+// One block a tile of TM rows (Warps<TM>).
+template <int TM>
 __global__ void __launch_bounds__(kThreads, 2)
 fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
                  bf16* __restrict__ xs_out, float* __restrict__ x_out,
@@ -434,15 +471,16 @@ fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
                  int gs, int M, int T, int R, int S, int nm, int d) {
   extern __shared__ float smem[];
   const int NO = R + S, ldh = tile_ld(R);
-  bf16* xc_s = reinterpret_cast<bf16*>(smem);   // xcat [64][tile_ld(2R)]
-  bf16* h_s = xc_s + kTM * tile_ld(2 * R);      // h [64][tile_ld(R)]
-  bf16* y_s = h_s + kTM * ldh;                  // y [64][tile_ld(nm)]
-  double* W_s = reinterpret_cast<double*>(y_s + kTM * (nm ? tile_ld(nm) : 0));
-  const int m0 = blockIdx.x * kTM;
-  stage_xcat(xc_s, xs_in, m0, M, T, R, d);
-  if (nm) stage_y(y_s, y, m0, M, nm);
+  constexpr int kNT = Warps<TM>::kNT;
+  bf16* xc_s = reinterpret_cast<bf16*>(smem);   // xcat [TM][tile_ld(2R)]
+  bf16* h_s = xc_s + TM * tile_ld(2 * R);       // h [TM][tile_ld(R)]
+  bf16* y_s = h_s + TM * ldh;                   // y [TM][tile_ld(nm)]
+  double* W_s = reinterpret_cast<double*>(y_s + TM * (nm ? tile_ld(nm) : 0));
+  const int m0 = blockIdx.x * TM;
+  stage_xcat<TM>(xc_s, xs_in, m0, M, T, R, d);
+  if (nm) stage_y<TM>(y_s, y, m0, M, nm);
   cp_async_commit();
-  z_gate<kKD>(xc_s, y_s, W_s, wz, b, vc, gl, gs, m0, M, T, R, nm,
+  z_gate<kKD, TM>(xc_s, y_s, W_s, wz, b, vc, gl, gs, m0, M, T, R, nm,
          [&](int r, int c, float2 tf, float2 sg) {
            *reinterpret_cast<__nv_bfloat162*>(h_s + r * ldh + c) =
                __floats2bfloat162_rn(tf.x * sg.x, tf.y * sg.y);
@@ -451,14 +489,14 @@ fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
   // Every carry and skip element is read before any is written: skip_out
   // may be skip_in, so a store would hold back the loads after it.
   const int lane = threadIdx.x & 31, cb = (lane & 3) * 2;
-  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
-  float acc[8][4];
+  const int r0 = Warps<TM>::slab() * 16 + (lane >> 2);
+  float acc[kNT][4];
   for (int n0 = 0; n0 < NO; n0 += kNP) {
-    mma_pass<false, kKD>(h_s, R, wrs, NO, n0, 0, NO, W_s, acc);
-    float2 in[8][2];   // the carry (n < R) or skip (n >= R) at each pair
+    mma_pass<false, kKD, TM>(h_s, R, wrs, NO, n0, 0, NO, W_s, acc);
+    float2 in[kNT][2];   // the carry (n < R) or skip (n >= R) at each pair
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + pass_col<false>(j) + cb;
+    for (int j = 0; j < kNT; ++j) {
+      const int n = n0 + pass_col<false, TM>(j) + cb;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + r0 + 8 * h;
@@ -470,8 +508,8 @@ fwd_layer_kernel(const bf16* __restrict__ xs_in, float* __restrict__ carry,
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + pass_col<false>(j) + cb;
+    for (int j = 0; j < kNT; ++j) {
+      const int n = n0 + pass_col<false, TM>(j) + cb;
       if (n >= NO) continue;
       const float2 bv = *reinterpret_cast<const float2*>(
           n < R ? bres + n : bskip + (n - R));
@@ -525,12 +563,12 @@ __device__ __forceinline__ int wsw(int n, int k) {
   return n * kKC + ((((k >> 3) ^ (n >> 1)) & 3) << 3) + (k & 7);
 }
 
-// One pass of acc = A . W^T over a 64-row by 128-column output tile on the
-// tensor cores.  A: f32 [64][K] in shared memory, laid out by swz; W(n, k)
-// = w[n * ldw + k] bf16, columns n = n0 + c for c < 128, rows n >= N read
-// as zero.  Warp w owns rows 16 (w % 4) + [0, 16) and columns
-// 64 (w / 4) + [0, 64): eight n8 tiles, acc[j] the C fragment of tile j
-// (frag_row / frag_col).  The A fragment is split hi/mid/lo in registers
+// One pass of acc = A . W^T over a TM-row by 128-column output tile on
+// the tensor cores.  A: f32 [TM][K] in shared memory, laid out by swz;
+// W(n, k) = w[n * ldw + k] bf16, columns n = n0 + c for c < 128, rows
+// n >= N read as zero.  Warp w owns rows 16 slab(w) + [0, 16) and columns
+// 8 kNT group(w) + [0, 8 kNT): kNT n8 tiles (Warps<TM>), acc[j] the C
+// fragment of tile j (frag_row / frag_col).  The A fragment is split hi/mid/lo in registers
 // (split3) and each tile takes three MMAs into a per-stage sum added to
 // acc; W is staged as bf16 by cp.async in two stages of [128][32] (W_s:
 // 16 KiB), one barrier a stage.
@@ -538,14 +576,16 @@ __device__ __forceinline__ int wsw(int n, int k) {
 // read unswizzled and masked (both operands zero past K).  Starts with a
 // barrier, so the caller's writes to A_s are seen; the caller may write
 // A_s or W_s again only after another barrier.
+template <int TM>
 __device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
                                            const bf16* __restrict__ w,
                                            int ldw, int N, int n0, bf16* W_s,
-                                           float acc[8][4]) {
-  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+                                           float acc[][4]) {
+  constexpr int kNT = Warps<TM>::kNT;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
   // this thread's copies: slice rows cn + 32 i, columns ck + [0, 4)
@@ -564,7 +604,7 @@ __device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
   // this thread's fragment reads: A rows r0 and r0 + 8 (both r = g mod 8)
   // at slice columns a_col[k16][h] = 16 k16 + 8 h + 2 t, swizzled; B row
   // c0 + 8 j of the slice at columns 8 u + 2 t: b_base + 8 j kKC + b_off[u]
-  const int r0 = (wp & 3) * 16 + g;
+  const int r0 = Warps<TM>::slab() * 16 + g;
   const float* const a_row = A_s + r0 * K;
   int a_col[2][2], b_off[4];
 #pragma unroll
@@ -572,7 +612,7 @@ __device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
     a_col[u >> 1][u & 1] = (8 * u + 2 * t) ^ (g << 2);
     b_off[u] = (((u ^ (g >> 1)) & 3) << 3) + 2 * t;
   }
-  const int b_base = ((wp >> 2) * 64 + g) * kKC;
+  const int b_base = (Warps<TM>::group() * kNT * 8 + g) * kKC;
   const int ns = (K + kKC - 1) / kKC, nsw = K / kKC;
   __syncthreads();
   stage(0, 0);
@@ -601,7 +641,7 @@ __device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
                              : make_float2(0.f, 0.f);
         }
       }
-    float sacc[8][4] = {};   // this stage's sum
+    float sacc[kNT][4] = {};   // this stage's sum
 #pragma unroll
     for (int k16 = 0; k16 < 2; ++k16) {
       if (s * kKC + 16 * k16 >= K) break;
@@ -610,7 +650,7 @@ __device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
       for (int q = 0; q < 4; ++q)
         split3(a[k16][q].x, a[k16][q].y, hi[q], mid[q], lo[q]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kNT; ++j) {
         const uint32_t b[2] = {
             *reinterpret_cast<const uint32_t*>(Wb + j * 8 * kKC +
                                                b_off[2 * k16]),
@@ -622,39 +662,44 @@ __device__ __forceinline__ void mma_pass_t(const float* A_s, int K,
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[j][v] += sacc[j][v];
   }
 }
 
-// The tile row and column (within the 64 x 128 pass) of element v of the
+// The tile row and column (within the TM x 128 pass) of element v of the
 // C fragment of n8 tile j in mma_pass_t.
+template <int TM>
 __device__ __forceinline__ int frag_row(int v) {
-  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) +
-         (v >> 1) * 8;
+  return Warps<TM>::slab() * 16 + ((threadIdx.x & 31) >> 2) + (v >> 1) * 8;
 }
 
+template <int TM>
 __device__ __forceinline__ int frag_col(int j, int v) {
-  return (threadIdx.x >> 7) * 64 + j * 8 + (threadIdx.x & 3) * 2 + (v & 1);
+  return Warps<TM>::group() * Warps<TM>::kNT * 8 + j * 8 +
+         (threadIdx.x & 3) * 2 + (v & 1);
 }
 
 // ---------------------------------------------------------------------------
 // backward: one layer over all B*T rows
 // ---------------------------------------------------------------------------
 
-// Bytes of the bf16 tiles of xcat and y (z_gate) in a backward block.
-__host__ __device__ __forceinline__ size_t bwd_tile_bytes(int R, int nm) {
-  return (size_t)kTM * (tile_ld(2 * R) + (nm ? tile_ld(nm) : 0)) *
+// Bytes of the bf16 tiles of xcat and y (z_gate) in a backward block of
+// TM rows.
+__host__ __device__ __forceinline__ size_t bwd_tile_bytes(int R, int nm,
+                                                          int TM) {
+  return (size_t)TM * (tile_ld(2 * R) + (nm ? tile_ld(nm) : 0)) *
          sizeof(bf16);
 }
 
-// Bytes of a backward block's a_s: f32 [64][max(2R, R + S)] (dcat, dz),
+// Bytes of a backward block's a_s: f32 [TM][max(2R, R + S)] (dcat, dz),
 // or the bf16 tiles where those are larger.
-__host__ __device__ __forceinline__ size_t bwd_tiles(int R, int S, int nm) {
+__host__ __device__ __forceinline__ size_t bwd_tiles(int R, int S, int nm,
+                                                     int TM) {
   const int la = 2 * R > R + S ? 2 * R : R + S;
-  const size_t f = (size_t)kTM * la * sizeof(float);
-  const size_t t = bwd_tile_bytes(R, nm);
+  const size_t f = (size_t)TM * la * sizeof(float);
+  const size_t t = bwd_tile_bytes(R, nm, TM);
   return f > t ? f : t;
 }
 
@@ -663,7 +708,9 @@ __host__ __device__ __forceinline__ size_t bwd_tiles(int R, int S, int nm) {
 // and dz for the weight gradients, dx_out = dx_in + dboth_cur, and
 // dprev = dboth_prev for the shift pass.  With mel (nm > 0) also
 // dy = dz @ V_cond^T, added to dy unless dy_first; with a speaker (gl)
-// the recompute adds the row's offset.
+// the recompute adds the row's offset.  One block a tile of TM rows
+// (Warps<TM>).
+template <int TM>
 __global__ void __launch_bounds__(kThreads)
 bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  const float* __restrict__ dx_in,
@@ -676,20 +723,21 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
                  float* __restrict__ dy, int dy_first, int M, int T, int R,
                  int S, int nm, int d) {
   extern __shared__ float smem[];
+  constexpr int kNT = Warps<TM>::kNT;
   const int R2 = 2 * R, NO = R + S;
-  // a_s: the bf16 tiles of xcat and y, then dcat [64][R+S], then dz
-  // [64][2R] (both f32, by swz); z_s: (tanh, sigmoid), then dz; then the
+  // a_s: the bf16 tiles of xcat and y, then dcat [TM][R+S], then dz
+  // [TM][2R] (both f32, by swz); z_s: (tanh, sigmoid), then dz; then the
   // two W stages
   float* a_s = smem;
-  float* z_s = a_s + bwd_tiles(R, S, nm) / sizeof(float);
-  bf16* Wb_s = reinterpret_cast<bf16*>(z_s + kTM * R2);
+  float* z_s = a_s + bwd_tiles(R, S, nm, TM) / sizeof(float);
+  bf16* Wb_s = reinterpret_cast<bf16*>(z_s + TM * R2);
   bf16* xc_s = reinterpret_cast<bf16*>(a_s);
-  bf16* y_s = xc_s + kTM * tile_ld(R2);
-  const int m0 = blockIdx.x * kTM;
+  bf16* y_s = xc_s + TM * tile_ld(R2);
+  const int m0 = blockIdx.x * TM;
   const int tid = threadIdx.x;
 
-  stage_xcat(xc_s, xs_in, m0, M, T, R, d);
-  if (nm) stage_y(y_s, y, m0, M, nm);
+  stage_xcat<TM>(xc_s, xs_in, m0, M, T, R, d);
+  if (nm) stage_y<TM>(y_s, y, m0, M, nm);
   cp_async_commit();
   auto epi = [&](int r, int c, float2 tf, float2 sg) {
     *reinterpret_cast<float2*>(z_s + r * R2 + c) = tf;
@@ -699,18 +747,18 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
           __floats2bfloat162_rn(tf.x * sg.x, tf.y * sg.y);
   };
   // the deep f64 W stages where a_s has room past the tiles, else W_s
-  const size_t tiles = bwd_tile_bytes(R, nm);
-  if (bwd_tiles(R, S, nm) >= tiles + kWD)
-    z_gate<kKD>(xc_s, y_s,
+  const size_t tiles = bwd_tile_bytes(R, nm, TM);
+  if (bwd_tiles(R, S, nm, TM) >= tiles + kWD)
+    z_gate<kKD, TM>(xc_s, y_s,
                 reinterpret_cast<double*>(reinterpret_cast<char*>(a_s) + tiles),
                 wz, b, vc, gl, gs, m0, M, T, R, nm, epi);
   else
-    z_gate<kKDs>(xc_s, y_s, reinterpret_cast<double*>(Wb_s), wz, b, vc, gl,
+    z_gate<kKDs, TM>(xc_s, y_s, reinterpret_cast<double*>(Wb_s), wz, b, vc, gl,
                  gs, m0, M, T, R, nm, epi);
   __syncthreads();   // xcat and y are spent: dcat's copies overwrite them
   // dcat = [dx | dskip] by cp.async, 4 columns a copy (swz moves whole
   // groups of 4), zero past row M
-  for (int e = tid; e < kTM * NO / 4; e += kThreads) {
+  for (int e = tid; e < TM * NO / 4; e += kThreads) {
     const int r = e / (NO / 4), j = (e - r * (NO / 4)) * 4, m = m0 + r;
     const bool ok = m < M;
     cp_async16(&a_s[r * NO + swz(r, j, NO)],
@@ -721,14 +769,15 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
   }
   cp_async_commit();
   cp_async_wait0();
-  float acc[8][4];
+  float acc[kNT][4];
   for (int n0 = 0; n0 < R; n0 += kNP) {
-    mma_pass_t(a_s, NO, wrs, NO, R, n0, Wb_s, acc);
+    mma_pass_t<TM>(a_s, NO, wrs, NO, R, n0, Wb_s, acc);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
-        const int r = frag_row(v), c = n0 + frag_col(j, v), m = m0 + r;
+        const int r = frag_row<TM>(v), c = n0 + frag_col<TM>(j, v);
+        const int m = m0 + r;
         if (c >= R) continue;
         const float dh = acc[j][v];
         const float tf = z_s[r * R2 + c], sg = z_s[r * R2 + R + c];
@@ -745,18 +794,18 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
   // dz, the A operand of the remaining products, moves to a_s (dcat is
   // spent) in the swizzled layout
   __syncthreads();
-  for (int e = tid; e < kTM * R2 / 4; e += kThreads) {
+  for (int e = tid; e < TM * R2 / 4; e += kThreads) {
     const int r = e / (R2 / 4), c = (e - r * (R2 / 4)) * 4;
     *reinterpret_cast<float4*>(&a_s[r * R2 + swz(r, c, R2)]) =
         *reinterpret_cast<const float4*>(&z_s[r * R2 + c]);
   }
   for (int n0 = 0; n0 < R2; n0 += kNP) {
-    mma_pass_t(a_s, R2, wz, R2, R2, n0, Wb_s, acc);
+    mma_pass_t<TM>(a_s, R2, wz, R2, R2, n0, Wb_s, acc);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
-        const int m = m0 + frag_row(v), n = n0 + frag_col(j, v);
+        const int m = m0 + frag_row<TM>(v), n = n0 + frag_col<TM>(j, v);
         if (m >= M || n >= R2) continue;
         if (n < R) {
           const size_t o = (size_t)m * R + n;
@@ -767,12 +816,12 @@ bwd_layer_kernel(const bf16* __restrict__ xs_in,
       }
   }
   for (int n0 = 0; n0 < nm; n0 += kNP) {
-    mma_pass_t(a_s, R2, vc, R2, nm, n0, Wb_s, acc);
+    mma_pass_t<TM>(a_s, R2, vc, R2, nm, n0, Wb_s, acc);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
-        const int m = m0 + frag_row(v), n = n0 + frag_col(j, v);
+        const int m = m0 + frag_row<TM>(v), n = n0 + frag_col<TM>(j, v);
         if (m >= M || n >= nm) continue;
         const size_t o = (size_t)m * nm + n;
         dy[o] = dy_first ? acc[j][v] : dy[o] + acc[j][v];
@@ -960,23 +1009,44 @@ inline unsigned blocks_for(size_t n, int per) {
   return (unsigned)((n + per - 1) / per);
 }
 
-// The least shared memory a forward block's layout needs: the bf16 tiles
-// of xcat, h and (nm > 0) y, and two W stages (16 KiB).  The caller plans
-// the size it passes (ops/cuda/train_stack.py: _fwd_smem); a smaller one
-// is refused.
-size_t fwd_smem_needed(int R, int nm) {
-  return (size_t)kTM * (tile_ld(2 * R) + tile_ld(R) + (nm ? tile_ld(nm) : 0)) *
+// The least shared memory a forward block of TM rows needs: the bf16
+// tiles of xcat, h and (nm > 0) y, and two f64 W stages (32 KiB).  The
+// caller plans the size it passes (ops/cuda/train_stack.py: _fwd_smem); a
+// smaller one is refused.
+size_t fwd_smem_needed(int R, int nm, int TM) {
+  return (size_t)TM * (tile_ld(2 * R) + tile_ld(R) + (nm ? tile_ld(nm) : 0)) *
              sizeof(bf16) +
          kWD;
 }
 
-// The least shared memory a backward block's layout needs: a_s, the
-// larger of f32 [64][max(2R, R + S)] and the bf16 tiles of xcat and y
-// (bwd_tiles), z_s [64][2R] and two W stages (16 KiB), as
+// The least shared memory a backward block of TM rows needs: a_s, the
+// larger of f32 [TM][max(2R, R + S)] and the bf16 tiles of xcat and y
+// (bwd_tiles), z_s [TM][2R] and two W stages (16 KiB), as
 // ops/cuda/train_stack.py: _bwd_smem plans it.
-size_t bwd_smem_needed(int R, int S, int nm) {
-  return bwd_tiles(R, S, nm) + (size_t)kTM * 2 * R * sizeof(float) +
+size_t bwd_smem_needed(int R, int S, int nm, int TM) {
+  return bwd_tiles(R, S, nm, TM) + (size_t)TM * 2 * R * sizeof(float) +
          2 * kStage * sizeof(bf16);
+}
+
+// The layer kernels of a row tile of 64, 32 or 16 rows; null for another.
+// Every tile gives each output element the same sum, so the caller picks
+// the largest whose block fits (ops/cuda/train_stack.py: fwd_rows,
+// bwd_rows); 64 rows at every preset.
+using FwdKernel = decltype(&fwd_layer_kernel<64>);
+using BwdKernel = decltype(&bwd_layer_kernel<64>);
+
+FwdKernel fwd_kernel(int rows) {
+  return rows == 64   ? fwd_layer_kernel<64>
+         : rows == 32 ? fwd_layer_kernel<32>
+         : rows == 16 ? fwd_layer_kernel<16>
+                      : nullptr;
+}
+
+BwdKernel bwd_kernel(int rows) {
+  return rows == 64   ? bwd_layer_kernel<64>
+         : rows == 32 ? bwd_layer_kernel<32>
+         : rows == 16 ? bwd_layer_kernel<16>
+                      : nullptr;
 }
 
 // The error of the last launch, if any; else the launch is counted in *n.
@@ -1012,30 +1082,31 @@ extern "C" {
 // skip_in (then the skip sum is updated in place).  xs [Lg + 1, M, R] bf16
 // receives every layer's input (and the group output last); carry [M, R]
 // is f32 scratch.  With mel, y [M, nm] and vc [Lg, nm, 2R] (bf16), nm a
-// multiple of 4 and at most 2R; else null and nm = 0.  With a speaker, g
-// [M / T, Lg, 2R] f32 (each batch row's offsets); else null.  smem: the
-// bytes of shared memory a layer block gets (at least fwd_smem_needed).
-// R, S and nm are multiples of 4, and the bf16 operands xs, wz, wrs, y and
-// vc 8-byte aligned (16 where R or nm is a multiple of 8): the cp.async
-// copies.
+// multiple of 4; else null and nm = 0.  With a speaker, g [M / T, Lg, 2R]
+// f32 (each batch row's offsets); else null.  rows: the row tile of a
+// layer block (64, 32 or 16); smem: the bytes of shared memory it gets
+// (at least fwd_smem_needed).  R, S and nm are multiples of 4, and the
+// bf16 operands xs, wz, wrs, y and vc 8-byte aligned (16 where R or nm is
+// a multiple of 8): the cp.async copies.
 int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
                     float* x_out, bf16* xs, float* carry, const bf16* wz,
                     const float* b, const bf16* wrs, const float* bres,
                     const float* bskip, const bf16* y, const bf16* vc,
                     const float* g, const int* dils, int Lg, int M, int T,
-                    int R, int S, int nm, int smem, int* launched,
+                    int R, int S, int nm, int rows, int smem, int* launched,
                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
-  if (smem < 0 || (size_t)smem < fwd_smem_needed(R, nm) || R % 4 || S % 4 ||
-      nm < 0 || nm % 4 || nm > 2 * R || (nm > 0) != (y != nullptr) ||
+  const FwdKernel layer = fwd_kernel(rows);
+  if (!layer || smem < 0 || (size_t)smem < fwd_smem_needed(R, nm, rows) ||
+      R % 4 || S % 4 || nm < 0 || nm % 4 || (nm > 0) != (y != nullptr) ||
       (nm > 0) != (vc != nullptr) || T <= 0 || M % T)
     return (int)cudaErrorInvalidValue;
   int rc = (int)cudaFuncSetAttribute(
-      fwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      layer, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc) return rc;
   // two blocks per SM: ask for the largest shared-memory carveout
-  rc = (int)cudaFuncSetAttribute(fwd_layer_kernel,
+  rc = (int)cudaFuncSetAttribute(layer,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
   if (rc) return rc;
@@ -1043,7 +1114,7 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
   if ((rc = counted(launched))) return rc;
   const int R2 = 2 * R;
   for (int l = 0; l < Lg; ++l) {
-    fwd_layer_kernel<<<blocks_for(M, kTM), kThreads, smem, st>>>(
+    layer<<<blocks_for(M, rows), kThreads, smem, st>>>(
         xs + l * MR, carry, xs + (l + 1) * MR, l == Lg - 1 ? x_out : nullptr,
         l == 0 ? skip_in : skip_out, skip_out, wz + (size_t)l * R2 * R2,
         b + (size_t)l * R2, wrs + (size_t)l * R * (R + S), bres + (size_t)l * R,
@@ -1062,10 +1133,11 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
 // also dg [M / T, Lg, 2R].  Scratch: dxa, dxb, dprev [M, R]; dz [M, 2R];
 // h [M, R] bf16; part [nsplit * max(4R^2, R(R+S), 2R nm)]; bpart
 // [nsplit * max(2R, S)], and with a speaker at least
-// [(M / T) * ceil(T / rows_per_split) * 2R].  smem: the bytes of shared
-// memory a layer block gets (at least bwd_smem_needed).  R, S and nm are
-// multiples of 4, every f32 operand 16-byte aligned and every bf16 one
-// 8-byte aligned (the cp.async copies).
+// [(M / T) * ceil(T / rows_per_split) * 2R].  rows: the row tile of a
+// layer block (64, 32 or 16); smem: the bytes of shared memory it gets (at
+// least bwd_smem_needed).  R, S and nm are multiples of 4, every f32
+// operand 16-byte aligned and every bf16 one 8-byte aligned (the cp.async
+// copies).
 int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
                     const bf16* wz, const float* b, const bf16* wrs,
                     const bf16* y, const bf16* vc, const float* g,
@@ -1074,19 +1146,19 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
                     float* dbres, float* dvc, float* dy, float* dg,
                     float* dxa, float* dxb, float* dprev, float* dz, bf16* h,
                     float* part, float* bpart, int rows_per_split,
-                    int smem, int* launched, void* stream) {
+                    int rows, int smem, int* launched, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
   const int R2 = 2 * R, NO = R + S;
   const int nsplit = (M + rows_per_split - 1) / rows_per_split;
-  if (smem < 0 || (size_t)smem < bwd_smem_needed(R, S, nm) || R % 4 ||
-      S % 4 || nm < 0 || nm % 4 || nm > R2 ||
+  const BwdKernel layer = bwd_kernel(rows);
+  if (!layer || smem < 0 || (size_t)smem < bwd_smem_needed(R, S, nm, rows) ||
+      R % 4 || S % 4 || nm < 0 || nm % 4 ||
       (nm > 0) != (y && vc && dvc && dy) || (g != nullptr) != (dg != nullptr) ||
       T <= 0 || M % T)
     return (int)cudaErrorInvalidValue;
   int rc = (int)cudaFuncSetAttribute(
-      bwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      layer, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc) return rc;
   const float* din = dx_ct;
   for (int k = 0, l = Lg - 1; l >= 0; --l, ++k) {
@@ -1094,7 +1166,7 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
     float* dout = l == 0 ? dx_in : (k % 2 ? dxb : dxa);
     const bf16* vcl = vc ? vc + (size_t)l * nm * R2 : nullptr;
     const float* gl = g ? g + (size_t)l * R2 : nullptr;
-    bwd_layer_kernel<<<blocks_for(M, kTM), kThreads, smem, st>>>(
+    layer<<<blocks_for(M, rows), kThreads, smem, st>>>(
         xs + l * MR, din, dskip, dout, dprev, dz, h, wz + (size_t)l * R2 * R2,
         b + (size_t)l * R2, wrs + (size_t)l * R * NO, y, vcl, gl, Lg * R2, dy,
         k == 0, M, T, R, S, nm, d);

@@ -20,11 +20,16 @@ stack stays f32.  So the group boundaries are part of the numerics, and
 the port plans its groups with the reference's own arithmetic.
 
 Routing is by the tensors' device: the plain versions run only for CPU
-tensors; for CUDA tensors the wrappers launch the kernels or raise.
+tensors; for CUDA tensors the wrappers launch the kernels or raise.  The
+kernels take every width `supported` takes: a layer block of 64, 32 or 16
+rows, the largest that fits an SM's shared memory (`fwd_rows`,
+`bwd_rows`), and widths that are not multiples of 4 zero-padded to them
+(`pad_ops`, `fwd_padded`, `bwd_padded`).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import List, Optional, Sequence, Tuple
 
@@ -45,8 +50,13 @@ bwd_mel_launches = build.LaunchCounter()
 fwd_gc_launches = build.LaunchCounter()
 bwd_gc_launches = build.LaunchCounter()
 
+# group calls of the kernels by direction and row tile ("fwd64", "bwd32",
+# ...): which layer block each width launched
+tile_calls = collections.Counter()
+
 VMEM_BUDGET = 13 * 1024 * 1024
 ROWS_PER_SPLIT = 1024        # rows per partial sum of a weight gradient
+ROW_TILES = (64, 32, 16)     # rows of a layer block, the largest first
 _MAX_SMEM = 227 * 1024
 
 GROUP_KEYS = ("w_cur", "w_prev", "b", "w_res", "b_res", "w_skip", "b_skip")
@@ -151,38 +161,46 @@ def supported(cfg: WaveNetConfig, T: int) -> bool:
 _W_FWD, _W_BWD = 2 * 16 * 128 * 8, 2 * 32 * 128 * 2
 
 
-def _tile(K: int) -> int:
-    """Bytes of a layer block's bf16 operand tile with K columns: 64 rows
-    of K + 8 elements (train_stack.cu: tile_ld); none for K = 0."""
-    return 64 * (K + 8) * 2 if K else 0
+def _tile(K: int, rows: int = 64) -> int:
+    """Bytes of a layer block's bf16 operand tile with K columns: `rows`
+    rows of K + 8 elements (train_stack.cu: tile_ld); none for K = 0."""
+    return rows * (K + 8) * 2 if K else 0
 
 
-def _fwd_smem(R: int, nm: int = 0) -> int:
-    """Shared memory of a forward layer block, the one plan of it: bf16
-    tiles of xcat (2R columns), h (R) and, with mel, y (nm), and the
-    staged weights; group_fwd passes it to the library, which refuses a
-    size smaller than its layout needs (82 KiB at `full`, 93 KiB with
-    mel: two blocks per SM)."""
-    return _tile(2 * R) + _tile(R) + _tile(nm) + _W_FWD
+def _fwd_smem(R: int, nm: int = 0, rows: int = 64) -> int:
+    """Shared memory of a forward layer block of `rows` rows, the one plan
+    of it: bf16 tiles of xcat (2R columns), h (R) and, with mel, y (nm),
+    and the staged weights; group_fwd passes it to the library, which
+    refuses a size smaller than its layout needs (82 KiB at `full`, 93 KiB
+    with mel: two blocks per SM)."""
+    return _tile(2 * R, rows) + _tile(R, rows) + _tile(nm, rows) + _W_FWD
 
 
-def _bwd_smem(R: int, S: int, nm: int = 0) -> int:
-    """Shared memory of a backward layer block, the one plan of it: the
-    larger of f32 [64][max(2R, R + S)] (dcat, then dz) and the bf16 tiles
-    of xcat and y (the recompute of z), + f32 [64][2R] (tanh and sigmoid,
-    then dz) + the staged weights; group_bwd passes it to the library,
-    which refuses a size smaller than its layout needs."""
-    return (max(64 * max(2 * R, R + S) * 4, _tile(2 * R) + _tile(nm))
-            + 64 * 2 * R * 4 + _W_BWD)
+def _bwd_smem(R: int, S: int, nm: int = 0, rows: int = 64) -> int:
+    """Shared memory of a backward layer block of `rows` rows, the one
+    plan of it: the larger of f32 [rows][max(2R, R + S)] (dcat, then dz)
+    and the bf16 tiles of xcat and y (the recompute of z), + f32
+    [rows][2R] (tanh and sigmoid, then dz) + the staged weights; group_bwd
+    passes it to the library, which refuses a size smaller than its layout
+    needs."""
+    return (max(rows * max(2 * R, R + S) * 4,
+                _tile(2 * R, rows) + _tile(nm, rows))
+            + rows * 2 * R * 4 + _W_BWD)
 
 
-def _widths_taken(R: int, S: int, nm: int = 0) -> bool:
-    """R, S and the mel count nm multiples of 4 (the kernels copy rows in
-    groups of 4 and read shared memory as float4), nm at most 2R, and
-    layer blocks that fit one block's shared memory (the backward's at
-    R = 128, S = 256 needs 176 KiB)."""
-    return (R % 4 == 0 and S % 4 == 0 and nm % 4 == 0 and nm <= 2 * R
-            and max(_fwd_smem(R, nm), _bwd_smem(R, S, nm)) <= _MAX_SMEM)
+def fwd_rows(R: int, nm: int = 0) -> int:
+    """The row tile of a forward layer block at the kernels' widths (R, nm
+    multiples of 4): the largest of ROW_TILES whose block fits an SM's
+    227 KiB (64 at every preset); 0 when none does."""
+    return next((r for r in ROW_TILES if _fwd_smem(R, nm, r) <= _MAX_SMEM),
+                0)
+
+
+def bwd_rows(R: int, S: int, nm: int = 0) -> int:
+    """The row tile of a backward layer block, as fwd_rows (64 at every
+    preset, 32 at R = S = 256 and at `full` with S = 512 or 1,024)."""
+    return next((r for r in ROW_TILES if _bwd_smem(R, S, nm, r) <= _MAX_SMEM),
+                0)
 
 
 def _num_mels(cfg: WaveNetConfig) -> int:
@@ -190,22 +208,13 @@ def _num_mels(cfg: WaveNetConfig) -> int:
 
 
 def kernel_supported(cfg: WaveNetConfig) -> bool:
-    """Whether the CUDA kernels take cfg's widths (every preset's do)."""
-    return _widths_taken(cfg.residual_channels, cfg.skip_channels,
-                         _num_mels(cfg))
-
-
-def check_kernel_supported(cfg: WaveNetConfig) -> None:
-    """Raise NotImplementedError when a fused-eligible cfg has widths the
-    CUDA kernels do not take: on the card the fused stack runs only
-    through the kernels, never through another path."""
-    if not kernel_supported(cfg):
-        raise NotImplementedError(
-            f"the train_stack CUDA kernels do not take residual_channels="
-            f"{cfg.residual_channels}, skip_channels={cfg.skip_channels}, "
-            f"num_mels={_num_mels(cfg)} (multiples of 4 within one block's "
-            f"shared memory, num_mels <= 2 R); other "
-            f"widths wait for ROADMAP queue 2 item 4")
+    """Whether the CUDA kernels plan a layer block for cfg's widths, each
+    padded to a multiple of 4 (pad_ops): true for every width the
+    reference's `supported` fuses (tests/test_torch_train_stack_plan.py
+    sweeps them)."""
+    R, S, nm = padded_widths(cfg.residual_channels, cfg.skip_channels,
+                             _num_mels(cfg))
+    return bool(fwd_rows(R, nm) and bwd_rows(R, S, nm))
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +240,100 @@ def prep_weights(w_cur, w_prev, b, w_res, b_res, w_skip, b_skip,
         b_res.to(f32).contiguous(),
         b_skip.to(f32).contiguous(),
     ) + vc
+
+
+def _pad_parts(t: torch.Tensor, dim: int, sizes, padded) -> torch.Tensor:
+    """t's axis `dim` cut into parts of `sizes`, each zero-padded at its
+    end to its size in `padded`, joined again (t itself when nothing
+    grows)."""
+    if tuple(sizes) == tuple(padded):
+        return t
+    out = []
+    for part, n in zip(torch.split(t, list(sizes), dim=dim), padded):
+        shape = list(part.shape)
+        shape[dim] = n - shape[dim]
+        out += [part, part.new_zeros(shape)]
+    return torch.cat(out, dim=dim)
+
+
+def _unpad_parts(t: torch.Tensor, dim: int, sizes, padded) -> torch.Tensor:
+    """The inverse of _pad_parts: the first sizes[i] of each padded part."""
+    if tuple(sizes) == tuple(padded):
+        return t
+    return torch.cat([part.narrow(dim, 0, n) for part, n in zip(
+        torch.split(t, list(padded), dim=dim), sizes)], dim=dim).contiguous()
+
+
+def padded_widths(R: int, S: int, nm: int = 0) -> Tuple[int, int, int]:
+    """The widths the kernels compute at: R, S and nm rounded up to
+    multiples of 4 (their copies move 4 elements, and shared memory is read
+    as float4)."""
+    return tuple(-(-n // 4) * 4 for n in (R, S, nm))
+
+
+def pad_ops(ops, R: int, S: int, Rp: int, Sp: int, nm: int = 0,
+            nmp: int = 0):
+    """prep_weights' operands at widths (R, S, nm) -> the same at (Rp, Sp,
+    nmp), every added row and column zero: each half of wz's and b's 2R
+    (filter, gate; current, previous), W_res and W_skip's columns apart,
+    v_cond's rows.  A padded channel's z is 0, so its gate tanh(0) *
+    sigmoid(0) = 0, and every added product is an exact zero: the real
+    channels' forward is unchanged bit for bit."""
+    wz, b, wrs, bres, bskip = ops[:5]
+    r2, r2p = (R, R), (Rp, Rp)
+    out = (_pad_parts(_pad_parts(wz, 1, r2, r2p), 2, r2, r2p),
+           _pad_parts(b, 1, r2, r2p),
+           _pad_parts(_pad_parts(wrs, 1, (R,), (Rp,)), 2, (R, S), (Rp, Sp)),
+           _pad_parts(bres, 1, (R,), (Rp,)),
+           _pad_parts(bskip, 1, (S,), (Sp,)))
+    if len(ops) > 5:
+        out += (_pad_parts(_pad_parts(ops[5], 1, (nm,), (nmp,)), 2, r2,
+                           r2p),)
+    return out
+
+
+def fwd_padded(fwd, x, skip, ops, dils, y=None, g=None, **kw):
+    """fwd (group_fwd or group_fwd_reference) at the padded widths
+    (padded_widths), its results cut back to (R, S): (skip_out, x_out,
+    xs)."""
+    R, S = x.shape[-1], skip.shape[-1]
+    nm = 0 if y is None else y.shape[-1]
+    Rp, Sp, nmp = padded_widths(R, S, nm)
+    r, s, h = ((R,), (Rp,)), ((S,), (Sp,)), ((R, R), (Rp, Rp))
+    skip_o, x_o, xs = fwd(
+        _pad_parts(x, -1, *r), _pad_parts(skip, -1, *s),
+        pad_ops(ops, R, S, Rp, Sp, nm, nmp), dils,
+        None if y is None else _pad_parts(y, -1, (nm,), (nmp,)),
+        None if g is None else _pad_parts(g, -1, *h), **kw)
+    return (_unpad_parts(skip_o, -1, *s), _unpad_parts(x_o, -1, *r),
+            _unpad_parts(xs, -1, *r))
+
+
+def bwd_padded(bwd, xs, dskip, dx_out, ops, dils, y=None, g=None, **kw):
+    """bwd (group_bwd or group_bwd_reference) at the padded widths, every
+    gradient cut back to the real channels (the padded ones' are
+    dropped)."""
+    R, S = xs.shape[-1], dskip.shape[-1]
+    nm = 0 if y is None else y.shape[-1]
+    Rp, Sp, nmp = padded_widths(R, S, nm)
+    r, s, h = ((R,), (Rp,)), ((S,), (Sp,)), ((R, R), (Rp, Rp))
+    dx, dwz, db, dwrs, dbres, dbskip, *cond = bwd(
+        _pad_parts(xs, -1, *r), _pad_parts(dskip, -1, *s),
+        _pad_parts(dx_out, -1, *r), pad_ops(ops, R, S, Rp, Sp, nm, nmp),
+        dils, None if y is None else _pad_parts(y, -1, (nm,), (nmp,)),
+        None if g is None else _pad_parts(g, -1, *h), **kw)
+    out = (_unpad_parts(dx, -1, *r),
+           _unpad_parts(_unpad_parts(dwz, 1, *h), 2, *h),
+           _unpad_parts(db, 1, *h),
+           _unpad_parts(_unpad_parts(dwrs, 1, *r), 2, (R, S), (Rp, Sp)),
+           _unpad_parts(dbres, 1, *r), _unpad_parts(dbskip, 0, *s))
+    if y is not None:
+        dvc, dy = cond[:2]
+        out += (_unpad_parts(_unpad_parts(dvc, 1, (nm,), (nmp,)), 2, *h),
+                _unpad_parts(dy, -1, (nm,), (nmp,)))
+    if g is not None:
+        out += (_unpad_parts(cond[-1], -1, *h),)
+    return out
 
 
 def _causal(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -354,10 +457,10 @@ def group_bwd_reference(xs, dskip, dx_out, ops, dils: Sequence[int],
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wn_ts_group_fwd.argtypes = [p] * 15 + [i] * 7 + [p, p]
+    lib.wn_ts_group_fwd.argtypes = [p] * 15 + [i] * 8 + [p, p]
     lib.wn_ts_group_fwd.restype = i
     lib.wn_ts_group_bwd.argtypes = ([p] * 10 + [i] * 6 + [p] * 15
-                                    + [i, i, p, p])
+                                    + [i, i, i, p, p])
     lib.wn_ts_group_bwd.restype = i
     lib.wn_ts_colsum.argtypes = [p, i, i, p, p, i, p, p]
     lib.wn_ts_colsum.restype = i
@@ -392,15 +495,11 @@ def _check_ops(ops, Lg, R, S, dev, y, B, T, g=None) -> int:
     return M
 
 
-def _prepare(x: torch.Tensor, S: int, dils, what: str, y=None):
+def _prepare(x: torch.Tensor, dils, what: str):
     """Shared checks of both wrappers; returns (lib, dims, dils array)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     B, T, R = x.shape
-    nm = 0 if y is None else y.shape[-1]
-    if not _widths_taken(R, S, nm):
-        raise ValueError(f"{what}: widths R={R}, S={S}, M={nm} are not "
-                         f"taken by the kernels (see kernel_supported)")
     if not dils or min(dils) < 1 or max(dils) > T:
         raise ValueError(f"{what}: dilations {tuple(dils)} must lie in "
                          f"[1, T={T}]")
@@ -437,8 +536,19 @@ def _counters(nm: int, g, fwd: bool) -> build.LaunchCounter:
     return fwd_launches if fwd else bwd_launches
 
 
+def _plan_rows(what: str, rows: Optional[int], planned: int, widths) -> int:
+    """The row tile to launch: `rows` when the caller forces one (the
+    library refuses a block that does not fit), else the planned one."""
+    rows = planned if rows is None else rows
+    if rows not in ROW_TILES:
+        raise ValueError(f"{what}: row tile {rows} at widths {widths}; the "
+                         f"kernels take {ROW_TILES} rows (planned: "
+                         f"{planned}, 0 when no block fits)")
+    return rows
+
+
 def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None,
-              g=None):
+              g=None, rows: Optional[int] = None):
     """One layer group's forward (plain version for CPU tensors, the
     kernel for CUDA tensors): returns (skip_out, x_out, xs).  With mel,
     y [B, T, M] bf16 and ops ending in v_cond; with a speaker, g [B, Lg, 2R]
@@ -446,11 +556,17 @@ def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None,
     the kernel could write it in place (it reads each skip element once
     before writing it), but a new buffer keeps autograd's view of the
     inputs unchanged at the cost of one [B, T, S] f32 buffer per live
-    group."""
+    group.  Widths that are not multiples of 4 run padded (fwd_padded);
+    rows forces the layer block's row tile (fwd_rows plans it; every tile
+    gives the same bits)."""
     if x.device.type == "cpu":
         return group_fwd_reference(x, skip, ops, dils, y, g)
     S = skip.shape[-1]
-    lib, (B, T, R), dils_c = _prepare(x, S, dils, "group_fwd", y)
+    nm = 0 if y is None else y.shape[-1]
+    if padded_widths(x.shape[-1], S, nm) != (x.shape[-1], S, nm):
+        return fwd_padded(group_fwd, x, skip, ops, dils, y, g, rows=rows)
+    lib, (B, T, R), dils_c = _prepare(x, dils, "group_fwd")
+    rows = _plan_rows("group_fwd", rows, fwd_rows(R, nm), (R, nm))
     dev, f32 = x.device, torch.float32
     Lg = len(dils)
     build.check_tensor("x", x, (B, T, R), f32, dev)
@@ -470,25 +586,34 @@ def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None,
             x_out.data_ptr(), xs.data_ptr(), carry.data_ptr(),
             *(o.data_ptr() for o in ops[:5]), _ptr(y),
             _ptr(ops[5] if nm else None), _ptr(g), ctypes.addressof(dils_c),
-            Lg, B * T, T, R, S, nm, _fwd_smem(R, nm), ctypes.byref(n),
-            stream)
+            Lg, B * T, T, R, S, nm, rows, _fwd_smem(R, nm, rows),
+            ctypes.byref(n), stream)
     _counters(nm, g, fwd=True).add(n.value)
     _raise_on(lib, rc, "wn_ts_group_fwd")
+    tile_calls[f"fwd{rows}"] += 1
     return skip_out, x_out, xs
 
 
 def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
-              ops, dils, y=None, g=None):
+              ops, dils, y=None, g=None, rows: Optional[int] = None):
     """One layer group's backward (plain version for CPU tensors, the
     kernel for CUDA tensors): returns (dx_in, dwz, db, dwrs, dbres,
     dbskip), all f32, with mel (y, ops ending in v_cond) also (dv_cond,
     dy), and with a speaker (g [B, Lg, 2R]) last dg [B, Lg, 2R]; the weight
     gradients and dg are fixed-order sums and dy a fixed-order sum over
-    the layers, so two runs on the same inputs give the same bits."""
+    the layers, so two runs on the same inputs give the same bits.
+    Widths that are not multiples of 4 run padded (bwd_padded); rows
+    forces the layer block's row tile (bwd_rows plans it; every tile gives
+    the same bits)."""
     if xs.device.type == "cpu":
         return group_bwd_reference(xs, dskip, dx_out, ops, dils, y, g)
     S = dskip.shape[-1]
-    lib, (B, T, R), dils_c = _prepare(dx_out, S, dils, "group_bwd", y)
+    nm = 0 if y is None else y.shape[-1]
+    if padded_widths(xs.shape[-1], S, nm) != (xs.shape[-1], S, nm):
+        return bwd_padded(group_bwd, xs, dskip, dx_out, ops, dils, y, g,
+                          rows=rows)
+    lib, (B, T, R), dils_c = _prepare(dx_out, dils, "group_bwd")
+    rows = _plan_rows("group_bwd", rows, bwd_rows(R, S, nm), (R, S, nm))
     dev, f32 = xs.device, torch.float32
     Lg = len(dils)
     M = B * T
@@ -527,14 +652,15 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
             db.data_ptr(), dwrs.data_ptr(), dbres.data_ptr(), _ptr(dvc),
             _ptr(dy), _ptr(dg), dxa.data_ptr(),
             dxb.data_ptr(), dprev.data_ptr(), dz.data_ptr(), h.data_ptr(),
-            part.data_ptr(), bpart.data_ptr(), ROWS_PER_SPLIT,
-            _bwd_smem(R, S, nm), ctypes.byref(n), stream)
+            part.data_ptr(), bpart.data_ptr(), ROWS_PER_SPLIT, rows,
+            _bwd_smem(R, S, nm, rows), ctypes.byref(n), stream)
         if rc == 0:
             rc = lib.wn_ts_colsum(dskip.data_ptr(), M, S, dbskip.data_ptr(),
                                   bpart.data_ptr(), ROWS_PER_SPLIT,
                                   ctypes.byref(n), stream)
     _counters(nm, g, fwd=False).add(n.value)
     _raise_on(lib, rc, "wn_ts_group_bwd")
+    tile_calls[f"bwd{rows}"] += 1
     out = (dx_in, dwz, db, dwrs, dbres, dbskip)
     if nm:
         out += (dvc, dy)
@@ -639,7 +765,7 @@ def forward_skip_fused(params, cfg: WaveNetConfig, x: torch.Tensor,
     (models/wavenet.global_cond_offsets), sliced per group as the
     reference slices them, so autograd carries dg back to g_embed and
     v_global.  Callers check supported(cfg, T) first; on a CUDA device
-    widths the kernels do not take raise NotImplementedError."""
+    every width it accepts runs on the kernels (kernel_supported)."""
     B, T, R = x.shape
     TT = tile or pick_tile(cfg, T)
     if not TT:
@@ -655,8 +781,6 @@ def forward_skip_fused(params, cfg: WaveNetConfig, x: torch.Tensor,
     groups = group_plan(cfg, TT)
     if not groups:
         raise ValueError("no feasible group plan; gate on supported()")
-    if x.device.type == "cuda":
-        check_kernel_supported(cfg)
     skip = torch.zeros(B, T, cfg.skip_channels, device=x.device)
     x_g = x.float().contiguous()
     y = None if y is None else y.float()

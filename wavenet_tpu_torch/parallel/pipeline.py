@@ -214,8 +214,6 @@ def loss_fn_pp(params, cfg: WaveNetConfig, groups: MeshGroups,
     if B_loc % Bmu:
         raise ValueError(f"local batch {B_loc} not divisible by "
                          f"microbatch {Bmu}")
-    if tokens.is_cuda:
-        ts.check_kernel_supported(cfg)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     x_emb = wn.embed_tokens(params, cfg, inputs, wn._shifted_tokens(inputs))
     y = None

@@ -227,14 +227,13 @@ def use_pipeline(cfg: WaveNetConfig) -> bool:
                                    cfg.model_parallel))
 
 
-def choose_route(cfg: WaveNetConfig, device) -> str:
+def choose_route(cfg: WaveNetConfig) -> str:
     """The step's route over the mesh, as the reference picks it
     (trainer.py:73-113 there): "sp_fused" (overlap-discard on the stack),
     "sp" (the halo-exchange scan, Megatron-split under a model axis),
     "pp" (the stack as a layer pipeline), "tp" (the Megatron-split scan)
-    or "dp" (one device's step on the rank's rows).  On a CUDA device a
-    fused route whose widths the kernels refuse raises
-    NotImplementedError; it does not fall back to the scan."""
+    or "dp" (one device's step on the rank's rows).  On a CUDA device the
+    fused routes run the stack kernels at every width supported() takes."""
     sp, mp = cfg.seq_parallel, cfg.model_parallel
     route = "dp"
     if sp > 1:
@@ -243,23 +242,18 @@ def choose_route(cfg: WaveNetConfig, device) -> str:
         route = "sp_fused" if fused else "sp"
     elif mp > 1:
         route = "pp" if use_pipeline(cfg) else "tp"
-    if route in ("sp_fused", "pp") and torch.device(device).type == "cuda":
-        train_stack.check_kernel_supported(cfg)
     layout = ROUTE_LAYOUT[route]
     if layout is not None and mp > 1:
         sharding.validate(cfg, mp, layout)
     return route
 
 
-def use_fused_stack(cfg: WaveNetConfig, T: int, device) -> bool:
+def use_fused_stack(cfg: WaveNetConfig, T: int) -> bool:
     """The step's route, as the reference decides it: the fused stack when
     cfg.fused_stack and train_stack.supported(cfg, T), else the scan.  On
-    a CUDA device the fused stack is the kernels; widths they do not take
-    raise NotImplementedError instead of taking another path."""
-    use = bool(cfg.fused_stack and train_stack.supported(cfg, T))
-    if use and torch.device(device).type == "cuda":
-        train_stack.check_kernel_supported(cfg)
-    return use
+    a CUDA device the fused stack is the kernels, at every width
+    supported() takes (train_stack.kernel_supported)."""
+    return bool(cfg.fused_stack and train_stack.supported(cfg, T))
 
 
 def _leaves(params) -> Dict[str, torch.Tensor]:
@@ -283,11 +277,11 @@ class Trainer:
         self.cfg = cfg
         self.dataset = dataset
         self.device = torch.device(device)
-        self.route = choose_route(cfg, self.device)
+        self.route = choose_route(cfg)
         self.layout = ROUTE_LAYOUT[self.route] \
             if cfg.model_parallel > 1 else None
         self.use_fused = (self.route == "dp" and use_fused_stack(
-            cfg, cfg.train_window, self.device))
+            cfg, cfg.train_window))
         # the data axis' group and this rank's rows (None: one process);
         # off the data-only route, this rank's MeshGroups
         self.mesh = self.group = self.rows = self.groups = None
