@@ -26,7 +26,9 @@ axis (overlap-discard) and model axis (the layer pipeline) on the stack
 kernels (phase 19), and deployment artifacts (serving/aot.py) exported
 through the generate CLI's --export-aot, loaded in fresh processes and
 timed from a cold start (phase 20), and the widths the stack kernels
-take through row-tiled layer blocks and padded operands (phase 21).
+take through row-tiled layer blocks and padded operands (phase 21), and
+the config's dtype fields: bf16 leaves through the kernels, a float16
+model on the plain route (phase 22).
 Any failed check
 raises and the exit code is non-zero; without a CUDA device it exits 2 and
 prints no result.  The last three lines of stdout are the kernel table
@@ -241,9 +243,23 @@ Phases (one line of numbers each):
      (B=8, window 8192) 3 steps with a checkpoint at step 2, the counts
      and row tiles checked, a resume from step 2 bit for bit, a decode of
      the checkpoint, and the wide decode kernel vs plain on its weights,
-     B=4, 256 steps (the checks of phase 2).
+     B=4, 256 steps (the checks of phase 2);
+ 22. the config's dtype fields: (a) `full` with param_dtype bfloat16, the
+     stack kernels vs plain on the bf16 leaves at B=2, T=8192 (phase 4's
+     checks) and through autograd (weight gradients bf16, within the
+     gradient band of plain, two runs bit-identical), train.main 6 steps
+     with a bit-exact resume from step 3 and every checkpoint leaf bf16,
+     its ms per step and peak memory beside phase 5's, and its checkpoint
+     decoded by the wide kernel == plain (B=4, 256 steps), and the save
+     costs of phase 16 on bf16 leaves; (b) `fastgen_bench` with bf16
+     leaves, the narrow kernel == plain at B=64, 256 steps, and
+     WaveNet.generate's launches of it; (c) `full` with compute_dtype
+     float16 on the plain route:
+     train.main 3 steps (cut to B=2, window 8192) with a bit-exact resume
+     from step 2, then 64 decode steps at B=4 from its checkpoint, fast ==
+     naive, no kernel launched in either; train and decode ms per step.
 The phases that drive a main path (3, 5, 7, 9, 11, 12, 13, 14, 15, 16, 20,
-21)
+21, 22)
 set every kernel's count to 0 right before and read them right after;
 phases 17, 18 and 19's rank processes start theirs at 0 and report them at
 exit (or set them to 0 before the path they time).
@@ -314,6 +330,11 @@ AOT_SECONDS, AOT_SEED, AOT_CPU_SAMPLES, AOT_TIMEOUT_S = 1.0, 17, 64, 300
 # phase 21: train steps of `full` at R = 256, the step resumed from, and
 # the decode steps of its checkpoint held against plain
 WIDTH_STEPS, WIDTH_RESUME_AT, WIDTH_DECODE_STEPS = 3, 2, 256
+# phase 22: the dtype fields; the narrow kernel's steps on bf16 leaves,
+# the float16 model's train steps (resumed from DTYPE_RESUME_AT), batch and
+# decode steps at DTYPE_DECODE_B rows
+DTYPE_NARROW_STEPS, DTYPE_STEPS, DTYPE_RESUME_AT = 256, 3, 2
+DTYPE_TRAIN_B, DTYPE_DECODE_STEPS, DTYPE_DECODE_B = 2, 64, 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1117,8 +1138,14 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
               and all(lb[s] == la[s] for s in lb),
               f"resumed losses {lb} differ from {la}")
         last = f"ckpt_{steps:08d}.pt"
-        pa = torch.load(os.path.join(a, last), weights_only=True)["params"]
+        ca = torch.load(os.path.join(a, last), weights_only=True)
+        pa = ca["params"]
         pb = torch.load(os.path.join(b, last), weights_only=True)["params"]
+        pdt = getattr(torch, cfg.param_dtype)
+        check(all(v.dtype == pdt for tree in (
+            pa, ca["ema"] or {}, ca["opt_state"]["mu"], ca["opt_state"]["nu"])
+            for v in tree.values()),
+            f"a checkpoint leaf is not {cfg.param_dtype}")
         check(sorted(pa) == sorted(pb)
               and (not mel or "upsampler/w0" in pa)
               and (not speakers or {"g_embed", "v_global"} <= set(pa))
@@ -1159,7 +1186,8 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
           f"{dec_n} decoded_samples={n} card={card!r}", flush=True)
     out = {"train_stack_fwd": fwd_n, "train_stack_bwd": bwd_n,
            "decode": dec_n, "losses": [la[s] for s in sorted(la)],
-           "ms_per_step": 1e3 / ma["steps_per_sec"], "tiles": tiles}
+           "ms_per_step": 1e3 / ma["steps_per_sec"], "tiles": tiles,
+           "peak_device_memory_gb": peak_gb}
     if keep_model:
         out["model"] = model
     return out
@@ -1486,7 +1514,8 @@ def phase_entry_points(ts, dev, card: str, preset: str = "full") -> dict:
     `full`, the cost of a save every step (blocking and asynchronous), the
     generate CLI (one shot, --stream, --no-ema) against the facade, and
     the score CLI against one pass over each clip.  Returns the launches
-    of the stack kernels and the wide decode kernel on these paths."""
+    of the stack kernels and the wide decode kernel on these paths, the
+    train config and the save costs (utils/profiling.host_costs)."""
     import numpy as np
     import torch
     from wavenet_tpu_torch import score, train
@@ -1627,7 +1656,7 @@ def phase_entry_points(ts, dev, card: str, preset: str = "full") -> dict:
           f"{time.monotonic() - phase_t} card={card!r}", flush=True)
     return {"train_stack_fwd": counts[fwd], "train_stack_bwd": counts[bwd],
             "decode_wide_sampling": counts[dec], "decode_wide_generate":
-            gen_n}
+            gen_n, "cfg": cfg, "host_costs": costs}
 
 
 # ---------------------------------------------------------------------------
@@ -3067,6 +3096,209 @@ def phase_widths(ts, wn, pwide, dev, card: str) -> dict:
     return trained
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the config's dtype fields
+# ---------------------------------------------------------------------------
+
+def leaf_grads(ts, wn, cfg, params, dev, fwd, bwd) -> dict:
+    """The gradients of mean(skip * ct) with respect to every stack leaf
+    through forward_skip_fused (autograd, the _GroupApply the trainer
+    runs), its groups computed by fwd and bwd (the kernels, or their plain
+    versions put in their place) at [TS_B, TS_T]."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(22)
+    toks = torch.from_numpy(rs.randint(0, cfg.quantization_channels, (
+        TS_B, TS_T)).astype(np.int32)).to(dev)
+    ct = torch.from_numpy(rs.randn(TS_B, TS_T, cfg.skip_channels).astype(
+        np.float32)).to(dev)
+    leaves = {k: params[k].detach().clone().requires_grad_(True)
+              for k in ts.GROUP_KEYS}
+    x = wn.embed_tokens(params, cfg, toks, wn._shifted_tokens(toks))
+    saved = ts.group_fwd, ts.group_bwd
+    ts.group_fwd, ts.group_bwd = fwd, bwd
+    try:
+        skip = ts.forward_skip_fused(dict(params, **leaves), cfg, x)
+        grads = torch.autograd.grad((skip * ct).mean(), list(leaves.values()))
+    finally:
+        ts.group_fwd, ts.group_bwd = saved
+    torch.cuda.synchronize()
+    return dict(zip(leaves, grads))
+
+
+def train_plain(dev, card: str, overrides) -> dict:
+    """`full` with `overrides` (a config no kernel takes) through the train
+    CLI's main() at [DTYPE_TRAIN_B, TS_T] for DTYPE_STEPS steps, resumed
+    from DTYPE_RESUME_AT bit for bit, with no kernel launched; then its
+    checkpoint generates DTYPE_DECODE_STEPS steps at DTYPE_DECODE_B rows,
+    fast == naive token for token, with no kernel launched.  Returns the
+    train and decode ms per step."""
+    import math
+    import torch
+    from wavenet_tpu_torch import train
+    from wavenet_tpu_torch.generate import sampler
+    from wavenet_tpu_torch.models.api import WaveNet
+    common = ["--preset", "full", "--synthetic", "--device", "cuda",
+              "--batch-size", str(DTYPE_TRAIN_B), "--log-every", "1",
+              "--override", f"train_window={TS_T}"]
+    for o in overrides:
+        common += ["--override", o]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()                  # the training path starts here
+        ma = train.main(common + [
+            "--steps", str(DTYPE_STEPS), "--ckpt", a, "--ckpt-every",
+            str(DTYPE_RESUME_AT), "--metrics-file",
+            os.path.join(tmp, "a.jsonl")])
+        torch.cuda.synchronize()
+        check_only([], "phase 22 (c) training")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        os.makedirs(b)
+        for f in ("params.json", f"ckpt_{DTYPE_RESUME_AT:08d}.pt"):
+            shutil.copy(os.path.join(a, f), b)
+        train.main(common + [
+            "--steps", str(DTYPE_STEPS - DTYPE_RESUME_AT), "--ckpt", b,
+            "--resume", "--metrics-file", os.path.join(tmp, "b.jsonl")])
+        la = _losses(os.path.join(tmp, "a.jsonl"))
+        lb = _losses(os.path.join(tmp, "b.jsonl"))
+        check(all(math.isfinite(v) for v in la.values())
+              and sorted(lb) == list(range(DTYPE_RESUME_AT + 1,
+                                           DTYPE_STEPS + 1))
+              and all(lb[k] == la[k] for k in lb),
+              f"phase 22 (c): resumed losses {lb} differ from {la}")
+        last = f"ckpt_{DTYPE_STEPS:08d}.pt"
+        pa = torch.load(os.path.join(a, last), weights_only=True)["params"]
+        pb = torch.load(os.path.join(b, last), weights_only=True)["params"]
+        check(all(torch.equal(pa[k], pb[k]) for k in pa),
+              "phase 22 (c): resumed params differ")
+        check_only([], "phase 22 (c) resumed training")
+
+        reset_counts()                  # the decode path starts here
+        model = WaveNet.from_checkpoint(a, device=dev)
+        check(sampler.kernel_module(model.cfg, dev) is sampler.PLAIN,
+              "phase 22 (c): the model would decode on a kernel")
+        out = {}
+
+        def fast():
+            out["fast"] = model.generate(num_samples=DTYPE_DECODE_STEPS,
+                                         batch=DTYPE_DECODE_B, seed=1)
+        dec_ms = cuda_ms(fast) / DTYPE_DECODE_STEPS
+        naive = sampler.generate_naive(model.params, model.cfg,
+                                       DTYPE_DECODE_STEPS,
+                                       batch=DTYPE_DECODE_B, seeds=1,
+                                       device=dev)
+        torch.cuda.synchronize()
+        check_only([], "phase 22 (c) decode")
+        check(torch.equal(out["fast"], naive),
+              "phase 22 (c): fast decode != naive")
+    return {"losses": [la[k] for k in sorted(la)],
+            "ms_per_step": 1e3 / ma["steps_per_sec"],
+            "peak_device_memory_gb": peak_gb, "decode_ms_per_step": dec_ms}
+
+
+def phase_dtypes(ts, wn, pwide, pnarrow, dev, card: str,
+                 f32_trained: dict, f32_entry: dict) -> dict:
+    """Phase 22: the config's two dtype fields at full widths.  (a) `full`
+    with param_dtype bfloat16: the stack kernels vs plain on the bf16
+    leaves at B = 2, T = 8192 (phase 4's bands, two runs bit-identical),
+    and through autograd (the trainer's _GroupApply): the weight gradients
+    bf16, kernel vs plain within phase 4's gradient band, two kernel runs
+    bit-identical; train.main 6 steps with a bit-exact resume from step
+    3, every leaf of the checkpoint (params, EMA, moments) bf16, ms per
+    step and peak memory beside phase 5's f32 leaves, the save costs
+    (utils/profiling.host_costs) beside phase 16's, and the checkpoint
+    decoded through the wide kernel == plain bit for bit (256 steps);
+    (b) `fastgen_bench` with bf16 leaves: the narrow kernel == plain bit
+    for bit at B = 64 for 256 steps, and WaveNet.generate through it (the
+    main path's launches); (c) `full` with compute_dtype
+    float16, on the plain route (train_plain).  Returns the numbers."""
+    import torch
+    from wavenet_tpu_torch.audio.dataset import AudioDataset
+    from wavenet_tpu_torch.config import fastgen_bench, full
+    from wavenet_tpu_torch.models.api import WaveNet
+    from wavenet_tpu_torch.training.trainer import Trainer
+    from wavenet_tpu_torch.utils import profiling
+    phase_t = time.monotonic()
+    bf = 'param_dtype="bfloat16"'
+    cfg = full().replace(param_dtype="bfloat16")
+    params = wn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    check({v.dtype for v in params.values()} == {torch.bfloat16},
+          "phase 22 (a): init_params drew other than bf16 leaves")
+    phase_train_stack(ts, wn, cfg, params, dev, card, phase=22,
+                      batches=(TS_B,))
+    k1 = leaf_grads(ts, wn, cfg, params, dev, ts.group_fwd, ts.group_bwd)
+    k2 = leaf_grads(ts, wn, cfg, params, dev, ts.group_fwd, ts.group_bwd)
+    p = leaf_grads(ts, wn, cfg, params, dev, ts.group_fwd_reference,
+                   ts.group_bwd_reference)
+    check(all(g.dtype == torch.bfloat16 for g in k1.values()),
+          "phase 22 (a): a weight gradient is not bf16")
+    check(all(torch.equal(k1[k], k2[k]) for k in k1),
+          "phase 22 (a): two kernel runs' gradients differ")
+    rel = {k: float((k1[k].float() - p[k].float()).abs().max())
+           / max(float(p[k].float().abs().max()), 1e-30) for k in k1}
+    check(all(r <= GRAD_TOL for r in rel.values()),
+          f"phase 22 (a): kernel vs plain leaf gradients {rel}")
+    print(f"phase 22 (a) bf16 leaves through autograd B={TS_B} T={TS_T}: "
+          f"weight gradients bf16, two kernel runs bit-identical, kernel vs "
+          f"plain max|d|/max|g| by leaf {rel} card={card!r}", flush=True)
+    del params, k1, k2, p
+    trained = phase_train(ts, pwide, dev, card, phase=22, overrides=(bf,),
+                          keep_model=True)
+    model = trained.pop("model")
+    check({v.dtype for v in model.params.values()} == {torch.bfloat16},
+          "phase 22 (a): the checkpoint's model is not bf16")
+    phase_kernel(pwide, model.cfg, pwide.flatten_params(model.params,
+                                                        model.cfg),
+                 dev, card, phase=22, steps=WIDTH_DECODE_STEPS)
+    del model
+    print(f"phase 22 (a) full train step, bf16 leaves against phase 5's f32 "
+          f"leaves (B={TS_TRAIN_B} T={TS_T}): ms_per_step="
+          f"{trained['ms_per_step']} vs {f32_trained['ms_per_step']} "
+          f"peak_device_memory_gb={trained['peak_device_memory_gb']} vs "
+          f"{f32_trained['peak_device_memory_gb']} card={card!r}",
+          flush=True)
+    ecfg = f32_entry["cfg"].replace(param_dtype="bfloat16")
+    ds = AudioDataset.synthetic(ecfg, num_clips=8, clip_seconds=4.0)
+    with tempfile.TemporaryDirectory() as ck:
+        costs = profiling.host_costs(
+            Trainer(ecfg, ds, checkpoint_dir=ck, device=dev),
+            SAVE_COST_STEPS)
+    trained["host_costs"] = costs
+    print(f"phase 22 (a) ms per step at B={TS_TRAIN_B}, bf16 leaves against "
+          f"phase 16's f32 leaves ({SAVE_COST_STEPS} steps a mode): "
+          f"{json.dumps(costs)} vs {json.dumps(f32_entry['host_costs'])} "
+          f"card={card!r}", flush=True)
+
+    fcfg = fastgen_bench().replace(param_dtype="bfloat16")
+    fparams = wn.init_params(fcfg, torch.Generator().manual_seed(0), dev)
+    narrow = phase_kernel(pnarrow, fcfg, pnarrow.flatten_params(fparams,
+                                                               fcfg),
+                          dev, card, phase=22, batch=NARROW_B,
+                          steps=DTYPE_NARROW_STEPS)
+    reset_counts()                  # the decode path starts here
+    toks = WaveNet(fcfg, fparams).generate(seconds=DECODE_SECONDS, seed=1)
+    torch.cuda.synchronize()
+    narrow["launches"] = check_only(["decode.launches"],
+                                    "phase 22 (b) decode")["decode.launches"]
+    check(tuple(toks.shape) == (1, int(DECODE_SECONDS * fcfg.sample_rate)),
+          "phase 22 (b): bad decode of the bf16-leaf model")
+    print(f"phase 22 (b) fastgen_bench bf16 leaves: WaveNet.generate of "
+          f"{DECODE_SECONDS} s launched the narrow kernel "
+          f"{narrow['launches']} time(s) card={card!r}", flush=True)
+    del fparams
+    plain = train_plain(dev, card, ('compute_dtype="float16"',))
+    print(f"phase 22 (c) full compute_dtype float16 on the plain route "
+          f"(cut to B={DTYPE_TRAIN_B}, T={TS_T} for training; "
+          f"{DTYPE_DECODE_STEPS} decode steps at B={DTYPE_DECODE_B}): "
+          f"trained {DTYPE_STEPS} steps, resumed from {DTYPE_RESUME_AT} bit "
+          f"for bit, no kernel launched, fast == naive: {json.dumps(plain)} "
+          f"card={card!r}", flush=True)
+    print(f"phase 22 seconds={time.monotonic() - phase_t} card={card!r}",
+          flush=True)
+    return {"train_bf16": trained, "narrow_bf16": narrow, "float16": plain}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3100,14 +3332,26 @@ def main() -> int:
           f"{torch.version.cuda} | kernel build_s={time.monotonic() - t}",
           flush=True)
 
+    laps, last = {}, [time.monotonic()]
+
+    def lap(phase: str) -> None:
+        """Wall seconds since the previous lap, under the phase's name."""
+        now = time.monotonic()
+        laps[phase], last[0] = now - last[0], now
+
     phase_rng(pwide, rng, dev)
+    lap("1")
     cfg = full()
     params = wn.init_params(cfg, torch.Generator().manual_seed(0), dev)
     w = pwide.flatten_params(params, cfg)
     numbers = phase_kernel(pwide, cfg, w, dev, card, phase=2, plans=PLANS)
+    lap("2")
     launches = phase_serve(pwide, cfg, dev, card)
+    lap("3")
     stack = phase_train_stack(ts, wn, cfg, params, dev, card)
+    lap("4")
     trained = phase_train(ts, pwide, dev, card)
+    lap("5")
     del params, w
 
     vcfg = full_vocoder()
@@ -3115,10 +3359,14 @@ def main() -> int:
     vw = pwide.flatten_params(vparams, vcfg)
     y = _mel_features(vparams, vcfg, B, STEPS, np.random.RandomState(6), dev)
     mel_numbers = phase_kernel(pwide, vcfg, vw, dev, card, phase=6, y=y)
+    lap("6")
     mel_launches = phase_serve_vocoder(pwide, vcfg, dev, card)
+    lap("7")
     mel_stack = phase_train_stack(ts, wn, vcfg, vparams, dev, card, phase=8,
                                   num_groups=6)
+    lap("8")
     mel_trained = phase_train(ts, pwide, dev, card, "full_vocoder", phase=9)
+    lap("9")
     del vparams, vw, y
 
     fcfg = fastgen_bench()
@@ -3133,10 +3381,12 @@ def main() -> int:
     dparams = wn.init_params(dcfg, torch.Generator().manual_seed(3), dev)
     phase_kernel(pnarrow, dcfg, pnarrow.flatten_params(dparams, dcfg), dev,
                  card, phase=10, batch=HAZARD_B, steps=HAZARD_STEPS)
+    lap("10")
     del dparams
     narrow_launches = phase_serve(pnarrow, fcfg, dev, card, phase=11,
                                   seeds=tuple(range(1001, 1017)),
                                   one_batch=True)
+    lap("11")
 
     ccfg = conditional()
     cparams = wn.init_params(ccfg, torch.Generator().manual_seed(0), dev)
@@ -3146,9 +3396,11 @@ def main() -> int:
     del cparams, cw, y
     cmel_launches = phase_serve_vocoder(pnarrow, ccfg, dev, card, phase=12)
     phase_train(ts, pnarrow, dev, card, "conditional", phase=12)
+    lap("12")
 
     (gc_numbers, gc_launches), (wgc_numbers, wgc_launches) = phase_speakers(
         pnarrow, pwide, wn, dev, card)
+    lap("13")
 
     scfg = full().replace(global_classes=SPEAKERS)
     sparams = wn.init_params(scfg, torch.Generator().manual_seed(0), dev)
@@ -3161,15 +3413,27 @@ def main() -> int:
                       num_groups=6, batches=(TS_B,))
     del svparams
     gc_trained = phase_train(ts, pwide, dev, card, phase=14, speakers=True)
+    lap("14")
 
     probe_nums, verify_counts = phase_verify(probes, dev, card)
-    phase_entry_points(ts, dev, card)
+    lap("15")
+    entry = phase_entry_points(ts, dev, card)
+    lap("16")
     phase_data(card)
     phase_dp(ts, dev, card, trained)
+    lap("17")
     phase_mesh(dev, card)
+    lap("18")
     phase_seqmodel(ts, dev, card, trained)
+    lap("19")
     phase_aot(dev, card)
+    lap("20")
     phase_widths(ts, wn, pwide, dev, card)
+    lap("21")
+    phase_dtypes(ts, wn, pwide, pnarrow, dev, card, trained, entry)
+    lap("22")
+    print(f"chip_smoke: wall seconds by phase (set-up included) "
+          f"{json.dumps(laps)} card={card!r}", flush=True)
     print(f"chip_smoke: every phase passed in {time.monotonic() - run_t} s",
           flush=True)
 

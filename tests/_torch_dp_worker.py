@@ -126,7 +126,9 @@ def loss_ranks(rank: int, store: str, workdir: str) -> None:
                 grads = dict(zip(keys, torch.autograd.grad(
                     loss, [flat[k] for k in keys])))
                 grads = dataparallel.reduce_gradients(grads)
-                out = {f"grad/{k}": v.numpy() for k, v in grads.items()}
+                # bf16 leaves' gradients widened to f32 (np has no bf16)
+                out = {f"grad/{k}": v.float().numpy()
+                       for k, v in grads.items()}
                 out.update({k: v.detach().numpy() for k, v in aux.items()})
             elif case["kind"] == "stream":
                 root = os.path.join(workdir, "corpus")

@@ -46,7 +46,10 @@ def _inputs(workdir: str, name: str, spec: dict):
 
 
 def _np(tree, prefix):
-    return {f"{prefix}{k}": v.detach().numpy() for k, v in tree.items()}
+    # bf16 leaves widened to f32 (numpy has no bf16 of its own)
+    return {f"{prefix}{k}": (v.detach().float() if v.dtype == torch.bfloat16
+                             else v.detach()).numpy()
+            for k, v in tree.items()}
 
 
 def _loss(cfg, params, inp):

@@ -98,8 +98,10 @@ def test_float32_keeps_every_operand_in_float32():
     assert decode_common.flatten_params(p, bf)["w_cur"].dtype == \
         torch.bfloat16
     assert sampler.kernel_module(bf, "cuda") is tdec
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        twn.compute_dtype(tc.replace(compute_dtype="float16"))
+    # float16 is taken too, on the plain route as float32 is
+    f16 = tc.replace(compute_dtype="float16")
+    assert twn.compute_dtype(f16) == torch.float16
+    assert sampler.kernel_module(f16, "cuda") is sampler.PLAIN
 
 
 @pytest.mark.parametrize("R,S,route", [(128, 80, "narrow"),

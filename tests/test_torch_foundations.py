@@ -144,13 +144,14 @@ def test_init_params_shapes_match_reference():
 
 def test_unported_features_raise_not_implemented():
     from wavenet_tpu_torch.models import wavenet as twn
-    # kernel_size > 2 and causal_channels != R now run on the plain route;
-    # a compute dtype other than bf16 and f32 stays refused
-    for kw in ({"kernel_size": 3}, {"causal_channels": 64}):
+    # kernel_size > 2, causal_channels != R and compute_dtype float16 now
+    # run on the plain route; a dtype outside the reference's stays refused
+    for kw in ({"kernel_size": 3}, {"causal_channels": 64},
+               {"compute_dtype": "float16"}):
         WaveNet(tconfig.WaveNetConfig(residual_channels=128, **kw))
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         WaveNet(tconfig.WaveNetConfig(residual_channels=128,
-                                      compute_dtype="float16"))
+                                      compute_dtype="float64"))
     # speaker models decode, serve and train; the training half refuses
     # what the decode half refuses
     for kw in ({"global_classes": 4},
@@ -159,5 +160,6 @@ def test_unported_features_raise_not_implemented():
         WaveNet(cfg)
         twn.check_trainable(cfg)
         twn.check_trainable(cfg.replace(kernel_size=3))
+        twn.check_trainable(cfg.replace(compute_dtype="float16"))
         with pytest.raises(NotImplementedError, match="compute_dtype"):
-            twn.check_trainable(cfg.replace(compute_dtype="float16"))
+            twn.check_trainable(cfg.replace(compute_dtype="float64"))

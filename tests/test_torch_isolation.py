@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no reference package, no silent fallback.
 
   * every module of wavenet_tpu_torch imports in a fresh interpreter
-    without pulling jax or wavenet_tpu into sys.modules (the GPU machine
-    has no JAX);
+    without pulling jax, ml_dtypes or wavenet_tpu into sys.modules (the
+    GPU machine has no JAX and no ml_dtypes);
   * the kernel module imports without nvcc (kernels build at first use);
   * a tensor on a CUDA device never reaches the plain PyTorch version: on
     a machine without CUDA (or nvcc), decode_chunk for a CUDA tensor raises.
@@ -39,6 +39,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "ml_dtypes" or m.startswith("ml_dtypes.")
              or m == "wavenet_tpu" or m.startswith("wavenet_tpu."))
 assert not bad, bad
 assert "wavenet_tpu_torch.serve" in names and len(names) >= 15, names

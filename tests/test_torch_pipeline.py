@@ -67,6 +67,8 @@ LOSS = {
     "tp": (SCAN, 1, 1, 2, dict(SPK, mel=MEL)),
     "tp_dp2": (SCAN, 2, 1, 2, {}),
     "tp_sp2": (SCAN, 1, 2, 2, {"batch_size": 2}),
+    "tp_bf16_leaves": (SCAN, 1, 1, 2, {"compute_dtype": "bfloat16",
+                                       "param_dtype": "bfloat16"}),
 }
 TRAIN = {
     "train_pp": (PIPE, dict(ema_decay=0.99)),
@@ -148,7 +150,8 @@ def _single(tc, jp, inp, fused):
                           use_fused=fused)
     keys = sorted(flat)
     g = torch.autograd.grad(loss, [flat[k] for k in keys])
-    return float(loss.detach()), {k: v.numpy() for k, v in zip(keys, g)}
+    return float(loss.detach()), {k: v.float().numpy()
+                                  for k, v in zip(keys, g)}
 
 
 def _grads(res, prefix="grad/"):
@@ -176,8 +179,8 @@ def test_model_axis_loss_and_grads_match_single_process(run, name,
     pipe = vmem is not None
     ranks = out[name]
     assert str(ranks[0]["route"]) == {
-        "pp": "pp", "tp": "tp", "tp_dp2": "tp", "tp_sp2": "sp"}.get(
-            name, "pp")
+        "pp": "pp", "tp": "tp", "tp_dp2": "tp", "tp_sp2": "sp",
+        "tp_bf16_leaves": "tp"}.get(name, "pp")
     for r in ranks[1:]:                  # every rank: the whole gradients
         for k, v in _grads(ranks[0]).items():
             np.testing.assert_array_equal(_grads(r)[k], v, err_msg=k)
@@ -187,7 +190,13 @@ def test_model_axis_loss_and_grads_match_single_process(run, name,
     np.testing.assert_allclose(float(ranks[0]["loss"]), loss,
                                **(dict(rtol=2e-4, atol=2e-4) if pipe
                                   else dict(rtol=2e-6)))
-    _assert_close(_grads(ranks[0]), grads, pipe)
+    # bf16 leaves: each rank's cotangents rounded to bf16 before the sums
+    # over `model`, so the bf16 band (2e-2 of each leaf's largest element)
+    _assert_close(_grads(ranks[0]), grads, pipe or _bf16(tc))
+
+
+def _bf16(tc):
+    return tc.param_dtype == "bfloat16"
 
 
 @pytest.mark.parametrize("name", list(LOSS))
@@ -210,13 +219,18 @@ def test_model_axis_loss_and_grads_match_jax(run, name, monkeypatch):
                                               toks[:, 1:], **kw)[0]
         else:
             fn = lambda p: jwn.loss_fn(p, jc, toks, **kw)[0]
+    if _bf16(tc):
+        # XLA's CPU compiler aborts on the bf16 all-reduce of a sharded
+        # gradient (AllReducePromotion), so the reference runs unsharded
+        p = jp
     jl, jg = jax.jit(jax.value_and_grad(fn))(p)
     r0 = out[name][0]
+    loose = vmem is not None or _bf16(tc)     # the bf16 stack's bands
     np.testing.assert_allclose(float(r0["loss"]), float(jl),
-                               **(dict(rtol=2e-4, atol=2e-4) if vmem
+                               **(dict(rtol=2e-4, atol=2e-4) if loose
                                   else dict(rtol=2e-6)))
-    _assert_close(_grads(r0), flatten_tree(jax.tree.map(np.asarray, jg)),
-                  vmem is not None)
+    _assert_close(_grads(r0), flatten_tree(jax.tree.map(
+        lambda g: np.asarray(g, np.float32), jg)), loose)
 
 
 def _one_process_trainer(tc, jp):

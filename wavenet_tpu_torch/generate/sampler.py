@@ -12,8 +12,10 @@ between its kernels and its XLA scan:
   * the wide one (ops/cuda/decode_wide.py) for R a multiple of 128 with S a
     multiple of 32;
   * the plain route (PLAIN: decode_common.decode_chunk_reference on any
-    device) for a model that no reference kernel takes, kernel_size > 2,
-    causal_channels != residual_channels or compute_dtype float32, and for
+    device) for a model that no port kernel takes, kernel_size > 2,
+    causal_channels != residual_channels or compute_dtype float32 or
+    float16 (the reference's kernels would compute those two in bf16;
+    the port computes them in their own dtype), at any param_dtype, and for
     a bf16 width-2 model whose widths neither port kernel takes: the
     counterpart of the reference's scan (generate_auto's last branch and
     _stream_scan), which the reference also falls back to when neither of
@@ -54,8 +56,9 @@ PLAIN = types.SimpleNamespace(
 
 
 def kernel_module(cfg: WaveNetConfig, device):
-    """The route that decodes cfg: PLAIN for a model no reference kernel
-    takes (kernel_size > 2, E != R, compute_dtype float32); else
+    """The route that decodes cfg: PLAIN for a model no port kernel takes
+    (kernel_size > 2, E != R, compute_dtype float32 or float16, which the
+    reference's kernels would compute in bf16); else
     ops/cuda/decode_wide for R a multiple of 128 with S a multiple of 32,
     and ops/cuda/decode for every other width.  On the card a width that
     neither kernel takes (the narrow one's block does not fit) goes to

@@ -89,22 +89,23 @@ class WaveNet(nn.Module):
         """One portable .npz: '/'-joined param keys plus the config JSON
         under '__config__' — the JAX package's export format."""
         from wavenet_tpu_torch.utils.pytree_io import (flatten_tree,
-                                                       params_to_numpy)
+                                                       params_to_numpy,
+                                                       save_npz)
         flat = flatten_tree(params_to_numpy(self.params))
         flat["__config__"] = np.frombuffer(self.cfg.to_json().encode(),
                                            dtype=np.uint8)
-        np.savez(path, **flat)
+        save_npz(path, flat)
 
     @classmethod
     def from_npz(cls, path: str, device="cuda") -> "WaveNet":
-        """Load an export_npz file written by either package."""
-        from wavenet_tpu_torch.utils.pytree_io import (params_from_numpy,
+        """Load an export_npz file written by either package (bf16 leaves
+        too: utils/pytree_io.load_npz)."""
+        from wavenet_tpu_torch.utils.pytree_io import (load_npz,
+                                                       params_from_numpy,
                                                        unflatten_tree)
-        with np.load(path) as z:
-            cfg = WaveNetConfig.from_json(bytes(z["__config__"]).decode())
-            params = unflatten_tree({k: z[k] for k in z.files
-                                     if k != "__config__"})
-        return cls(cfg, params_from_numpy(params, device))
+        z = load_npz(path)
+        cfg = WaveNetConfig.from_json(bytes(z.pop("__config__")).decode())
+        return cls(cfg, params_from_numpy(unflatten_tree(z), device))
 
     @classmethod
     def from_checkpoint(cls, directory: str, step: Optional[int] = None,

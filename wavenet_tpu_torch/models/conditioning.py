@@ -35,10 +35,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def init_upsampler_params(mel: MelConfig, generator: torch.Generator,
-                          device="cuda") -> Dict[str, torch.Tensor]:
+                          device="cuda", dtype=torch.float32
+                          ) -> Dict[str, torch.Tensor]:
     """Near-identity stages, the reference's shapes and distribution: every
     tap holds eye(M) / k plus N(0, 0.01^2 / (k M)) noise; zero biases.
-    Drawn from `generator` (a CPU torch.Generator)."""
+    Drawn in f32 from `generator` (a CPU torch.Generator) and cast to
+    `dtype` (the config's param_dtype, as the reference's
+    init_upsampler_params(cfg.mel, key, pdt))."""
     M = mel.num_mels
     params = {}
     for i, f in enumerate(mel.upsample_factors):
@@ -48,7 +51,7 @@ def init_upsampler_params(mel: MelConfig, generator: torch.Generator,
             / (k * M) ** 0.5
         params[f"w{i}"] = w
         params[f"b{i}"] = torch.zeros(M)
-    return {k: v.to(device) for k, v in params.items()}
+    return {k: v.to(device=device, dtype=dtype) for k, v in params.items()}
 
 
 def _repeat(y: torch.Tensor, f: int) -> torch.Tensor:

@@ -43,13 +43,23 @@ Every config the reference takes, in two halves:
     the card for the configs the reference's kernels take.
 cfg.compute_dtype sets the type of every matmul operand, activation,
 residual and ring, as the reference's _dtype(cfg) does: "bfloat16" rounds
-them as described above; "float32" keeps them in f32 (the products still
-summed in f64 and rounded once to f32).  kernel_size K > 2 adds the taps
-w_prevk [L, K-2, R, 2, R] at distances 2d..(K-1)d and embed_prevk
+them as described above; "float16" rounds them to f16 the same way (an
+f16 x f16 product has at most 22 significant bits, so the f64 sums stay
+exact); "float32" keeps them in f32 (the products still summed in f64 and
+rounded once to f32).  cfg.param_dtype ("float32", "bfloat16" or
+"float16") is the dtype of every leaf, as the reference's init_params
+draws them: each matmul casts its weight to the compute dtype, each bias
+and embedding lookup is read in f32 (the embedding's taps summed in the
+table's dtype first, as the reference's gather adds them), and autograd
+hands each leaf its gradient in its own dtype.  kernel_size K > 2 adds
+the taps w_prevk [L, K-2, R, 2, R] at distances 2d..(K-1)d and embed_prevk
 [K-2, Q, E] at t-2..t-(K-1); causal_channels E != R adds w_embed_proj
 [E, R] after the embedding.  The CUDA kernels take none of these three
-(bf16, K = 2, E = R only, as the reference's Pallas kernels): such models
-train and decode here, on the plain path, on any device.
+(bf16 compute, K = 2, E = R only, as the reference's Pallas kernels
+compute in bf16): such models, f16- and f32-compute ones among them,
+train and decode here, on the plain path, on any device.  The kernels
+take every param_dtype (their operands are cast to bf16, their biases to
+f32).
 With mel, every layer's gate adds y @ V_cond[l] after the bias, y the
 upsampled features: in training from the mel frames (`mel`) or given
 upsampled (`upsampled_cond`), in decode as per-step contributions cond_t
@@ -79,7 +89,8 @@ Params = Dict[str, torch.Tensor]
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32}
 
 
 def compute_dtype(cfg: WaveNetConfig) -> torch.dtype:
@@ -89,13 +100,21 @@ def compute_dtype(cfg: WaveNetConfig) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
 
 
+def param_dtype(cfg: WaveNetConfig) -> torch.dtype:
+    """The torch dtype of cfg.param_dtype (every leaf, Adam's moments and
+    the EMA)."""
+    check_supported(cfg)
+    return _DTYPES[cfg.param_dtype]
+
+
 def check_supported(cfg: WaveNetConfig) -> None:
-    """Raise NotImplementedError for a compute dtype the port does not
-    take (bfloat16 and float32 only)."""
-    if cfg.compute_dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
-            f"{sorted(_DTYPES)}")
+    """Raise NotImplementedError for a compute or param dtype outside the
+    reference's floating types (bfloat16, float16, float32)."""
+    for field in ("compute_dtype", "param_dtype"):
+        if getattr(cfg, field) not in _DTYPES:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r}: the port takes "
+                f"{sorted(_DTYPES)}")
 
 
 def check_trainable(cfg: WaveNetConfig) -> None:
@@ -114,11 +133,12 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
     """Random params with the reference's shapes and distributions: embed
     tables (and g_embed, embed_prevk) N(0, 0.05^2), stacked Glorot-uniform
     weights (fan-in from the input axis, fan-out from the last), zero
-    biases.  Drawn from `generator` (a CPU torch.Generator) and moved to
-    `device`; the values are not JAX's (the two RNGs differ).  The leaves
-    of K > 2 and E != R are drawn last, so a K = 2, E = R model draws what
-    it drew before they existed."""
-    check_supported(cfg)
+    biases.  Drawn in f32 from `generator` (a CPU torch.Generator), cast to
+    cfg.param_dtype and moved to `device`; the values are not JAX's (the
+    two RNGs differ), the dtypes are.  The leaves of K > 2 and E != R are
+    drawn last, so a K = 2, E = R model draws what it drew before they
+    existed, and a model of any param_dtype draws the same f32 values."""
+    pdt = param_dtype(cfg)
     L, R = cfg.num_layers, cfg.residual_channels
     S, Q = cfg.skip_channels, cfg.quantization_channels
     E, K = cfg.embed_channels, cfg.kernel_size
@@ -153,7 +173,7 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
     if cfg.mel is not None:
         params["v_cond"] = glorot(L, cfg.mel.num_mels, 2, R)
         params["upsampler"] = conditioning.init_upsampler_params(
-            cfg.mel, generator, device)
+            cfg.mel, generator, device, pdt)
     if cfg.global_classes is not None:
         G = cfg.global_channels
         params["g_embed"] = normal(cfg.global_classes, G)
@@ -163,7 +183,7 @@ def init_params(cfg: WaveNetConfig, generator: torch.Generator,
         params["embed_prevk"] = normal(K - 2, Q, E)
     if E != R:
         params["w_embed_proj"] = glorot(E, R)
-    return {k: v if isinstance(v, dict) else v.to(device)
+    return {k: v if isinstance(v, dict) else v.to(device=device, dtype=pdt)
             for k, v in params.items()}
 
 
@@ -190,14 +210,14 @@ def global_cond_offsets(params: Params, cfg: WaveNetConfig,
     """Speaker ids [B] -> per-layer gate offsets [L, B, 2, R] f32 (paper
     eq.2: one time-constant offset per layer and row, computed once per
     request batch): g_embed[speaker] @ v_global[l] with bf16 operands,
-    each dot summed exactly and rounded once (_dot; f32 operands at
-    compute_dtype float32).  Accepts model-layout params or the decode
-    kernels' layout (v_global folded to [L, G, 2R]).  The lookup is a
-    _Gather, so in training two rows of one speaker add their gradients in
-    a fixed order (bit-exact resume).  v_global may be a slice of the
-    layers (a pipeline stage's, [L/mp, ..]) or of the gate columns (a
-    Megatron rank's, [L, G, 2, R/mp], with tp its split): the offsets are
-    then that slice's."""
+    each dot summed exactly and rounded once (_dot; f16 or f32 operands
+    at compute_dtype float16 or float32).  Accepts model-layout params or
+    the decode kernels' layout (v_global folded to [L, G, 2R]).  The
+    lookup is a _Gather, so in training two rows of one speaker add their
+    gradients in a fixed order (bit-exact resume).  v_global may be a
+    slice of the layers (a pipeline stage's, [L/mp, ..]) or of the gate
+    columns (a Megatron rank's, [L, G, 2, R/mp], with tp its split): the
+    offsets are then that slice's."""
     G = cfg.global_channels
     cdt = compute_dtype(cfg)
     gvec = _Gather.apply(params["g_embed"].float(), speaker.long())  # [B, G]
@@ -219,20 +239,22 @@ def embed_tokens(params: Params, cfg: WaveNetConfig, tokens: torch.Tensor,
                  prev_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
     """E_cur[tokens] + E_prev[prev_tokens] (+ embed_prevk[j][prev_extra[j]]
     for the taps at t-2..t-(K-1) of a kernel_size K > 2 model), summed in
-    f32 and rounded once to the compute dtype; a model with E != R then
-    projects: x = round(x @ w_embed_proj).  -> residual stream [.., R]
-    (f32 holding compute-dtype values).  prev_extra: [K-2, *tokens.shape]."""
+    the tables' dtype (f32 at param_dtype float32; each add rounded to a
+    bf16 or f16 table's type, as the reference's gathers add) and rounded
+    once to the compute dtype; a model with E != R then projects: x =
+    round(x @ w_embed_proj).  -> residual stream [.., R] (f32 holding
+    compute-dtype values).  prev_extra: [K-2, *tokens.shape]."""
     cdt = compute_dtype(cfg)
-    x = (_Gather.apply(params["embed_cur"].float(), tokens.long())
-         + _Gather.apply(params["embed_prev"].float(), prev_tokens.long()))
+    x = (_Gather.apply(params["embed_cur"], tokens.long())
+         + _Gather.apply(params["embed_prev"], prev_tokens.long()))
     ek = params.get("embed_prevk")
     if ek is not None:
         if prev_extra is None:
             raise ValueError("kernel_size > 2 model: embed_tokens needs the "
                              "prev_extra taps (tokens at t-2..t-(K-1))")
         for j in range(ek.shape[0]):
-            x = x + _Gather.apply(ek[j].float(), prev_extra[j].long())
-    x = _round(x, cdt)
+            x = x + _Gather.apply(ek[j], prev_extra[j].long())
+    x = _round(x.float(), cdt)
     if "w_embed_proj" in params:
         x = _round(_dot(x, params["w_embed_proj"], cdt), cdt)
     return x
@@ -243,7 +265,8 @@ class _Gather(torch.autograd.Function):
     on the card the scatter-add of torch's indexing backward sums with
     float atomics (its order changes from run to run), while the product
     onehot(idx)^T @ grad has a fixed order, so two training runs give the
-    same bits without switching torch to deterministic algorithms."""
+    same bits without switching torch to deterministic algorithms.  The
+    product is taken in f32 and rounded once to the table's dtype."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -256,7 +279,7 @@ class _Gather(torch.autograd.Function):
         idx, = ctx.saved_tensors
         onehot = torch.nn.functional.one_hot(idx.reshape(-1), ctx.num_rows)
         g = grad.reshape(-1, grad.shape[-1])
-        return onehot.to(g.dtype).T @ g, None
+        return (onehot.float().T @ g.float()).to(grad.dtype), None
 
 
 def head_logits(params: Params, cfg: WaveNetConfig,

@@ -33,10 +33,24 @@ class DecodeWeights(dict):
     gate axis folded (b [L, 2R]); dils int32 [L]; with mel, v_cond
     [L, M, 2R]; with speakers, g_embed f32 [C, G] and v_global [L, G, 2R]
     (read by speaker_offsets, not the kernels).  Matrices are held in the
-    compute dtype (bf16, the kernels' type; f32 for a float32 model).  A
-    model no kernel takes also carries w_prevk [L, K-2, R, 2R] and
-    embed_prevk f32 [K-2, Q, E] (K > 2) and w_embed_proj [E, R] (E != R)
-    for the plain route."""
+    compute dtype (bf16, the kernels' type; f16 or f32 for such a model).
+    A model no kernel takes also carries w_prevk [L, K-2, R, 2R] and
+    embed_prevk [K-2, Q, E] (K > 2) and w_embed_proj [E, R] (E != R)
+    for the plain route, and keeps its embed tables in param_dtype: its
+    taps are then summed in the tables' dtype, as the reference's scan
+    decoder sums them (the kernels, like the reference's, sum f32 tables
+    once; for bf16 or f32 tables at K = 2 the two are the same bits)."""
+
+
+def embed_dtype(cfg: WaveNetConfig) -> torch.dtype:
+    """The dtype of the decode layout's embed tables: f32 for the
+    kernels' family (kernel_size 2, E = R, bf16 compute), whose taps the
+    kernels sum in f32; cfg.param_dtype for every other model (see
+    DecodeWeights)."""
+    if (cfg.kernel_size == 2 and cfg.embed_channels == cfg.residual_channels
+            and wn.compute_dtype(cfg) == torch.bfloat16):
+        return torch.float32
+    return wn.param_dtype(cfg)
 
 
 def flatten_params(params, cfg: WaveNetConfig) -> DecodeWeights:
@@ -47,9 +61,10 @@ def flatten_params(params, cfg: WaveNetConfig) -> DecodeWeights:
     L, R, K = cfg.num_layers, cfg.residual_channels, cfg.kernel_size
     cdt, f32 = wn.compute_dtype(cfg), torch.float32
     dev = params["w_cur"].device
+    edt = embed_dtype(cfg)
     w = DecodeWeights(
-        embed_cur=params["embed_cur"].to(f32),
-        embed_prev=params["embed_prev"].to(f32),
+        embed_cur=params["embed_cur"].to(edt),
+        embed_prev=params["embed_prev"].to(edt),
         w_cur=params["w_cur"].reshape(L, R, 2 * R).to(cdt),
         w_prev=params["w_prev"].reshape(L, R, 2 * R).to(cdt),
         b=params["b"].reshape(L, 2 * R).to(f32),
@@ -67,7 +82,7 @@ def flatten_params(params, cfg: WaveNetConfig) -> DecodeWeights:
             L, cfg.global_channels, 2 * R).to(cdt)
     if K > 2:
         w["w_prevk"] = params["w_prevk"].reshape(L, K - 2, R, 2 * R).to(cdt)
-        w["embed_prevk"] = params["embed_prevk"].to(f32)
+        w["embed_prevk"] = params["embed_prevk"].to(edt)
     if cfg.embed_channels != R:
         w["w_embed_proj"] = params["w_embed_proj"].to(cdt)
     return DecodeWeights({k: v.detach().contiguous() for k, v in w.items()})
@@ -112,9 +127,9 @@ def decode_chunk_reference(w: DecodeWeights, cfg: WaveNetConfig,
     models/wavenet.decode_step, models/conditioning.project_cond and
     ops/rng.py: the same signature, outputs and carry convention, on any
     device.  It is also the whole decode of the plain route (a model no
-    kernel takes: K > 2, E != R or compute_dtype float32), whose rings are
-    in the compute dtype and whose carry is [B, K]: the next token, then
-    the tokens at t-1..t-(K-1)."""
+    kernel takes: K > 2, E != R or compute_dtype float32 or float16),
+    whose rings are in the compute dtype and whose carry is [B, K]: the
+    next token, then the tokens at t-1..t-(K-1)."""
     B = tokens_init.shape[0]
     check_y(cfg, y, B, num_steps)
     check_g(cfg, g, B)

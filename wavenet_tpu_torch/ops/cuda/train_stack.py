@@ -141,8 +141,9 @@ def group_plan(cfg: WaveNetConfig, TT: int) -> List[Tuple[int, int]]:
 def config_taken(cfg: WaveNetConfig) -> bool:
     """Whether the stack computes cfg's model at all: kernel_size 2,
     causal_channels == residual_channels and compute_dtype bfloat16 (the
-    kernels compute in bf16, as the reference's Pallas kernels do).  Every
-    other model trains on the scan (models/wavenet.forward_logits)."""
+    kernels compute in bf16, as the reference's Pallas kernels do), at any
+    param_dtype.  Every other model, float16 and float32 compute among
+    them, trains on the scan (models/wavenet.forward_logits)."""
     return (cfg.kernel_size == 2 and cfg.compute_dtype == "bfloat16"
             and cfg.embed_channels == cfg.residual_channels)
 
@@ -678,7 +679,12 @@ class _GroupApply(torch.autograd.Function):
     is rounded to bf16 here, inside the op, so its cotangent dy comes back
     f32, as the reference's VJP hands it to the upsampler.  g is the
     group's speaker offsets [B, Lg, 2R] f32 (None without a speaker); its
-    cotangent dg is f32."""
+    cotangent dg is f32.  The weights may be f32, bf16 or f16 leaves
+    (cfg.param_dtype; prep_weights casts them to the kernels' operands):
+    their cotangents are summed over every row and tile in f32 and rounded
+    once to each leaf's dtype here, at the group's end, where the
+    reference's VJP casts them (ops/pallas/train_stack.py's
+    _group_vjp_bwd)."""
 
     @staticmethod
     def forward(ctx, dils, x, skip, y, g, w_cur, w_prev, b, w_res, b_res,
@@ -689,6 +695,9 @@ class _GroupApply(torch.autograd.Function):
         skip_out, x_out, xs = group_fwd(x, skip, ops, dils, yb, g)
         ctx.save_for_backward(xs, yb, g, *ops)
         ctx.dils = dils
+        ctx.dtypes = [None if w is None else w.dtype
+                      for w in (w_cur, w_prev, b, w_res, b_res, w_skip,
+                                b_skip, v_cond)]
         return skip_out, x_out
 
     @staticmethod
@@ -706,12 +715,11 @@ class _GroupApply(torch.autograd.Function):
         if cond:
             dvc, dy = cond
             dvc = dvc.reshape(Lg, dvc.shape[1], 2, R)
-        return (None, dx, dskip, dy, dg,
-                dwz[:, :R].reshape(Lg, R, 2, R),
-                dwz[:, R:].reshape(Lg, R, 2, R),
-                db.reshape(Lg, 2, R),
-                dwrs[..., :R], dbres, dwrs[..., R:],
-                dbskip.expand(Lg, S), dvc)
+        dw = (dwz[:, :R].reshape(Lg, R, 2, R), dwz[:, R:].reshape(Lg, R, 2, R),
+              db.reshape(Lg, 2, R), dwrs[..., :R], dbres, dwrs[..., R:],
+              dbskip.expand(Lg, S), dvc)
+        return (None, dx, dskip, dy, dg) + tuple(
+            None if d is None else d.to(t) for d, t in zip(dw, ctx.dtypes))
 
 
 def stack_forward(params, cfg: WaveNetConfig, groups, x: torch.Tensor, fwd,

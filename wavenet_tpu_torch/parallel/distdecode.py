@@ -121,8 +121,9 @@ def local_weights(params, cfg: WaveNetConfig,
     Rl = R // groups.mp
     cdt, f32, f64 = wn.compute_dtype(cfg), torch.float32, torch.float64
     p = shd.shard_params(params, cfg, groups.mp, groups.model_index)
+    edt = decode_common.embed_dtype(cfg)
     w = LocalWeights(
-        embed_cur=p["embed_cur"].to(f32), embed_prev=p["embed_prev"].to(f32),
+        embed_cur=p["embed_cur"].to(edt), embed_prev=p["embed_prev"].to(edt),
         w_cur=p["w_cur"].reshape(L, R, 2 * Rl).to(cdt),
         w_prev=p["w_prev"].reshape(L, R, 2 * Rl).to(cdt),
         b=p["b"].reshape(L, 2 * Rl).to(f32),

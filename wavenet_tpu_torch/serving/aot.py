@@ -51,7 +51,10 @@ from wavenet_tpu_torch.models.conditioning import upsample_mel
 from wavenet_tpu_torch.ops import rng
 # decode_op registers torch.ops.wavenet_tpu_torch.generate
 from wavenet_tpu_torch.ops.cuda import build, decode_op  # noqa: F401
-from wavenet_tpu_torch.utils.pytree_io import flatten_tree, unflatten_tree
+from wavenet_tpu_torch.utils.pytree_io import (flatten_tree, load_npz,
+                                               params_from_numpy,
+                                               params_to_numpy, save_npz,
+                                               unflatten_tree)
 
 _EXPORTED = "exported.pt2"
 _WEIGHTS = "weights.npz"
@@ -138,8 +141,7 @@ def export_decoder(params, cfg: WaveNetConfig, path: str, *,
     torch.export.save(exported, pbuf)
 
     wbuf = io.BytesIO()
-    np.savez(wbuf, **{k: v.detach().cpu().numpy()
-                      for k, v in flatten_tree(params).items()})
+    save_npz(wbuf, params_to_numpy(flatten_tree(params)))
     meta = {"num_samples": num_samples, "batch": batch,
             "temperature": temperature, "with_speaker": with_speaker,
             "with_mel": with_mel, "mel_frames": mel_frames,
@@ -247,9 +249,8 @@ def load_decoder(path: str, device="cuda") -> AotDecoder:
                 dev = torch.device("cuda", torch.cuda.current_device())
         cfg = WaveNetConfig.from_json(z.read(_CONFIG).decode())
         exported = torch.export.load(io.BytesIO(z.read(_EXPORTED)))
-        with np.load(io.BytesIO(z.read(_WEIGHTS))) as w:
-            params = _sorted_tree({k: torch.from_numpy(w[k]).to(dev)
-                                   for k in w.files})
+        params = _sorted_tree(params_from_numpy(
+            load_npz(io.BytesIO(z.read(_WEIGHTS))), dev))
     if _traced_on(exported) != {dev}:
         exported = move_to_device_pass(exported, dev)
     return AotDecoder(cfg, params, exported.module(), meta, dev)

@@ -13,6 +13,15 @@ mesh.  The optimizer follows optax exactly, written as plain tensor code:
     gradients, applied on every k-th step; the schedule count, the clip and
     the EMA see only applied steps;
   * EMA of params after each applied update.
+On bf16 and f16 leaves (cfg.param_dtype) the moments, the accumulated
+gradient and the EMA are in the leaves' dtype, as optax keeps them, and
+every constant meets a leaf as JAX's weak typing has it meet one: rounded
+to the leaf's dtype first (adam_b2 = 0.999 is 1.0 in bf16, so nu adds and
+never decays; eps = 1e-8 is 0 in f16), each operation rounded to that
+dtype, the bias corrections computed in f32 and rounded, the step size
+rounded before its product (_lowp).  At f16 that makes Adam divide by
+zero where a gradient's square underflows, as the reference's does; no
+loss scale or other guard is added.
 The step takes the fused layer-group stack when cfg.fused_stack and
 train_stack.supported(cfg, T) (use_fused_stack): the CUDA kernels for
 tensors on the card, their plain versions on the CPU.
@@ -124,8 +133,19 @@ def make_lr_schedule(cfg: WaveNetConfig) -> Callable[[int], np.float32]:
     return warmed
 
 
+def _lowp(x: float, like: torch.Tensor) -> float:
+    """The Python float x rounded to like's dtype: a JAX weak-typed
+    constant meeting a leaf of that dtype (an f32 leaf's ops round the
+    constant to f32 anyway).  torch's ops on a bf16 or f16 tensor compute
+    in f32 and round the result once, so with constants rounded first they
+    repeat JAX's rounding op by op."""
+    return float(torch.tensor(x, dtype=like.dtype))
+
+
 def _global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares, leaves in sorted key order (JAX's)."""
+    """sqrt of the sum of squares, leaves in sorted key order (JAX's); in
+    the leaves' dtype, as optax.global_norm (each leaf's sum accumulated in
+    f32 and rounded, the leaves' sums added in that dtype)."""
     total = None
     for k in sorted(tree):
         s = torch.sum(tree[k] * tree[k])
@@ -157,8 +177,10 @@ class Optimizer:
         cfg = self.cfg
         if cfg.grad_clip_norm is not None:
             norm = self.norm(g)
-            if not bool(norm < cfg.grad_clip_norm):
-                g = {k: (v / norm) * cfg.grad_clip_norm for k, v in g.items()}
+            c = cfg.grad_clip_norm
+            if not bool(norm < _lowp(c, norm)):
+                g = {k: (v / norm.to(v.dtype)) * _lowp(c, v)
+                     for k, v in g.items()}
         b1, b2 = cfg.adam_b1, cfg.adam_b2
         count = state["count"]
         count_inc = count + 1
@@ -167,10 +189,11 @@ class Optimizer:
         step_size = float(f32(-1) * self.schedule(count))
         mu, nu, out = {}, {}, {}
         for k, p in params.items():
-            mu[k] = (1 - b1) * g[k] + b1 * state["mu"][k]
-            nu[k] = (1 - b2) * (g[k] * g[k]) + b2 * state["nu"][k]
-            u = (mu[k] / float(bc1)) / (torch.sqrt(nu[k] / float(bc2)) + 1e-8)
-            out[k] = p + step_size * u
+            q = lambda x: _lowp(x, p)
+            mu[k] = q(1 - b1) * g[k] + q(b1) * state["mu"][k]
+            nu[k] = q(1 - b2) * (g[k] * g[k]) + q(b2) * state["nu"][k]
+            u = (mu[k] / q(bc1)) / (torch.sqrt(nu[k] / q(bc2)) + q(1e-8))
+            out[k] = p + q(step_size) * u
         return out, dict(state, count=count_inc, mu=mu, nu=nu)
 
     def update(self, grads, state, params):
@@ -198,8 +221,12 @@ def make_optimizer(cfg: WaveNetConfig, norm=None) -> Optimizer:
 
 
 def ema_update(ema, params, decay: float):
-    """Polyak average after an applied update: d * ema + (1 - d) * p."""
-    return {k: decay * e + (1.0 - decay) * params[k] for k, e in ema.items()}
+    """Polyak average after an applied update: d * ema + (1 - d) * p, the
+    constants rounded to a bf16 or f16 leaf's dtype as the reference's
+    weak-typed decay meets them (a decay of 0.999 is 1.0 in bf16: such an
+    EMA adds bf16(0.001) p every step)."""
+    return {k: _lowp(decay, e) * e + _lowp(1.0 - decay, e) * params[k]
+            for k, e in ema.items()}
 
 
 Dataset = Union[AudioDataset, StreamingAudioDataset]
@@ -347,7 +374,9 @@ class Trainer:
         replicated leaves' squares here, the split leaves' summed over
         `model`."""
         def ss(keys):
-            total = torch.zeros((), device=self.device)
+            total = torch.zeros((), device=self.device,
+                                dtype=tree[keys[0]].dtype if keys
+                                else torch.float32)
             for k in keys:
                 total = total + torch.sum(tree[k] * tree[k])
             return total
