@@ -1,0 +1,57 @@
+"""Shared fixtures of the benchmark's tests: tiny cells on the CPU, and the
+card for the tests marked `gpu` (decided inside the fixture, never at
+import, so that every worker collects the same tests)."""
+
+from __future__ import annotations
+
+import time
+
+import pytest
+
+TINY = {"num_blocks": 1, "max_dilation": 128, "residual_channels": 32,
+        "skip_channels": 16, "batch_size": 4, "train_window": 2048,
+        "remat": False}
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips "
+                                       "without one)")
+
+
+@pytest.fixture
+def cuda():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return "cuda"
+
+
+def tiny_overrides(cell: str, **workload) -> dict:
+    """A cell's files at the tiny preset's widths, sizes a CPU test holds:
+    short clips, 4 clients, requests of 20-80 ms at 4 kHz."""
+    if "train" in cell:
+        return {"config": TINY,
+                "mix": {"clips": 8, "clip_min_s": 0.2, "clip_max_s": 0.5},
+                "workload": dict({"steps_per_call": 1}, **workload)}
+    return {"config": dict(TINY, sample_rate=4000),
+            "mix": {"clients": 4, "max_batch": 4, "min_s": 0.02,
+                    "max_s": 0.08, "chunk_s": 0.02, "length_quantum_s": 0.02,
+                    "warm_samples": 8},
+            "workload": dict({"check_requests": 6, "ref_rows": 4},
+                             **workload)}
+
+
+@pytest.fixture
+def tiny_run():
+    """harness.execute of a cell at tiny sizes on the CPU (the harness's
+    look for a card skipped): tiny_run(cell, seed, seconds, trace,
+    **workload overrides) -> Run."""
+    from portbench import harness
+
+    def go(cell: str, seed: int = 5, seconds: float = 1.5,
+           trace: bool = False, **workload):
+        c = harness.load_cell(cell,
+                              overrides=tiny_overrides(cell, **workload))
+        return harness.execute(c, seed, seconds, trace, "cpu",
+                               time.monotonic())
+    return go
