@@ -32,6 +32,13 @@ receives its own waveform chunks as they are produced.
     rows and warmup rows use speaker 0, as the reference does.
   * Chunks flow through per-request unbounded queues: a lagging consumer
     costs memory for its own utterance and never stalls the decode loop.
+  * While a torch.profiler runs, each lane records its loop as spans
+    (utils/profiling.span), which tile it: "serve.collect" (waiting on an
+    empty inbox, then gathering a group) and "serve.group" (its decode and
+    the hand-off of its end; id the group's serial, numbers lane, rows,
+    real).  Each request records "serve.queue_wait", from submit to the
+    start of the group that takes it (id the request's serial, parent the
+    group's).
 
   * Over a (data, model) mesh of ranks (mesh=, one process per rank under
     torchrun) every microbatch decodes through the distributed decoder
@@ -54,6 +61,7 @@ receives its own waveform chunks as they are produced.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -63,6 +71,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from wavenet_tpu_torch.utils import profiling
 
 
 def _bucket(n: int, quantum: int) -> int:
@@ -88,6 +98,8 @@ class _Request:
     speaker: Optional[int] = None
     chunks: "queue.Queue" = field(default_factory=queue.Queue)
     error: Optional[BaseException] = None
+    serial: int = 0
+    queued_ns: Optional[int] = None     # profiling.stamp() at submit
 
 
 _DONE = object()
@@ -193,6 +205,7 @@ class WaveNetServer:
         self.stats = {"requests": 0, "batches": 0, "padded_rows": 0,
                       "samples_out": 0, "decode_seconds": 0.0}
         self._stats_lock = threading.Lock()
+        self._group_serials = itertools.count(1)
         # two decode lanes: unconditioned batchable traffic, and mel
         # (batched) and primed (singleton) requests — so neither
         # head-of-line-blocks the other
@@ -264,6 +277,8 @@ class WaveNetServer:
             if self._closed:
                 raise RuntimeError("server is closed")
             self._bump("requests")
+            req.serial = self.stats["requests"]
+            req.queued_ns = profiling.stamp()
             if req.mel is not None or req.prime is not None:
                 self._inbox_single.put(req)      # conditioned lane
             else:
@@ -425,22 +440,34 @@ class WaveNetServer:
 
     def _run(self, inbox, lane: int):
         while True:
-            group = self._collect(inbox)
+            with profiling.span("serve.collect", lane=lane):
+                group = self._collect(inbox)
             if group is None:
                 if self._lanes is not None:      # release the followers
                     with self._lanes[lane].lock:
                         self._lanes[lane].send(None)
                 return
-            t0 = time.monotonic()
-            try:
-                self._decode_group(group)
-            except Exception as e:  # surface to every waiting client
-                for r in group:
-                    r.error = e
-            finally:
-                self._bump("decode_seconds", time.monotonic() - t0)
-                for r in group:
-                    r.chunks.put(_DONE)
+            serial = next(self._group_serials)
+            with profiling.span("serve.group", id=serial, lane=lane,
+                                rows=self._rows(len(group)),
+                                real=len(group)):
+                start = profiling.stamp()
+                if start is not None:
+                    for r in group:
+                        if r.queued_ns is not None:
+                            profiling.interval("serve.queue_wait",
+                                               r.queued_ns, start,
+                                               id=r.serial, parent=serial)
+                t0 = time.monotonic()
+                try:
+                    self._decode_group(group)
+                except Exception as e:  # surface to every waiting client
+                    for r in group:
+                        r.error = e
+                finally:
+                    self._bump("decode_seconds", time.monotonic() - t0)
+                    for r in group:
+                        r.chunks.put(_DONE)
 
     @property
     def realtime_factor(self) -> float:
@@ -451,14 +478,20 @@ class WaveNetServer:
             return (self.stats["samples_out"] / self.cfg.sample_rate / dt
                     if dt > 0 else 0.0)
 
+    def _rows(self, n_real: int) -> int:
+        """The batch of a group of n_real requests: its power-of-two
+        bucket, on a mesh a multiple of the data axis (its rows split over
+        that axis)."""
+        B = _batch_bucket(n_real, self.max_batch)
+        if self._lanes is not None:
+            B = -(-max(B, self._dp) // self._dp) * self._dp
+        return B
+
     def _decode_group(self, group):
         n_real = len(group)
         scan_len = _bucket(max(r.num_samples for r in group),
                            self.length_quantum)
-        B = _batch_bucket(n_real, self.max_batch)
-        if self._lanes is not None:
-            # rows split over the data axis: a multiple of dp
-            B = -(-max(B, self._dp) // self._dp) * self._dp
+        B = self._rows(n_real)
         self._bump("batches")
         self._bump("padded_rows", B - n_real)
 

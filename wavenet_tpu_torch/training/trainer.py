@@ -61,6 +61,11 @@ replicated leaves each stage holds a part of over `model`); the clip and
 grad_norm see the whole model's norm.  Saves gather the slices over
 `model` first, so a checkpoint written on a mesh is the whole model: it
 loads and decodes in one process, and a resume cuts it again.
+While a torch.profiler runs, each step records its phases as spans
+(utils/profiling.span, id the step): "train.sample" and "train.h2d" (the
+batch drawn on the host and copied to the device, in `run`),
+"train.forward", "train.backward" (the gradients and their sum over the
+ranks) and "train.optimizer" (the update, the EMA and the new state).
 The state holds params, optimizer moments and EMA as flat
 leaves under '/'-joined names ("upsampler/w0"), the model's nested params
 rebuilt for each loss call; JAX's optax walks the same leaves in the same
@@ -85,6 +90,7 @@ from wavenet_tpu_torch.parallel import dataparallel, distributed
 from wavenet_tpu_torch.parallel import megatron, pipeline, seqpar, sharding
 from wavenet_tpu_torch.parallel import mesh as mesh_lib
 from wavenet_tpu_torch.training.metrics import ThroughputMeter
+from wavenet_tpu_torch.utils import profiling
 from wavenet_tpu_torch.utils.pytree_io import flatten_tree, unflatten_tree
 
 f32 = np.float32
@@ -436,21 +442,24 @@ class Trainer:
         the seq routes); returns the (global) metrics as 0-d tensors (not
         fetched)."""
         cfg, st = self.cfg, self.state
-        loss, aux = self._loss(unflatten_tree(st.params), tokens, mel,
-                               speaker)
-        keys = sorted(st.params)
-        grads = dict(zip(keys, torch.autograd.grad(
-            loss, [st.params[k] for k in keys])))
-        grads = self._reduce(grads)
-        with torch.no_grad():
+        with profiling.span("train.forward", id=st.step):
+            loss, aux = self._loss(unflatten_tree(st.params), tokens, mel,
+                                   speaker)
+        with profiling.span("train.backward", id=st.step):
+            keys = sorted(st.params)
+            grads = dict(zip(keys, torch.autograd.grad(
+                loss, [st.params[k] for k in keys])))
+            grads = self._reduce(grads)
+        with profiling.span("train.optimizer", id=st.step), \
+                torch.no_grad():
             params, opt_state, applied, norms = self.tx.update(
                 grads, st.opt_state, st.params)
             ema = st.ema
             if ema is not None and applied:
                 ema = ema_update(ema, params, cfg.ema_decay)
-        if applied:
-            params = _leaves(params)
-        self.state = TrainState(params, opt_state, st.step + 1, ema)
+            if applied:
+                params = _leaves(params)
+            self.state = TrainState(params, opt_state, st.step + 1, ema)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics.update(norms)
         return metrics
@@ -494,9 +503,13 @@ class Trainer:
         meter = ThroughputMeter(samples_per_batch / cfg.sample_rate,
                                 samples_per_batch)
         for i in range(num_steps):
-            batch, self.iter_state = self._sample(self.dataset,
-                                                  self.iter_state)
-            metrics = self.step(*self._batch(batch))
+            step = self.state.step
+            with profiling.span("train.sample", id=step):
+                batch, self.iter_state = self._sample(self.dataset,
+                                                      self.iter_state)
+            with profiling.span("train.h2d", id=step):
+                inputs = self._batch(batch)
+            metrics = self.step(*inputs)
             if i == 0:
                 self._sync()                  # exclude the first step
             meter.tick()

@@ -25,24 +25,109 @@ The reference's tracing helpers (wavenet_tpu/utils/profiling.py) on
 torch.profiler: `trace` (a Chrome trace of a block), `profiled_steps` (of a
 trainer's steps [start, stop), the train CLI's --profile-dir) and `timeit`
 (median seconds per call).
+
+The port's own spans: `span` (a block on one thread), `interval` (begun on
+one thread, ended on another) and `records()`.  They are kept only while
+a torch.profiler runs, from every thread: the profiler traces only the
+thread that started it, so the serving lanes' host work is missing from
+its trace but not from `records()`.  Each record is
+(name, start_ns, end_ns, id, parent, numbers), stamped with
+time.time_ns(), the clock of the profiler's host and device events.  With
+no profiler running, `span` returns one shared object that does nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
 import tempfile
 import time
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 _WARMUP = 2
 _STACK = ("fwd_layer_kernel", "bwd_layer_kernel", "wgrad_kernel",
           "shift_add_kernel", "reduce_splits_kernel", "colsum_kernel",
           "init_carry_kernel")
+
+
+CAPACITY = 1 << 20          # records kept; the oldest go first
+_RECORDS: "collections.deque" = collections.deque(maxlen=CAPACITY)
+
+
+class _Off:
+    """The span of a block while no profiler runs."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "numbers", "start", "_range")
+
+    def __init__(self, name: str, id, parent, numbers: dict):
+        self.name, self.id, self.parent = name, id, parent
+        self.numbers = numbers
+
+    def __enter__(self):
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            # the profiling thread: the span is in the trace's host events
+            # too.  A function-scope range: a user-scope record_function's
+            # is copied onto the device timeline as an annotation over the
+            # kernels it encloses, which would read as device work
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _RECORDS.append((self.name, self.start, end, self.id, self.parent,
+                         self.numbers))
+
+
+def span(name: str, id=None, parent=None, **numbers):
+    """A context manager recording the block as (name, start_ns, end_ns,
+    id, parent, numbers) while a profiler runs; otherwise a shared object
+    that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, id, parent, numbers)
+
+
+def stamp() -> Optional[int]:
+    """time.time_ns() while a profiler runs, else None: the start of an
+    interval that another thread ends."""
+    return time.time_ns() if _autograd_profiler._is_profiler_enabled \
+        else None
+
+
+def interval(name: str, start_ns: int, end_ns: int, id=None, parent=None,
+             **numbers) -> None:
+    """Record a span begun on one thread (at start_ns, from stamp()) and
+    ended on another, while a profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        _RECORDS.append((name, start_ns, end_ns, id, parent, numbers))
+
+
+def records() -> List[tuple]:
+    """The records kept (at most CAPACITY, the newest), oldest first."""
+    return list(_RECORDS)
 
 
 def family(name: str) -> str:
