@@ -60,7 +60,10 @@ Phases (one line of numbers each):
      two kernel runs bit-identical; kernel and plain ms of the whole
      stack's forward and backward at both shapes (the table reports B=8),
      and the forward's and the backward's device ms by kernel name at
-     B=8 (utils/profiling.kernel_split, torch.profiler);
+     B=8 (utils/profiling.kernel_split, torch.profiler); then the
+     backward's bias-gradient column sums alone, a train step's worth at
+     `full`'s and `fastgen_bench`'s shapes: colsum_kernel's device ms
+     beside the byte floor;
   5. trained and served: python -m wavenet_tpu_torch.train's main() on
      `full` (synthetic data, B=8, window 8192) for 6 steps with a
      checkpoint at step 3; the counters are read right after that run
@@ -1028,6 +1031,46 @@ def phase_train_stack(ts, wn, cfg, params, dev, card: str, phase: int = 4,
                     **bound["bwd"]}}
 
 
+def phase_colsums(ts, dev, card: str, phase: int = 4) -> dict:
+    """The backward's bias-gradient column sums alone
+    (train_stack.column_sums), a train step's worth at `full`'s and
+    `fastgen_bench`'s shapes (the preset's batch of TS_T rows; per layer
+    db over [M, 2R] and db_res over [M, R] in one launch, per layer group
+    db_skip over [M, S]): colsum_kernel's device ms a step beside the byte
+    floor (each input byte read once at PEAK_BYTES)."""
+    import torch
+    from wavenet_tpu_torch.config import fastgen_bench, full
+    from wavenet_tpu_torch.utils import profiling
+    out = {}
+    for name, cfg in (("full", full()), ("fastgen_bench", fastgen_bench())):
+        L, R, S = cfg.num_layers, cfg.residual_channels, cfg.skip_channels
+        ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
+        M = cfg.batch_size * TS_T
+        gen = torch.Generator(device=dev).manual_seed(5)
+        dz, din, dskip = (torch.randn(M, n, device=dev, generator=gen)
+                          for n in (2 * R, R, S))
+
+        def step():
+            for _ in range(L):
+                ts.column_sums(dz, din)
+            for _ in range(ng):
+                ts.column_sums(dskip)
+
+        before = ts.colsum_launches.value
+        ms = profiling.kernel_split(step).get("colsum_kernel", 0.0)
+        launches = ts.colsum_launches.value - before
+        check(launches == 2 * (L + ng),
+              f"{name}: {launches} column-sum launches in two steps")
+        floor_ms = 4 * M * (3 * R * L + S * ng) / PEAK_BYTES * 1e3
+        out[name] = {"ms": ms, "floor_ms": floor_ms}
+        print(f"phase {phase} column sums {name}: B={cfg.batch_size} "
+              f"T={TS_T} launches_per_step={L + ng} colsum_kernel_ms="
+              f"{ms} byte_floor_ms={floor_ms} floor_share={floor_ms / ms} "
+              f"card={card!r}", flush=True)
+        del dz, din, dskip
+    return out
+
+
 def speaker_cost(ts, wn, cfg, params, dev, card: str) -> None:
     """The speaker variants' cost on the card: the whole stack of the
     speaker model `cfg` at [TS_TRAIN_B, TS_T], kernel forward and backward
@@ -1114,11 +1157,11 @@ def phase_train(ts, dmod, dev, card: str, preset: str = "full",
         check(set(tiles) == {f"fwd{rows[0]}", f"bwd{rows[1]}"},
               f"layer blocks launched at {tiles}, expected {rows} rows")
         # per step and layer group: Lg + 1 forward kernels and
-        # (10 + 2 mel + 2 speaker) Lg + 2 backward kernels (train_stack.cu)
+        # (7 + 2 mel + speaker) Lg + 1 backward kernels (train_stack.cu)
         ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
         L = cfg.num_layers
         want = (steps * (L + ng),
-                steps * ((10 + 2 * mel + 2 * speakers) * L + 2 * ng))
+                steps * ((7 + 2 * mel + speakers) * L + ng))
         check((fwd_n, bwd_n) == want, "training launched (fwd, bwd) = "
               f"{(fwd_n, bwd_n)} train_stack kernels, expected {want}")
         check_only([fwd_name, bwd_name], f"phase {phase} training")
@@ -1551,7 +1594,7 @@ def phase_entry_points(ts, dev, card: str, preset: str = "full") -> dict:
         ng = len(ts.group_plan(cfg, ts.pick_tile(cfg, TS_T)))
         L, samples = cfg.num_layers, ENTRY_STEPS // SAMPLE_EVERY
         check((counts[fwd], counts[bwd], counts[dec])
-              == (ENTRY_STEPS * (L + ng), ENTRY_STEPS * (10 * L + 2 * ng),
+              == (ENTRY_STEPS * (L + ng), ENTRY_STEPS * (7 * L + ng),
                   samples),
               f"phase 16 training launched {counts}")
         la, lb = _losses(a + ".jsonl"), _losses(b + ".jsonl")
@@ -2010,7 +2053,7 @@ def phase_dp(ts, dev, card: str, single: dict) -> dict:
     def rank_counts(rec, steps, what):
         got = {k: v for k, v in rec["counts"].items() if v}
         want = {"train_stack.fwd_launches": steps * (L + ng),
-                "train_stack.bwd_launches": steps * (10 * L + 2 * ng)}
+                "train_stack.bwd_launches": steps * (7 * L + ng)}
         check(got == want, f"{what}: launches {got}, expected {want}")
 
     torch.cuda.empty_cache()
@@ -2625,12 +2668,12 @@ def phase_seqmodel(ts, dev, card: str, single: dict) -> dict:
         "seq=2 overlap-discard": (
             ["--override", "seq_parallel=2"], plan,
             {"train_stack.fwd_launches": L + len(plan),
-             "train_stack.bwd_launches": 10 * L + 2 * len(plan)}),
+             "train_stack.bwd_launches": 7 * L + len(plan)}),
         "model=2 pipeline": (
             ["--override", "model_parallel=2", "--override",
              f"pipeline_microbatch={SEQMODEL_MICROBATCH}"], staged,
             {"train_stack.fwd_launches": n_mu * (Ls + len(stage)),
-             "train_stack.bwd_launches": n_mu * (10 * Ls + 2 * len(stage))})}
+             "train_stack.bwd_launches": n_mu * (7 * Ls + len(stage))})}
     results = {}
     for name, (extra, groups, per_step) in routes.items():
         ref_loss, want = one_process(groups)
@@ -3349,6 +3392,7 @@ def main() -> int:
     launches = phase_serve(pwide, cfg, dev, card)
     lap("3")
     stack = phase_train_stack(ts, wn, cfg, params, dev, card)
+    phase_colsums(ts, dev, card)
     lap("4")
     trained = phase_train(ts, pwide, dev, card)
     lap("5")

@@ -24,6 +24,7 @@ import itertools
 import pytest
 import torch
 
+import _colsum_order as order
 from wavenet_tpu_torch import config as tconfig
 from wavenet_tpu_torch.models import wavenet as wn
 from wavenet_tpu_torch.ops import rng
@@ -232,10 +233,10 @@ def test_train_stack_kernels_match_plain(dev, R, S, B, T, dmax):
     kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils)
     pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils)
     # device kernels: the carry init and one per layer; per layer the row
-    # pass, the shift pass, two weight gradients and three column sums at
-    # two launches each, plus the skip-bias sum
+    # pass, the shift pass, two weight gradients at two launches each and
+    # one launch of the column sums (db and db_res), plus the skip-bias sum
     assert (ts.fwd_launches.value, ts.bwd_launches.value) == (
-        before[0] + Lg + 1, before[1] + 10 * Lg + 2)
+        before[0] + Lg + 1, before[1] + 7 * Lg + 1)
     torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
     # the forward's products are summed exactly on both sides
     assert all(torch.equal(a, b) for a, b in zip(kf, pf))
@@ -375,7 +376,7 @@ def test_decode_kernel_mel_equals_plain(dev, num_mels, temp):
 def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     """The mel variants of one layer group's forward and backward: kernel
     vs plain within the reference suite's bands (dv_cond and dy
-    included), two kernel runs bit for bit, and 12 backward launches per
+    included), two kernel runs bit for bit, and 9 backward launches per
     layer."""
     cfg = tconfig.WaveNetConfig(num_blocks=1, max_dilation=dmax,
                                 residual_channels=R, skip_channels=S)
@@ -397,7 +398,7 @@ def test_train_stack_mel_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     pf = ts.group_fwd_reference(x, skip, ops, dils, y)
     kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils, y)
     pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils, y)
-    assert counts() == (before[0] + Lg + 1, before[1] + 12 * Lg + 2,
+    assert counts() == (before[0] + Lg + 1, before[1] + 9 * Lg + 1,
                         before[2], before[3])
     assert len(kb) == len(pb) == 8
     torch.testing.assert_close(kf[0], pf[0], atol=5e-3, rtol=1e-3)
@@ -421,7 +422,7 @@ def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     """The speaker variants (g [B, Lg, 2R]; with mel where nm > 0) of one
     layer group's forward and backward: kernel vs plain within the
     reference suite's bands, dg included, two kernel runs bit for bit, and
-    (12 + 2 mel) Lg + 2 backward launches counted as speaker launches
+    (8 + 2 mel) Lg + 1 backward launches counted as speaker launches
     only.  T = 200 and 1100 are not multiples of the 64-row tile (a tile
     spans two batch rows), and T = 1100 gives each batch row two splits
     of ROWS_PER_SPLIT rows in dg's segmented sum.  nm = 24 and 20 end in
@@ -450,7 +451,7 @@ def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils, y, gc)
     pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils, y, gc)
     assert counts() == (before[0] + Lg + 1,
-                        before[1] + (12 + (2 if nm else 0)) * Lg + 2,
+                        before[1] + (8 + (2 if nm else 0)) * Lg + 1,
                         *before[2:])
     assert len(kb) == len(pb) == (9 if nm else 7)
     assert kb[-1].shape == (B, Lg, 2 * R)
@@ -463,6 +464,65 @@ def test_train_stack_speaker_kernels_match_plain(dev, R, S, nm, B, T, dmax):
     kf2 = ts.group_fwd(x, skip, ops, dils, y, gc)
     kb2 = ts.group_bwd(kf2[2], dskip, dxo, ops, dils, y, gc)
     assert all(torch.equal(a, b) for a, b in zip(kf + kb, kf2 + kb2))
+
+
+@pytest.mark.parametrize("B,T,N", [(8, 8192, 256), (8, 8192, 128),
+                                     (64, 8192, 128), (64, 8192, 64),
+                                     (3, 1100, 64), (2, 200, 40),
+                                     (3, 200, 12)])
+def test_column_sums_are_the_fixed_order(dev, B, T, N):
+    """The backward's bias-gradient sums through their kernel alone
+    (column_sums), over all M = B T rows (db's, db_res's and db_skip's
+    form) and per batch row (dg's), one tensor a launch or two (x beside a
+    tensor of the half width, as db and db_res), bit for bit the fixed
+    order of tests/_colsum_order.py, two runs alike: `full`'s widths at
+    M = 65,536 (2R = S = 256, R = 128), `fastgen_bench`'s at M = 524,288
+    (2R = S = 128, R = 64), two splits a batch row of 1,100 rows, M below
+    1,024, and last strips of 8, 12, 20 and 4 columns."""
+    gen = torch.Generator().manual_seed(N)
+    x = (torch.randn(B * T, N, generator=gen) * 0.01).to(dev)
+    x[::5] *= -300.0                    # terms of very different sizes
+    half = x[:, : N // 2 // 4 * 4 or 4].contiguous() * 3.0
+    for rows in (B * T, T):
+        want = [order.column_sums(t, rows, ts.ROWS_PER_SPLIT)
+                for t in (x, half)]
+        before = ts.colsum_launches.value
+        one = ts.column_sums(x, T=rows)
+        two = ts.column_sums(x, half, T=rows)
+        again = ts.column_sums(x, half, T=rows)
+        assert ts.colsum_launches.value == before + 3
+        assert torch.equal(one[0], want[0])
+        assert all(torch.equal(a, w) for a, w in zip(two, want))
+        assert all(torch.equal(a, b) for a, b in zip(again, two))
+
+
+@pytest.mark.parametrize("R,S,nm,speaker,B,T,dmax", [
+    (128, 256, 0, False, 8, 8192, 16),     # `full`'s first group
+    (64, 128, 0, False, 64, 8192, 8),      # `fastgen_bench`'s widths
+    (128, 256, 0, True, 2, 256, 16),       # the speaker test's cases
+    (64, 96, 8, True, 3, 200, 64),
+    (32, 16, 0, True, 3, 1100, 8),
+    (20, 12, 0, True, 2, 200, 8),
+    (128, 256, 24, True, 2, 200, 16),
+    (64, 96, 20, True, 3, 200, 64),
+    (128, 256, 80, False, 2, 256, 16)])    # the mel test's first
+def test_group_bias_gradients_are_the_fixed_order(dev, R, S, nm, speaker,
+                                                 B, T, dmax):
+    """group_bwd's db_skip and its last layer's db_res (the column sums of
+    its inputs dskip and dx_out) bit for bit the fixed order, and every
+    gradient the same bits in two runs; db and dg sum the layer's dz,
+    which only the kernel holds, through the same launcher
+    (test_column_sums_are_the_fixed_order)."""
+    dils, ops, x, skip, y, gc, dskip, dxo = _group_case(
+        R, S, nm, speaker, B, T, dmax, seed=11)
+    kf = ts.group_fwd(x, skip, ops, dils, y, gc)
+    kb = ts.group_bwd(kf[2], dskip, dxo, ops, dils, y, gc)
+    kb2 = ts.group_bwd(kf[2], dskip, dxo, ops, dils, y, gc)
+    assert all(torch.equal(a, b) for a, b in zip(kb, kb2))
+    sums = lambda t: order.column_sums(t.reshape(B * T, -1), None,
+                                       ts.ROWS_PER_SPLIT)[0]
+    assert torch.equal(kb[5], sums(dskip))
+    assert torch.equal(kb[4][-1], sums(dxo))
 
 
 def _group_case(R, S, nm, speaker, B, T, dmax, seed):
@@ -515,7 +575,7 @@ def test_train_stack_new_widths_match_plain(dev, R, S, nm, speaker, B, T,
     assert ts.tile_calls == {f"fwd{rows[0]}": 1, f"bwd{rows[1]}": 1}
     assert (c[0].value, c[1].value) == (
         before[0] + Lg + 1,
-        before[1] + (10 + 2 * bool(nm) + 2 * speaker) * Lg + 2)
+        before[1] + (7 + 2 * bool(nm) + speaker) * Lg + 1)
     pf = ts.group_fwd_reference(x, skip, ops, dils, y, gc)
     pb = ts.group_bwd_reference(pf[2], dskip, dxo, ops, dils, y, gc)
     assert all(torch.equal(a, b) for a, b in zip(kf, pf))

@@ -58,6 +58,22 @@
 //     fixed-order split-K: each block sums its share of rows into a private
 //     partial, and a second pass adds the partials in split order.  No
 //     float atomics, so two runs give the same bits (exact resume).
+//   * The bias gradients (db, db_res, db_skip, dg) are column sums of f32
+//     tensors already in device memory, in the same fixed order: each
+//     split of rows_per_split rows summed row by row, then the splits in
+//     order.  Nothing but bytes bounds them (~4.4 GB a `full` step, 1.3 ms
+//     at 3.35 TB/s), and a split's column is one serial chain, so the
+//     parallelism is fixed at splits x columns: 8,192 chains for db_res
+//     at `full`, too few to keep HBM busy with one load a thread in
+//     flight.  colsum_kernel decouples the loads from the chains: one warp
+//     a (split, 32-column strip) streams the split through an 8-stage ring
+//     of 16-byte cp.async copies in shared memory (28 KiB in flight a
+//     warp) while each lane adds its column from the ring in row order;
+//     the strip's last block to finish (an integer arrival count, reset by
+//     that block) adds the strip's partials in split order through the
+//     same ring.  One launch sums a layer's db and db_res (dz's strips,
+//     then dx's: 768 warps at `full`, where db_res alone would leave SMs
+//     idle), one more dg, and one a group db_skip.
 //   * Every product runs on the tensor cores, warp-level mma.sync.
 //   * Products of two bf16 operands (mma_pass: the forward's z = xcat @ Wz,
 //     y @ V_cond and h @ [W_res | W_skip], and the backward's recompute of z)
@@ -975,34 +991,112 @@ wgrad_kernel(const bf16* __restrict__ xs, const float* __restrict__ dz,
       }
 }
 
-// Column-sum partials of src [B T][N], segmented by batch row: split
-// s = b * nsr + j sums rows [b T + j rps, min(b T + (j + 1) rps, (b + 1) T)),
-// so no split straddles two batch rows (B = 1, T = M: splits of all rows).
-__global__ void colsum_kernel(const float* __restrict__ src, int T, int N,
-                              int rows_per_split, int nsr,
-                              float* __restrict__ part) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = blockIdx.y;
-  if (n >= N) return;
-  const int b = s / nsr, j = s % nsr;
-  const int mb = b * T + j * rows_per_split;
-  const int me = min((b + 1) * T, mb + rows_per_split);
+// out[e] = sum over j, in order, of part[j][e], for e < n.
+__global__ void reduce_splits_kernel(const float* __restrict__ part, int nsr,
+                                     size_t n, float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
   float acc = 0.f;
-  for (int m = mb; m < me; ++m) acc += src[(size_t)m * N + n];
-  part[(size_t)s * N + n] = acc;
+  for (int j = 0; j < nsr; ++j) acc += part[j * n + e];
+  out[e] = acc;
 }
 
-// out[b * out_stride + e] = sum over j, in order, of part[b * nsr + j][e],
-// for b < B and e < n (B = 1: the sum of all nsr partials).
-__global__ void reduce_splits_kernel(const float* __restrict__ part, int nsr,
-                                     int B, size_t n, size_t out_stride,
-                                     float* __restrict__ out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * n) return;
-  const size_t b = i / n, e = i % n;
+// The column sums' ring: a strip of kCW columns (one warp, a lane a
+// column), kCR rows a stage, kCS stages (32 KiB).
+constexpr int kCW = 32, kCR = 32, kCS = 8;
+typedef float ColRing[kCS][kCR][kCW];
+
+// Wait until at most N of this thread's committed cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Lane l's sum, 0 + row 0 + row 1 + ... in f32, of column l of the strip
+// src[m * ld + l] for m < rows (cols of the 32 columns are real, a
+// multiple of 4; src and ld give 16-byte rows).  Lane l copies 16-byte
+// chunk l % 8 of rows l / 8 + 4 i of each stage; kCS - 1 stages are in
+// flight while one is added.  The warp leaves the ring free.
+__device__ __forceinline__ float strip_sum(const float* src, size_t ld,
+                                           int rows, int cols,
+                                           ColRing& ring) {
+  const int lane = threadIdx.x, q = lane & 7;
+  const bool real = 4 * q < cols;
+  const int stages = (rows + kCR - 1) / kCR;
+  auto issue = [&](int st) {             // commits a group, maybe empty
+    if (st < stages)
+      for (int r = lane >> 3; r < kCR; r += 4) {
+        const int m = st * kCR + r;
+        const bool ok = real && m < rows;
+        cp_async16(&ring[st % kCS][r][4 * q],
+                   ok ? src + (size_t)m * ld + 4 * q : src, ok);
+      }
+    cp_async_commit();
+  };
+  for (int st = 0; st < kCS - 1; ++st) issue(st);
   float acc = 0.f;
-  for (int j = 0; j < nsr; ++j) acc += part[(b * nsr + j) * n + e];
-  out[b * out_stride + e] = acc;
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<kCS - 2>();            // stage st has landed
+    __syncwarp();                        // for every lane; and stage
+    issue(st + kCS - 1);                 // st - 1 is read: refill its slot
+    const float(*tile)[kCW] = ring[st % kCS];
+    const int n = min(kCR, rows - st * kCR);
+#pragma unroll
+    for (int r = 0; r < kCR; ++r)
+      if (r < n) acc += tile[r][lane];
+  }
+  cp_async_wait0();
+  __syncwarp();
+  return acc;
+}
+
+// One tensor of a column-sum launch: src [B T][N] (N a multiple of 4,
+// src 16-byte aligned) summed per batch row i into out[i * out_stride + n].
+// A launch sums one or two (N = 0: none) over the same rows.
+struct ColSum {
+  const float* src;
+  float* out;
+  int N;
+  size_t out_stride;
+};
+
+// Column sums of a and b per batch row, in the fixed order: split
+// s = i nsr + j sums rows [i T + j rps, min(i T + (j + 1) rps, (i + 1) T))
+// of batch row i (no split straddles two; B = 1, T = M: splits of all
+// rows), then batch row i's nsr partials are added in split order.  Strip
+// k is columns [32 k, 32 k + 32) of a, or past a's strips, of b; block
+// (s, k) sums strip k of split s into part[k][s][32], and the last of
+// batch row i's nsr blocks of strip k (count[i * strips + k], zero before
+// the launch and again after it) adds them.
+__global__ void __launch_bounds__(kCW)
+    colsum_kernel(ColSum a, ColSum b, int T, int rows_per_split, int nsr,
+                  float* part, unsigned* count) {
+  __shared__ __align__(16) ColRing ring;
+  const int s = blockIdx.x, k = blockIdx.y, lane = threadIdx.x;
+  const int row = s / nsr, j = s % nsr;
+  const int ka = (a.N + kCW - 1) / kCW;
+  const ColSum t = k < ka ? a : b;
+  const int c0 = (k < ka ? k : k - ka) * kCW, cols = min(kCW, t.N - c0);
+  const int rows = min(rows_per_split, T - j * rows_per_split);
+  const float acc = strip_sum(
+      t.src + ((size_t)row * T + (size_t)j * rows_per_split) * t.N + c0, t.N,
+      rows, cols, ring);
+  float* strip = part + (size_t)k * gridDim.x * kCW;
+  strip[(size_t)s * kCW + lane] = acc;
+  __threadfence();                       // the partial, before the count
+  __syncwarp();
+  unsigned* arrived = count + (size_t)row * gridDim.y + k;
+  unsigned last = 0;
+  if (lane == 0) last = atomicAdd(arrived, 1u) == (unsigned)nsr - 1;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();                       // every partial, before the reads
+  if (lane == 0) *arrived = 0;
+  // 16-byte copies that skip L1 (cp.async.cg) read what the other blocks
+  // wrote
+  const float sum = strip_sum(strip + (size_t)row * nsr * kCW, kCW, nsr,
+                              cols, ring);
+  if (lane < cols) t.out[(size_t)row * t.out_stride + c0 + lane] = sum;
 }
 
 inline unsigned blocks_for(size_t n, int per) {
@@ -1056,19 +1150,24 @@ inline int counted(int* n) {
   return rc;
 }
 
-// Column sums of src [B T, N] per batch row into out [B][N] (row b at
-// out + b * out_stride; B = 1, T = M for the sum over all rows), fixed
-// order (two launches).  part holds B * ceil(T / rows_per_split) * N.
-int colsum(const float* src, int B, int T, int N, int rows_per_split,
-           float* part, float* out, size_t out_stride, cudaStream_t st,
-           int* n) {
-  const int nsr = (T + rows_per_split - 1) / rows_per_split;
-  colsum_kernel<<<dim3(blocks_for(N, 128), B * nsr), 128, 0, st>>>(
-      src, T, N, rows_per_split, nsr, part);
-  int rc = counted(n);
+// Column sums of a and b (b.N = 0: a alone), each [B T, N] summed per
+// batch row (B = 1, T = M for the sums over all rows), fixed order, one
+// launch.  part holds 32 B ceil(T / rows_per_split) (ceil(a.N / 32) +
+// ceil(b.N / 32)) floats, 16-byte aligned; count B (ceil(a.N / 32) +
+// ceil(b.N / 32)) zeros, left zero.
+int colsum(ColSum a, ColSum b, int B, int T, int rows_per_split, float* part,
+           unsigned* count, cudaStream_t st, int* n) {
+  if (a.N % 4 || b.N % 4 || (uintptr_t)a.src % 16 || (uintptr_t)b.src % 16 ||
+      (uintptr_t)part % 16)
+    return (int)cudaErrorInvalidValue;
+  // as many resident blocks an SM as its shared memory holds
+  const int rc = (int)cudaFuncSetAttribute(
+      colsum_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
   if (rc) return rc;
-  reduce_splits_kernel<<<blocks_for((size_t)B * N, 256), 256, 0, st>>>(
-      part, nsr, B, N, out_stride, out);
+  const int nsr = (T + rows_per_split - 1) / rows_per_split;
+  colsum_kernel<<<dim3(B * nsr, blocks_for(a.N, kCW) + blocks_for(b.N, kCW)),
+                  kCW, 0, st>>>(a, b, T, rows_per_split, nsr, part, count);
   return counted(n);
 }
 
@@ -1131,9 +1230,10 @@ int wn_ts_group_fwd(const float* x_in, const float* skip_in, float* skip_out,
 // dbres [Lg, R]; with mel (y [M, nm], vc [Lg, nm, 2R] bf16) also
 // dvc [Lg, nm, 2R] and dy [M, nm]; with a speaker (g [M / T, Lg, 2R] f32)
 // also dg [M / T, Lg, 2R].  Scratch: dxa, dxb, dprev [M, R]; dz [M, 2R];
-// h [M, R] bf16; part [nsplit * max(4R^2, R(R+S), 2R nm)]; bpart
-// [nsplit * max(2R, S)], and with a speaker at least
-// [(M / T) * ceil(T / rows_per_split) * 2R].  rows: the row tile of a
+// h [M, R] bf16; part [nsplit * max(4R^2, R(R+S), 2R nm)]; the column
+// sums' bpart and count (colsum) for db and db_res in one launch, and
+// with a speaker for dg's (M / T) * ceil(T / rows_per_split) splits too,
+// count zeros and left zero.  rows: the row tile of a
 // layer block (64, 32 or 16); smem: the bytes of shared memory it gets (at
 // least bwd_smem_needed).  R, S and nm are multiples of 4, every f32
 // operand 16-byte aligned and every bf16 one 8-byte aligned (the cp.async
@@ -1145,8 +1245,9 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
                     int nm, float* dx_in, float* dwz, float* db, float* dwrs,
                     float* dbres, float* dvc, float* dy, float* dg,
                     float* dxa, float* dxb, float* dprev, float* dz, bf16* h,
-                    float* part, float* bpart, int rows_per_split,
-                    int rows, int smem, int* launched, void* stream) {
+                    float* part, float* bpart, unsigned* count,
+                    int rows_per_split, int rows, int smem, int* launched,
+                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t MR = (size_t)M * R;
   const int R2 = 2 * R, NO = R + S;
@@ -1181,7 +1282,7 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
     if ((rc = counted(launched))) return rc;
     const size_t nz = (size_t)R2 * R2;
     reduce_splits_kernel<<<blocks_for(nz, 256), 256, 0, st>>>(
-        part, nsplit, 1, nz, 0, dwz + l * nz);
+        part, nsplit, nz, dwz + l * nz);
     if ((rc = counted(launched))) return rc;
 
     wgrad_kernel<1><<<dim3(blocks_for(R, 64), blocks_for(NO, kNP), nsplit),
@@ -1190,7 +1291,7 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
     if ((rc = counted(launched))) return rc;
     const size_t nrs = (size_t)R * NO;
     reduce_splits_kernel<<<blocks_for(nrs, 256), 256, 0, st>>>(
-        part, nsplit, 1, nrs, 0, dwrs + l * nrs);
+        part, nsplit, nrs, dwrs + l * nrs);
     if ((rc = counted(launched))) return rc;
 
     if (nm) {
@@ -1201,30 +1302,36 @@ int wn_ts_group_bwd(const bf16* xs, const float* dskip, const float* dx_ct,
       if ((rc = counted(launched))) return rc;
       const size_t nv = (size_t)nm * R2;
       reduce_splits_kernel<<<blocks_for(nv, 256), 256, 0, st>>>(
-          part, nsplit, 1, nv, 0, dvc + l * nv);
+          part, nsplit, nv, dvc + l * nv);
       if ((rc = counted(launched))) return rc;
     }
 
-    if ((rc = colsum(dz, 1, M, R2, rows_per_split, bpart,
-                     db + (size_t)l * R2, 0, st, launched)))
+    if ((rc = colsum({dz, db + (size_t)l * R2, R2, 0},
+                     {din, dbres + (size_t)l * R, R, 0}, 1, M, rows_per_split,
+                     bpart, count, st, launched)))
       return rc;
-    if (g && (rc = colsum(dz, M / T, T, R2, rows_per_split, bpart,
-                          dg + (size_t)l * R2, (size_t)Lg * R2, st,
+    if (g && (rc = colsum({dz, dg + (size_t)l * R2, R2, (size_t)Lg * R2}, {},
+                          M / T, T, rows_per_split, bpart, count, st,
                           launched)))
-      return rc;
-    if ((rc = colsum(din, 1, M, R, rows_per_split, bpart,
-                     dbres + (size_t)l * R, 0, st, launched)))
       return rc;
     din = dout;
   }
   return 0;
 }
 
-// Column sums of src [M, N] (the skip-bias gradient), fixed order.
-int wn_ts_colsum(const float* src, int M, int N, float* out, float* bpart,
-                 int rows_per_split, int* launched, void* stream) {
-  return colsum(src, 1, M, N, rows_per_split, bpart, out, 0,
-                (cudaStream_t)stream, launched);
+// Column sums of a [M, Na] and, unless b is null, b [M, Nb] per batch row
+// of T rows (T = M: over all rows; the skip-bias gradient) into
+// out_a [M / T, Na] and out_b [M / T, Nb], fixed order, one launch
+// (colsum's operands).
+int wn_ts_colsum(const float* a, int Na, float* out_a, const float* b,
+                 int Nb, float* out_b, int M, int T, float* bpart,
+                 unsigned* count, int rows_per_split, int* launched,
+                 void* stream) {
+  if (T <= 0 || M % T || (b == nullptr) != (Nb == 0))
+    return (int)cudaErrorInvalidValue;
+  return colsum({a, out_a, Na, (size_t)Na}, {b, out_b, Nb, (size_t)Nb},
+                M / T, T, rows_per_split, bpart, count, (cudaStream_t)stream,
+                launched);
 }
 
 const char* wn_ts_error_string(int code) {

@@ -42,13 +42,15 @@ from wavenet_tpu_torch.ops.shift import shift_right
 # device kernels launched by each wrapper, as the library reports them, one
 # count per variant (unconditional, mel, and speaker with or without mel):
 # a forward group call launches Lg + 1; a backward one
-# (10 + 2 mel + 2 speaker) Lg + 2, mel and speaker each 1 or 0
+# (7 + 2 mel + speaker) Lg + 1, mel and speaker each 1 or 0
 fwd_launches = build.LaunchCounter()
 bwd_launches = build.LaunchCounter()
 fwd_mel_launches = build.LaunchCounter()
 bwd_mel_launches = build.LaunchCounter()
 fwd_gc_launches = build.LaunchCounter()
 bwd_gc_launches = build.LaunchCounter()
+# the backward's column sums called alone (column_sums), one a call
+colsum_launches = build.LaunchCounter()
 
 # group calls of the kernels by direction and row tile ("fwd64", "bwd32",
 # ...): which layer block each width launched
@@ -56,6 +58,7 @@ tile_calls = collections.Counter()
 
 VMEM_BUDGET = 13 * 1024 * 1024
 ROWS_PER_SPLIT = 1024        # rows per partial sum of a weight gradient
+COLSUM_STRIP = 32            # columns a block of the column sums owns
 ROW_TILES = (64, 32, 16)     # rows of a layer block, the largest first
 _MAX_SMEM = 227 * 1024
 
@@ -460,10 +463,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wn_ts_group_fwd.argtypes = [p] * 15 + [i] * 8 + [p, p]
     lib.wn_ts_group_fwd.restype = i
-    lib.wn_ts_group_bwd.argtypes = ([p] * 10 + [i] * 6 + [p] * 15
+    lib.wn_ts_group_bwd.argtypes = ([p] * 10 + [i] * 6 + [p] * 16
                                     + [i, i, i, p, p])
     lib.wn_ts_group_bwd.restype = i
-    lib.wn_ts_colsum.argtypes = [p, i, i, p, p, i, p, p]
+    lib.wn_ts_colsum.argtypes = [p, i, p, p, i, p, i, i, p, p, i, p, p]
     lib.wn_ts_colsum.restype = i
     lib.wn_ts_error_string.argtypes = [i]
     lib.wn_ts_error_string.restype = ctypes.c_char_p
@@ -595,6 +598,60 @@ def group_fwd(x: torch.Tensor, skip: torch.Tensor, ops, dils, y=None,
     return skip_out, x_out, xs
 
 
+def _colsum_scratch(plans, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The column sums' partials (f32) and arrival counts (zeros), enough
+    for each (B, T, widths) of `plans`: one launch summing tensors of those
+    widths per batch row of T rows (csrc/train_stack.cu: colsum)."""
+    plans = [(B, T, sum(-(-N // COLSUM_STRIP) for N in widths))
+             for B, T, widths in plans]
+    nparts = max(strips * COLSUM_STRIP * B * -(-T // ROWS_PER_SPLIT)
+                 for B, T, strips in plans)
+    ncount = max(B * strips for B, _, strips in plans)
+    return (torch.empty(nparts, dtype=torch.float32, device=dev),
+            torch.zeros(ncount, dtype=torch.int32, device=dev))
+
+
+def column_sums(*xs: torch.Tensor, T: Optional[int] = None):
+    """Column sums of one or two f32 tensors [M, N] of the same rows, per
+    batch row of T rows (T = M, the default: over all rows): a tuple of
+    [M // T, N], one a tensor, through the kernel that sums the backward's
+    bias gradients, called alone (two tensors in one launch, as group_bwd
+    sums db and db_res): each split of ROWS_PER_SPLIT rows (never two batch
+    rows) summed row by row in f32, then a batch row's splits in order, so
+    group_bwd's bits.  Each N a multiple of 4.  The plain version (CPU
+    tensors) is torch's sum, in another order."""
+    if not 1 <= len(xs) <= 2:
+        raise ValueError(f"column_sums: one or two tensors, got {len(xs)}")
+    M, dev = xs[0].shape[0], xs[0].device
+    T = M if T is None else T
+    if T <= 0 or M % T:
+        raise ValueError(f"column_sums: T={T} must divide M={M}")
+    if dev.type == "cpu":
+        return tuple(x.reshape(M // T, T, -1).sum(dim=1) for x in xs)
+    for x in xs:
+        build.check_tensor("x", x, (M, x.shape[-1]), torch.float32, dev)
+        if x.shape[-1] % 4:
+            raise ValueError(f"column_sums: N={x.shape[-1]} must be a "
+                             f"multiple of 4")
+    _check_aligned("column_sums", [("x", x) for x in xs])
+    lib = library()
+    widths = tuple(x.shape[-1] for x in xs)
+    part, count = _colsum_scratch(((M // T, T, widths),), dev)
+    outs = tuple(torch.empty(M // T, N, dtype=torch.float32, device=dev)
+                 for N in widths)
+    b, nb, ob = ((xs[1].data_ptr(), widths[1], outs[1].data_ptr())
+                 if len(xs) == 2 else (None, 0, None))
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.wn_ts_colsum(
+            xs[0].data_ptr(), widths[0], outs[0].data_ptr(), b, nb, ob, M, T,
+            part.data_ptr(), count.data_ptr(), ROWS_PER_SPLIT,
+            ctypes.byref(n), torch.cuda.current_stream(dev).cuda_stream)
+    colsum_launches.add(n.value)
+    _raise_on(lib, rc, "wn_ts_colsum")
+    return outs
+
+
 def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
               ops, dils, y=None, g=None, rows: Optional[int] = None):
     """One layer group's backward (plain version for CPU tensors, the
@@ -638,9 +695,11 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
     dxa, dxb, dprev, dz = e(M, R), e(M, R), e(M, R), e(M, 2 * R)
     h = e(M, R, dtype=torch.bfloat16)
     part = e(nsplit * max(4 * R * R, R * (R + S), 2 * R * nm))
-    # dg's partials: ceil(T / ROWS_PER_SPLIT) row-aligned splits per row
-    bpart = e(max(nsplit * max(2 * R, S),
-                  0 if g is None else B * -(-T // ROWS_PER_SPLIT) * 2 * R))
+    # the column sums' partials and arrival counts: db and db_res in one
+    # launch, db_skip, and dg per batch row
+    bpart, count = _colsum_scratch(
+        ((1, M, (2 * R, R)), (1, M, (S,)))
+        + (() if g is None else ((B, T, (2 * R,)),)), dev)
     wz, b, wrs = ops[:3]
     n = ctypes.c_int(0)
     with torch.cuda.device(dev):
@@ -653,11 +712,13 @@ def group_bwd(xs: torch.Tensor, dskip: torch.Tensor, dx_out: torch.Tensor,
             db.data_ptr(), dwrs.data_ptr(), dbres.data_ptr(), _ptr(dvc),
             _ptr(dy), _ptr(dg), dxa.data_ptr(),
             dxb.data_ptr(), dprev.data_ptr(), dz.data_ptr(), h.data_ptr(),
-            part.data_ptr(), bpart.data_ptr(), ROWS_PER_SPLIT, rows,
-            _bwd_smem(R, S, nm, rows), ctypes.byref(n), stream)
+            part.data_ptr(), bpart.data_ptr(), count.data_ptr(),
+            ROWS_PER_SPLIT, rows, _bwd_smem(R, S, nm, rows), ctypes.byref(n),
+            stream)
         if rc == 0:
-            rc = lib.wn_ts_colsum(dskip.data_ptr(), M, S, dbskip.data_ptr(),
-                                  bpart.data_ptr(), ROWS_PER_SPLIT,
+            rc = lib.wn_ts_colsum(dskip.data_ptr(), S, dbskip.data_ptr(),
+                                  None, 0, None, M, M, bpart.data_ptr(),
+                                  count.data_ptr(), ROWS_PER_SPLIT,
                                   ctypes.byref(n), stream)
     _counters(nm, g, fwd=False).add(n.value)
     _raise_on(lib, rc, "wn_ts_group_bwd")
