@@ -75,7 +75,7 @@ def _serve_seed(run, control: bool) -> dict:
     drv, wl = run.cell.driver, run.cell.workload
     loop = drv.serve(run)
     done = [r for r in loop.requests if r.error is None and r.done]
-    toks, seeds = drv.sample_tokens(run, done, wl)
+    toks, seeds, cond = drv.sample_tokens(run, done, wl)
     del loop
     run.free()
     model.no_tf32()
@@ -83,11 +83,12 @@ def _serve_seed(run, control: bool) -> dict:
     T = float(run.cell.mix["temperature"])
     rows = int(wl["ref_rows"])
     out = {"program": {"token_gap": max(ref_serve.gaps(
-        w, run.sizes.dilations, toks, seeds, T, rows))},
+        w, run.sizes.dilations, toks, seeds, T, rows, **cond))},
         "finished": len(done), "faults": list(run.faults)}
     if control:
         out["control"] = {"token_gap": max(ref_serve.gaps(
-            w, run.sizes.dilations, toks, seeds, T, rows, control=True))}
+            w, run.sizes.dilations, toks, seeds, T, rows, control=True,
+            **cond))}
     return out
 
 

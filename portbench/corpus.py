@@ -4,8 +4,9 @@ Every seed asks the same set of sizes of the program, in an order drawn
 from the seed: the corpus's clip lengths are the quantiles of a log-uniform
 law over the mix's range (a training step's work does not depend on them);
 the requests' lengths are blocks of `block` such quantiles, each block
-shuffled.  The seed gives each request its own sampling seed.  A clip is a
-mixture of three sines plus white noise, in [-1, 1].
+shuffled.  The seed gives each request its own sampling seed, and a
+conditioned request its span of a clip's frames and its speaker.  A clip
+is a mixture of three sines plus white noise, in [-1, 1].
 """
 
 from __future__ import annotations
@@ -65,3 +66,25 @@ def request_seeds(seed: int, count: int) -> np.ndarray:
     rng = seed32(seed, 3)
     return rng.choice(2 ** 31 - 2, size=count, replace=False).astype(
         np.int64) + 1
+
+
+def request_spans(seed: int, frames: np.ndarray, clip_frames
+                  ) -> tuple:
+    """(clip, first frame) of each request that needs frames[k] frames: a
+    clip and a start drawn from the seed, among the clip's clip_frames[c]
+    frames; a clip shorter than a request raises ValueError."""
+    rng = seed32(seed, 5)
+    avail = np.asarray(clip_frames, np.int64)
+    clip = rng.integers(0, len(avail), size=len(frames))
+    room = avail[clip] - np.asarray(frames, np.int64) + 1
+    if (room < 1).any():
+        k = int(np.argmin(room))
+        raise ValueError(f"request {k} needs {frames[k]} frames; clip "
+                         f"{clip[k]} has {avail[clip[k]]}")
+    start = np.floor(rng.random(len(frames)) * room).astype(np.int64)
+    return clip, start
+
+
+def request_speakers(seed: int, count: int, classes: int) -> np.ndarray:
+    """`count` speaker ids in [0, classes), drawn from the seed."""
+    return seed32(seed, 6).integers(0, classes, size=count)

@@ -123,9 +123,17 @@ class Run:
         return WaveNetConfig.from_json(json.dumps(model))
 
     def weights(self):
+        """The run's flat weights (weights.make), as the reference takes
+        them."""
         from portbench import weights
         return weights.make(self.sizes, self.seed % (1 << 62), self.device,
                             self.cell.config["model"]["param_dtype"])
+
+    def program_weights(self) -> dict:
+        """The run's weights in the layout the port's WaveNet facade and
+        Trainer take (weights.nested)."""
+        from portbench import weights
+        return weights.nested(self.weights())
 
     @contextlib.contextmanager
     def tracing(self):

@@ -9,12 +9,14 @@ the reference's logits.  A correct program reads rounding; a token altered
 or drawn with the wrong seed or step reads the spread of the noise.
 
 `noise` is worked out again here from the hash's definition; the served
-tokens come from the received waveform by the nearest mu-law level.
+tokens come from the received waveform by the nearest mu-law level.  A mel
+request's frames are upsampled alone, to its own length, as the reference
+upsamples any sequence; a speaker request's id is its row's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,10 +80,13 @@ def _teacher_inputs(tokens: Sequence[np.ndarray], Q: int, device):
 @torch.no_grad()
 def gaps(w: Dict[str, torch.Tensor], dilations, tokens: List[np.ndarray],
          seeds: Sequence[int], temperature: float, rows: int,
-         control: bool = False) -> List[float]:
+         control: bool = False, mels: Optional[Sequence[np.ndarray]] = None,
+         speakers: Optional[Sequence[int]] = None) -> List[float]:
     """Per request, the widest gap of its served tokens (control=False),
     or of the tokens that the reference in fp8 puts first at each of its
-    positions (control=True), by the float32 reference's noisy scores."""
+    positions (control=True), by the float32 reference's noisy scores.
+    mels: each request's [F, M] frames (a mel model); speakers: each
+    request's id (a speaker model)."""
     Q = w["head_b2"].shape[0]
     dev = w["head_b2"].device
     inv_t = float(np.float32(1.0) / np.float32(temperature))
@@ -89,9 +94,17 @@ def gaps(w: Dict[str, torch.Tensor], dilations, tokens: List[np.ndarray],
     for i in range(0, len(tokens), rows):
         part = tokens[i:i + rows]
         x = _teacher_inputs(part, Q, dev)
-        ref = model.logits(w, dilations, x)
-        low = (model.logits(w, dilations, x, precision="fp8") if control
-               else None)
+        lens = [len(t) for t in part]
+
+        def run(precision):
+            y = (None if mels is None else model.features(
+                w, mels[i:i + rows], lens, x.shape[1], precision))
+            spk = (None if speakers is None else torch.as_tensor(
+                list(speakers[i:i + rows]), device=dev))
+            return model.logits(w, dilations, x, precision, y=y,
+                                speaker=spk)
+        ref = run("float32")
+        low = run("fp8") if control else None
         for j, t in enumerate(part):
             n = len(t)
             g = noise(seeds[i + j], n, Q, dev)

@@ -51,18 +51,23 @@ def leaf_norm(t: torch.Tensor) -> float:
 
 def steps(w0: Dict[str, torch.Tensor], dilations, batches: List[torch.Tensor],
           lr: float, b1: float, b2: float, rows: Optional[int] = None,
-          precision: str = "float32") -> Readings:
+          precision: str = "float32",
+          mels: Optional[List[torch.Tensor]] = None,
+          speakers: Optional[List[torch.Tensor]] = None) -> Readings:
     """Train len(batches) Adam steps from w0 (not modified) in
     `precision` (model.logits) and read the losses, the first gradient's
-    leaf norms and the change's leaf norms."""
+    leaf norms and the change's leaf norms.  mels, speakers: each batch's
+    [B, F, M] frames and [B] ids, for a mel or a speaker model."""
     dt = torch.float64 if precision == "float64" else torch.float32
     p = {k: v.detach().to(dt).clone() for k, v in w0.items()}
     mu = {k: torch.zeros_like(v) for k, v in p.items()}
     nu = {k: torch.zeros_like(v) for k, v in p.items()}
     losses, first = [], None
     for count, window in enumerate(batches, start=1):
-        loss, g = model.loss_and_grads(p, dilations, window, rows,
-                                       precision)
+        loss, g = model.loss_and_grads(
+            p, dilations, window, rows, precision,
+            mel=None if mels is None else mels[count - 1],
+            speaker=None if speakers is None else speakers[count - 1])
         losses.append(loss)
         if first is None:
             first = {k: v.detach().clone() for k, v in g.items()}

@@ -10,6 +10,17 @@ A kernel's least time is the larger of its operations at the peak and its
 bytes at the bandwidth, each input byte read once and each output byte
 written once.  Operations count multiply and add as two, the algorithm's
 own (no recompute, no padding).  Sizes come from sizes.Sizes.
+
+Conditioning (zero for an unconditional model, whose every count is what
+it was without it): the mel product y V_cond, [M, 2R] a token and layer,
+is the stack's work and the decode kernels'; the upsampler, before the
+stack, and the speaker offsets g_embed[s] V_global, [G, 2R] a layer once a
+row, are the model's but neither kernel's: a training step counts both,
+the decode kernels neither (the server upsamples and the decode computes
+the offsets outside them, once a request batch).  Bytes count the
+conditioning at the kernels' interfaces: the features y in bf16, V_cond in
+bf16 (its gradient f32), the offsets [B, L, 2R] in f32 (and their
+gradient).
 """
 
 from __future__ import annotations
@@ -31,8 +42,10 @@ def least_seconds(flops: float, nbytes: float, dtype: str) -> float:
 
 def layer_flops(z: Sizes) -> int:
     """One gated residual layer, one token: the K taps' [R, 2R] gate
-    products, the [R, R] residual and the [R, S] skip product."""
-    return 2 * (z.K * z.R * 2 * z.R + z.R * z.R + z.R * z.S)
+    products, the [R, R] residual and the [R, S] skip product, and a mel
+    model's [M, 2R] conditioning product."""
+    return 2 * (z.K * z.R * 2 * z.R + z.R * z.R + z.R * z.S
+                + z.M * 2 * z.R)
 
 
 def head_flops(z: Sizes) -> int:
@@ -40,13 +53,42 @@ def head_flops(z: Sizes) -> int:
     return 2 * (z.S * z.S + z.S * z.Q)
 
 
-def forward_flops_per_token(z: Sizes) -> int:
+def upsample_flops_per_frame(z: Sizes) -> int:
+    """The upsampler over one mel frame: stage i's 2 f_i + 1 taps of
+    [M, M] at each of its f_0 .. f_i output samples (0 without mel)."""
+    total, n = 0, 1
+    for f in z.upsample:
+        n *= f
+        total += 2 * (2 * f + 1) * z.M * z.M * n
+    return total
+
+
+def upsample_flops_per_token(z: Sizes) -> float:
+    """upsample_flops_per_frame over the hop."""
+    return upsample_flops_per_frame(z) / z.hop
+
+
+def speaker_flops_per_row(z: Sizes) -> int:
+    """The speaker offsets of one row: [G] x [G, 2R] at each layer."""
+    return 2 * z.G * 2 * z.R * z.L
+
+
+def kernel_flops_per_token(z: Sizes) -> int:
+    """The stack and the head, one token: a decode kernel's work."""
     return z.L * layer_flops(z) + head_flops(z)
 
 
-def train_flops_per_step(z: Sizes) -> int:
-    """Forward and backward as three forwards, over B x W predictions."""
-    return 3 * forward_flops_per_token(z) * z.batch * z.window
+def forward_flops_per_token(z: Sizes):
+    """The model's forward, one token: the stack, the head and the
+    upsampler."""
+    return kernel_flops_per_token(z) + upsample_flops_per_token(z)
+
+
+def train_flops_per_step(z: Sizes):
+    """Forward and backward as three forwards, over B x W predictions and
+    the B rows' speaker offsets."""
+    return 3 * (forward_flops_per_token(z) * z.batch * z.window
+                + speaker_flops_per_row(z) * z.batch)
 
 
 def stack_fwd_flops(z: Sizes) -> int:
@@ -61,28 +103,38 @@ def stack_bwd_flops(z: Sizes) -> int:
 
 
 def stack_weights(z: Sizes) -> int:
-    return z.L * (z.K * z.R * 2 * z.R + z.R * (z.R + z.S))
+    """The stack's products, V_cond among them."""
+    return z.L * (z.K * z.R * 2 * z.R + z.R * (z.R + z.S) + z.M * 2 * z.R)
 
 
 def stack_biases(z: Sizes) -> int:
     return z.L * (2 * z.R + z.R + z.S)
 
 
+def offsets(z: Sizes) -> int:
+    """The speaker offsets of a batch, [B, L, 2R] (0 without speakers)."""
+    return z.batch * z.L * 2 * z.R if z.C else 0
+
+
 def stack_fwd_bytes(z: Sizes) -> int:
-    """In: the embedded input [B, W, R] and the weights in bf16, the biases
-    in f32.  Out: the skip sum [B, W, S] in f32."""
+    """In: the embedded input [B, W, R], the features [B, W, M] and the
+    weights in bf16, the biases and the offsets in f32.  Out: the skip sum
+    [B, W, S] in f32."""
     M = z.batch * z.window
-    return (M * z.R * BF16 + stack_weights(z) * BF16 + stack_biases(z) * F32
-            + M * z.S * F32)
+    return (M * (z.R + z.M) * BF16 + stack_weights(z) * BF16
+            + (stack_biases(z) + offsets(z)) * F32 + M * z.S * F32)
 
 
 def stack_bwd_bytes(z: Sizes) -> int:
-    """In: the skip cotangent [B, W, S] f32, the input [B, W, R] and the
-    weights in bf16.  Out: the input's cotangent [B, W, R] and every weight
-    and bias gradient in f32."""
+    """In: the skip cotangent [B, W, S] f32, the input [B, W, R], the
+    features [B, W, M] and the weights in bf16, the offsets in f32.  Out:
+    the input's and the features' cotangents [B, W, R + M], every weight
+    and bias gradient and the offsets' in f32."""
     M = z.batch * z.window
-    return (M * z.S * F32 + M * z.R * BF16 + stack_weights(z) * BF16
-            + M * z.R * F32 + (stack_weights(z) + stack_biases(z)) * F32)
+    return (M * z.S * F32 + M * (z.R + z.M) * BF16
+            + stack_weights(z) * BF16 + offsets(z) * F32
+            + M * (z.R + z.M) * F32
+            + (stack_weights(z) + stack_biases(z) + offsets(z)) * F32)
 
 
 def ring_rows(z: Sizes) -> int:
@@ -90,16 +142,19 @@ def ring_rows(z: Sizes) -> int:
 
 
 def decode_flops(z: Sizes, row_steps: int) -> int:
-    """Decode of row_steps (row, step) pairs: one forward token each."""
-    return forward_flops_per_token(z) * row_steps
+    """Decode of row_steps (row, step) pairs: the stack and the head of one
+    token each (kernel_flops_per_token)."""
+    return kernel_flops_per_token(z) * row_steps
 
 
 def decode_bytes(z: Sizes, launches: int, rows: int, row_steps: int) -> int:
-    """Decode launches: each reads the weights (bf16 products, f32 embedding
-    tables and biases) once, reads and writes the rows' rings in bf16 and
-    its token carry; each (row, step) writes one int32 token.  rows: the sum
-    of the launches' batch rows."""
+    """Decode launches: each reads the weights (bf16 products, V_cond among
+    them, f32 embedding tables and biases) once, reads and writes the rows'
+    rings in bf16 and its token carry, and reads each row's speaker offsets
+    [L, 2R] in f32; each (row, step) reads its features [M] in bf16 and
+    writes one int32 token.  rows: the sum of the launches' batch rows."""
     weights = (stack_weights(z) + z.S * z.S + z.S * z.Q) * BF16 \
         + (2 * z.Q * z.R + stack_biases(z) + z.S + z.Q) * F32
-    state = rows * (2 * ring_rows(z) * z.R * BF16 + 2 * I32)
-    return launches * weights + state + row_steps * I32
+    state = rows * (2 * ring_rows(z) * z.R * BF16 + 2 * I32
+                    + (z.L * 2 * z.R * F32 if z.C else 0))
+    return launches * weights + state + row_steps * (I32 + z.M * BF16)

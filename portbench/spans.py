@@ -83,3 +83,16 @@ def idle_pct_inside(run, keep: Callable[[str, dict], bool]):
     if not inside:
         return None
     return 100.0 * overlap_s(run.trace._gaps(), inside) / run.trace.window_s
+
+
+def serving_lane(run):
+    """The server lane whose "serve.group" records in the traced window
+    served the most real rows (lane 0 takes unconditioned requests, lane 1
+    mel and primed ones), or None with no such record."""
+    recs = window_records(run)
+    rows: dict = {}
+    for name, _, _, _, _, nums in recs or ():
+        if name == "serve.group":
+            lane = nums.get("lane")
+            rows[lane] = rows.get(lane, 0) + nums.get("real", 0)
+    return max(rows, key=rows.get) if rows else None

@@ -11,6 +11,9 @@ import pytest
 TINY = {"num_blocks": 1, "max_dilation": 128, "residual_channels": 32,
         "skip_channels": 16, "batch_size": 4, "train_window": 2048,
         "remat": False}
+# a small mel front end: 16 bins, hop 32 = 4 x 8, 256-sample frames
+MEL = {"num_mels": 16, "hop_length": 32, "win_length": 256, "fmin": 0.0,
+       "fmax": 0.0, "upsample_factors": [4, 8]}
 
 
 def pytest_configure(config):
@@ -26,17 +29,27 @@ def cuda():
     return "cuda"
 
 
-def tiny_overrides(cell: str, **workload) -> dict:
+def tiny_overrides(cell: str, mel: bool = False, speakers: int = 0,
+                   **workload) -> dict:
     """A cell's files at the tiny preset's widths, sizes a CPU test holds:
-    short clips, 4 clients, requests of 20-80 ms at 4 kHz."""
+    short clips, 4 clients, requests of 20-80 ms at 4 kHz.  mel: the model
+    conditioned on MEL and, serving, the mix's requests bringing frames of
+    0.1-0.3 s clips; speakers: that many speaker classes."""
+    cond = {}
+    if mel:
+        cond["mel"] = MEL
+    if speakers:
+        cond["global_classes"] = speakers
     if "train" in cell:
-        return {"config": TINY,
+        return {"config": dict(TINY, **cond),
                 "mix": {"clips": 8, "clip_min_s": 0.2, "clip_max_s": 0.5},
                 "workload": dict({"steps_per_call": 1}, **workload)}
-    return {"config": dict(TINY, sample_rate=4000),
-            "mix": {"clients": 4, "max_batch": 4, "min_s": 0.02,
-                    "max_s": 0.08, "chunk_s": 0.02, "length_quantum_s": 0.02,
-                    "warm_samples": 8},
+    mix = {"clients": 4, "max_batch": 4, "min_s": 0.02, "max_s": 0.08,
+           "chunk_s": 0.02, "length_quantum_s": 0.02, "warm_samples": 8}
+    if mel:
+        mix.update(conditioning="mel", clips=8, clip_min_s=0.1,
+                   clip_max_s=0.3, noise=0.02)
+    return {"config": dict(TINY, sample_rate=4000, **cond), "mix": mix,
             "workload": dict({"check_requests": 6, "ref_rows": 4},
                              **workload)}
 
@@ -44,14 +57,15 @@ def tiny_overrides(cell: str, **workload) -> dict:
 @pytest.fixture
 def tiny_run():
     """harness.execute of a cell at tiny sizes on the CPU (the harness's
-    look for a card skipped): tiny_run(cell, seed, seconds, trace,
-    **workload overrides) -> Run."""
+    look for a card skipped): tiny_run(cell, seed, seconds, trace, mel,
+    speakers, **workload overrides) -> Run."""
     from portbench import harness
 
     def go(cell: str, seed: int = 5, seconds: float = 1.5,
-           trace: bool = False, **workload):
-        c = harness.load_cell(cell,
-                              overrides=tiny_overrides(cell, **workload))
+           trace: bool = False, mel: bool = False, speakers: int = 0,
+           **workload):
+        c = harness.load_cell(cell, overrides=tiny_overrides(
+            cell, mel, speakers, **workload))
         return harness.execute(c, seed, seconds, trace, "cpu",
                                time.monotonic())
     return go

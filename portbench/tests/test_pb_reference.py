@@ -51,15 +51,15 @@ def test_loss_and_gradients_match_the_port(w):
 def test_mulaw_windows_and_noise_match_the_port():
     clips = corpus.clips(4, 6, 0.05, 0.2, Z.sample_rate, 0.02)
     ds = AudioDataset(clips, CFG, native=False)
-    toks = data.corpus_tokens(clips, Z.Q, Z.window)
+    toks = [data.encode(c, Z.Q) for c in data.kept_clips(clips, Z.window)]
     for a, b in zip(ds.tokens, toks):
         assert np.array_equal(a, b)
     st = IteratorState(CFG.seed, 0)
     for k in range(3):
         batch, st = ds.sample_batch(st)
         assert np.array_equal(batch["tokens"],
-                              data.windows(toks, CFG.seed, k, Z.batch,
-                                           Z.window))
+                              data.draw(toks, CFG.seed, k, Z.batch,
+                                        Z.window)[0])
     q = torch.arange(256)
     assert np.array_equal(serve.tokens_of(mulaw.decode(q).numpy(), 256),
                           q.numpy())
@@ -89,9 +89,9 @@ def test_reference_steps_match_the_port_trainer(w):
         grad_norms={k: train.leaf_norm(v) for k, v in first.items()},
         change_norms={k: train.leaf_norm(tr.state.params[k] - p0[k])
                       for k in p0})
-    toks = data.corpus_tokens(clips, Z.Q, Z.window)
-    batches = [torch.from_numpy(data.windows(toks, CFG.seed, k, Z.batch,
-                                             Z.window)) for k in range(3)]
+    toks = [data.encode(c, Z.Q) for c in data.kept_clips(clips, Z.window)]
+    batches = [torch.from_numpy(data.draw(toks, CFG.seed, k, Z.batch,
+                                          Z.window)[0]) for k in range(3)]
     ref = train.steps(w, Z.dilations, batches, Z.learning_rate, Z.adam_b1,
                       Z.adam_b2, rows=2)
     gaps = train.gaps(prog, ref)

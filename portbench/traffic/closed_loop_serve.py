@@ -1,13 +1,19 @@
 """Serving traffic: a closed loop of clients through the port's
 WaveNetServer.
 
-Each client submits one unconditional request, reads its ResponseStream to
-the end, then submits the next at once, until the window closes; the
-requests take, in submission order, the mix's lengths
-(corpus.request_lengths: the same set for every seed, in an order drawn
-from it) and seeds drawn from the run's seed (corpus.request_seeds).
-After the window no request is submitted; those in flight are read to
-their end, for at most `grace_s`.
+Each client submits one request, reads its ResponseStream to the end,
+then submits the next at once, until the window closes; the requests
+take, in submission order, the mix's lengths (corpus.request_lengths: the
+same set for every seed, in an order drawn from it) and seeds drawn from
+the run's seed (corpus.request_seeds).  After the window no request is
+submitted; those in flight are read to their end, for at most `grace_s`.
+
+A request is unconditional unless the mix says "conditioning": "mel": it
+then brings the log-mel frames (reference.data.log_mel) of a span of one
+of the mix's synthetic clips (corpus.clips), ceil(n / hop) frames from a
+clip and a first frame drawn from the seed (corpus.request_spans), and
+takes the server's mel lane.  A speaker model's requests each name a
+speaker drawn from the seed (corpus.request_speakers).
 
   served_audio_s_per_s  audio-seconds delivered to clients over the
                         window's wall seconds: each decode launch's samples
@@ -21,12 +27,17 @@ their end, for at most `grace_s`.
                         counts at the grace's end and fails the run.
 
 Set-up warms every batch bucket the server can launch (1, 2, .., max_batch)
-through WaveNet.stream with `warm_samples` samples in two chunks, not
-WaveNetServer.warmup, which decodes a whole chunk per bucket.
+through WaveNet.stream with `warm_samples` samples in two chunks (with
+features and speaker ids where the requests bring them; and the upsampler
+at each number of frames a request brings, whose products' kernels load
+at their first use), not WaveNetServer.warmup, which decodes a whole chunk
+per bucket.
 
 Mix parameters: clients, max_batch, max_wait_ms, chunk_s,
 length_quantum_s, min_s, max_s, temperature, max_requests, grace_s,
-warm_samples.  Workload parameters: check_requests, ref_rows, limits.
+warm_samples; with "conditioning": "mel" also clips, clip_min_s,
+clip_max_s, noise (every clip at least max_s long).  Workload
+parameters: check_requests, ref_rows, limits.
 """
 
 from __future__ import annotations
@@ -39,11 +50,13 @@ import numpy as np
 
 
 class _Request:
-    __slots__ = ("index", "n", "seed", "submit", "first", "done", "chunks",
-                 "audio", "error")
+    __slots__ = ("index", "n", "seed", "mel", "speaker", "submit", "first",
+                 "done", "chunks", "audio", "error")
 
-    def __init__(self, index: int, n: int, seed: int):
+    def __init__(self, index: int, n: int, seed: int, mel=None,
+                 speaker: Optional[int] = None):
         self.index, self.n, self.seed = index, n, seed
+        self.mel, self.speaker = mel, speaker        # [F, M] frames, id
         self.submit = self.first = self.done = None
         self.chunks: List[tuple] = []          # (receipt time, samples)
         self.audio: List[np.ndarray] = []
@@ -55,15 +68,16 @@ class ClosedLoop:
     submitting the next as soon as it ended, until `end` (a
     time.monotonic() value).
 
-    The k-th request submitted takes lengths[k] and seeds[k], and is put
-    into the server's inbox in that order (the count and the submit under
-    one lock).  The first `clients` requests are submitted together before
-    any client starts."""
+    The k-th request submitted takes lengths[k] and seeds[k] (and mels[k],
+    speakers[k] where given), and is put into the server's inbox in that
+    order (the count and the submit under one lock).  The first `clients`
+    requests are submitted together before any client starts."""
 
     def __init__(self, server, clients: int, lengths, seeds,
-                 temperature: float):
+                 temperature: float, mels=None, speakers=None):
         self.server, self.temperature = server, temperature
         self.lengths, self.seeds = lengths, seeds
+        self.mels, self.speakers = mels, speakers
         self.requests: List[_Request] = []
         self._lock = threading.Lock()
         self.clients = clients
@@ -84,12 +98,16 @@ class ClosedLoop:
             k = len(self.requests)
             if time.monotonic() >= self.end or k >= len(self.lengths):
                 return None
-            r = _Request(k, int(self.lengths[k]), int(self.seeds[k]))
+            r = _Request(k, int(self.lengths[k]), int(self.seeds[k]),
+                         None if self.mels is None else self.mels[k],
+                         None if self.speakers is None
+                         else int(self.speakers[k]))
             self.requests.append(r)
             r.submit = time.monotonic()
             try:
                 return r, self.server.submit(num_samples=r.n, seed=r.seed,
-                                             temperature=self.temperature)
+                                             temperature=self.temperature,
+                                             mel=r.mel, speaker=r.speaker)
             except Exception as e:          # counted against the run
                 r.error = repr(e)
                 return r, None
@@ -117,14 +135,33 @@ class ClosedLoop:
         return not any(t.is_alive() for t in self._threads)
 
 
-def _warm(model, mix, seeds_base: int = 1) -> None:
+def _warm(model, mix, mel_frames=(), seeds_base: int = 1) -> None:
+    """Every batch bucket through model.stream; with mel_frames (the
+    numbers of frames the requests bring), the mel variant with zero
+    features, and the upsampler at each number of frames, as the server
+    upsamples a request alone."""
+    import torch
     n = int(mix["warm_samples"])
+    cfg, dev = model.cfg, model.device
+    if mel_frames:
+        from wavenet_tpu_torch.models import conditioning
+        with torch.no_grad():
+            for f in sorted(set(mel_frames)):
+                conditioning.upsample_mel(
+                    model.params["upsampler"], cfg.mel,
+                    torch.zeros(1, f, cfg.mel.num_mels, device=dev),
+                    f * cfg.mel.hop_length)
     b = 1
     while True:
+        kw = {}
+        if mel_frames:
+            kw["y"] = torch.zeros(b, 2 * n, cfg.mel.num_mels, device=dev)
+        if cfg.global_classes is not None:
+            kw["speaker"] = np.zeros(b, np.int32)
         for _ in model.stream(num_samples=2 * n, chunk_samples=n, batch=b,
                               seeds=np.arange(seeds_base, seeds_base + b,
                                               dtype=np.int32),
-                              temperature=mix["temperature"]):
+                              temperature=mix["temperature"], **kw):
             pass
         if b >= mix["max_batch"]:
             return
@@ -151,6 +188,27 @@ def _counted(stream, groups: list, launches: list):
     return wrapped
 
 
+def request_mels(run, lengths):
+    """Each request's [ceil(n / hop), M] log-mel frames (views into its
+    clip's), or None for a mix without "conditioning"."""
+    from portbench import corpus
+    from portbench.reference import data
+    mix, z = run.cell.mix, run.sizes
+    kind = mix.get("conditioning")
+    if kind is None:
+        return None
+    if kind != "mel" or not z.M:
+        raise ValueError(f"conditioning {kind!r} needs \"mel\" and a mel "
+                         f"model")
+    mels = data.clip_mels(corpus.clips(
+        run.seed, mix["clips"], mix["clip_min_s"], mix["clip_max_s"],
+        z.sample_rate, mix["noise"]), z)
+    frames = -(-np.asarray(lengths, np.int64) // z.hop)
+    clip, start = corpus.request_spans(run.seed, frames,
+                                       [len(m) for m in mels])
+    return [mels[c][s:s + f] for c, s, f in zip(clip, start, frames)]
+
+
 def serve(run) -> ClosedLoop:
     """Build the server on the run's weights and run the closed loop over
     the window and the grace; the window's bounds, the padded rows and the
@@ -159,20 +217,22 @@ def serve(run) -> ClosedLoop:
     from wavenet_tpu_torch.models.api import WaveNet
     from wavenet_tpu_torch.serving.server import WaveNetServer
     mix, z = run.cell.mix, run.sizes
-    model = WaveNet(run.program_config(), run.weights())
+    model = WaveNet(run.program_config(), run.program_weights())
     server = WaveNetServer(model, max_batch=mix["max_batch"],
                            max_wait_ms=mix["max_wait_ms"],
                            chunk_seconds=mix["chunk_s"],
                            length_quantum_seconds=mix["length_quantum_s"])
-    _warm(model, mix)
     count = int(mix["max_requests"])
-    loop = ClosedLoop(server, int(mix["clients"]),
-                      corpus.request_lengths(run.seed, count,
-                                             int(mix["clients"]),
-                                             mix["min_s"], mix["max_s"],
-                                             z.sample_rate),
+    lengths = corpus.request_lengths(run.seed, count, int(mix["clients"]),
+                                     mix["min_s"], mix["max_s"],
+                                     z.sample_rate)
+    mels = request_mels(run, lengths)
+    _warm(model, mix, () if mels is None else [len(m) for m in mels])
+    loop = ClosedLoop(server, int(mix["clients"]), lengths,
                       corpus.request_seeds(run.seed, count),
-                      float(mix["temperature"]))
+                      float(mix["temperature"]), mels,
+                      corpus.request_speakers(run.seed, count, z.C)
+                      if z.C else None)
     groups: list = []
     launches: list = []
     model.stream = _counted(model.stream, groups, launches)
@@ -273,14 +333,16 @@ def pick(done: list, count: int, seed: int) -> list:
 
 
 def sample_tokens(run, done: list, wl: dict):
-    """The judged requests' tokens and seeds; a request whose audio is not
-    its length or not mu-law levels is a fault."""
+    """The judged requests' tokens and seeds, and their conditioning as
+    reference.serve.gaps takes it ({"mels": [..]} and {"speakers": [..]}
+    where the requests bring them); a request whose audio is not its
+    length or not mu-law levels is a fault."""
     from portbench.reference import serve as ref_serve
     chosen = pick(done, int(wl["check_requests"]), run.seed)
     if len(chosen) < int(wl["check_requests"]):
         run.fault(f"only {len(chosen)} requests finished; "
                   f"{wl['check_requests']} are judged")
-    toks, seeds = [], []
+    toks, seeds, kept = [], [], []
     for r in chosen:
         audio = (np.concatenate(r.audio) if r.audio
                  else np.zeros(0, np.float32))
@@ -294,17 +356,23 @@ def sample_tokens(run, done: list, wl: dict):
             run.fault(f"request {r.index}: {e}")
             continue
         seeds.append(r.seed)
-    return toks, seeds
+        kept.append(r)
+    cond = {}
+    if kept and kept[0].mel is not None:
+        cond["mels"] = [r.mel for r in kept]
+    if kept and kept[0].speaker is not None:
+        cond["speakers"] = [r.speaker for r in kept]
+    return toks, seeds, cond
 
 
 def _judge(run, done: list, temperature: float, wl: dict) -> None:
     from portbench.reference import model, serve as ref_serve
-    toks, seeds = sample_tokens(run, done, wl)
+    toks, seeds, cond = sample_tokens(run, done, wl)
     if not toks:
         run.fault("no request to judge")
         return
     model.no_tf32()
     w = run.weights()
     gap = max(ref_serve.gaps(w, run.sizes.dilations, toks, seeds,
-                             temperature, int(wl["ref_rows"])))
+                             temperature, int(wl["ref_rows"]), **cond))
     run.check("token_gap", gap, wl["limits"]["token_gap"])

@@ -9,7 +9,9 @@ parameters) are taken then.  The window calls Trainer.run(steps_per_call)
 until `seconds` have passed; the clock stops after run() returns, which
 synchronises the device.  After the window the Trainer is freed and the
 reference trains the same steps from the same weights on the windows it
-draws again from the same corpus.
+draws again from the same corpus: a mel model's with the frames of its
+own log-mel of each clip, a speaker model's with each row's clip index
+modulo the classes, as the port's dataset assigns speakers to clips.
 
 Mix parameters: clips, clip_min_s, clip_max_s, noise.  Workload
 parameters: steps_per_call, checked_steps, ref_rows, limits.
@@ -41,7 +43,7 @@ def program_readings(run, checked_steps: int):
                          mix["clip_max_s"], z.sample_rate, mix["noise"])
     ds = AudioDataset(clips, cfg)
     del clips
-    tr = Trainer(cfg, ds, device=run.device, params=run.weights())
+    tr = Trainer(cfg, ds, device=run.device, params=run.program_weights())
     p0 = {k: v.detach().clone() for k, v in tr.state.params.items()}
     losses, first = [], None
     b1 = float(np.float32(1.0 - z.adam_b1))  # Adam's (1 - b1), f32 leaves
@@ -69,22 +71,32 @@ def reference_readings(run, checked_steps: int, precision: str = "float32",
     mix, z = run.cell.mix, run.sizes
     ref_train.check_config(run.cell.config["model"])
     model.no_tf32()
-    clips = corpus.clips(run.seed, mix["clips"], mix["clip_min_s"],
-                         mix["clip_max_s"], z.sample_rate, mix["noise"])
-    toks = data.corpus_tokens(clips, z.Q, z.window)
+    clips = data.kept_clips(corpus.clips(
+        run.seed, mix["clips"], mix["clip_min_s"], mix["clip_max_s"],
+        z.sample_rate, mix["noise"]), z.window)
+    toks = [data.encode(c, z.Q) for c in clips]
+    mels = data.clip_mels(clips, z) if z.M else None
     del clips
     s = run.seed % (1 << 62)
-    batches = []
+    rows = z.batch // 2 if half else z.batch
+    batches, frames, speakers = [], [], []
     for k in range(checked_steps):
-        win = data.windows(toks, s, k, z.batch, z.window)
-        if half:
-            win = win[:z.batch // 2]
-        batches.append(torch.from_numpy(win).to(run.device))
+        win, ids, starts = data.draw(toks, s, k, z.batch, z.window, z.hop)
+        batches.append(torch.from_numpy(win[:rows]).to(run.device))
+        if z.M:
+            frames.append(torch.from_numpy(data.window_frames(
+                mels, ids[:rows], starts[:rows], z.window, z.hop)
+            ).to(run.device))
+        if z.C:
+            speakers.append(torch.from_numpy(ids[:rows] % z.C
+                                             ).to(run.device))
     w0 = run.weights()
     return ref_train.steps(w0, z.dilations, batches, z.learning_rate,
                            z.adam_b1, z.adam_b2,
                            rows=run.cell.workload["ref_rows"],
-                           precision=precision)
+                           precision=precision,
+                           mels=frames if z.M else None,
+                           speakers=speakers if z.C else None)
 
 
 def run(run) -> None:
