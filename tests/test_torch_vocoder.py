@@ -15,6 +15,7 @@ with dilations 1..8 (the wide kernel's), training on R = 16.  Tolerances:
   * training losses: rtol 2e-3 (the reference suite's loss band).
 """
 
+import contextlib
 import io
 import json
 import os
@@ -29,6 +30,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from wavenet_tpu import config as jconfig
 from wavenet_tpu.audio import dataset as jds
@@ -213,10 +215,21 @@ def _port_losses(ttr, n):
     return seen + [last["loss"]]
 
 
-def test_trainer_with_mel_matches_jax_and_resumes_exactly(tmp_path):
+def _profiled(on: bool):
+    """torch.profiler around the block (the port's spans and the
+    upsampler's hooks recording), or nothing."""
+    return (profile(activities=[ProfilerActivity.CPU]) if on
+            else contextlib.nullcontext())
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_trainer_with_mel_matches_jax_and_resumes_exactly(tmp_path,
+                                                          profiled):
     """Three fused training steps on mel batches (upsampler and v_cond
     train) against a JAX loop of the fused loss and the reference's
-    optimizer; then a resume from step 2 repeats step 3 bit for bit."""
+    optimizer; then a resume from step 2 repeats step 3 bit for bit.
+    Profiled: the three steps run under torch.profiler (spans and the
+    upsampler's hooks on) and the resume without it."""
     jc, tc = _cfgs(MICRO, warmup_steps=1)
     td = tds.AudioDataset.synthetic(tc, num_clips=2, clip_seconds=0.05)
     jp = jwn.init_params(jc, jax.random.PRNGKey(0))
@@ -239,9 +252,11 @@ def test_trainer_with_mel_matches_jax_and_resumes_exactly(tmp_path):
         jp = optax.apply_updates(jp, updates)
         want.append(float(loss))
     seen = []
-    two = ttr.run(2, log_every=1, checkpoint_every=2, log_fn=lambda _: None,
-                  metrics_fn=lambda s, m: seen.append(m["loss"]))
-    three = ttr.run(1, log_every=1, log_fn=lambda _: None)
+    with _profiled(profiled):
+        two = ttr.run(2, log_every=1, checkpoint_every=2,
+                      log_fn=lambda _: None,
+                      metrics_fn=lambda s, m: seen.append(m["loss"]))
+        three = ttr.run(1, log_every=1, log_fn=lambda _: None)
     np.testing.assert_allclose(seen + [two["loss"], three["loss"]], want,
                                rtol=2e-3)
     again = ttrainer.Trainer(tc, td, device="cpu", checkpoint_dir=d)
@@ -311,21 +326,25 @@ ENGINE = dict(max_batch=4, max_wait_ms=300.0, chunk_seconds=64 / RATE,
               length_quantum_seconds=64 / RATE)
 
 
-def test_server_mel_batched_equals_singleton_replay():
+@pytest.mark.parametrize("profiled", [False, True])
+def test_server_mel_batched_equals_singleton_replay(profiled):
     """Mel requests of different lengths batch; each reply equals the
-    request replayed alone (server and facade) bit for bit."""
+    request replayed alone (server and facade) bit for bit.  Profiled:
+    the server runs under torch.profiler (its spans recording), the
+    replays without it."""
     model = _mel_model()
     rs = np.random.RandomState(7)
     reqs = [dict(num_samples=100, seed=1, mel=rs.randn(7, 8)),
             dict(num_samples=70, seed=2, mel=rs.randn(5, 8)),
             dict(num_samples=120, seed=3, mel=rs.randn(8, 8))]
-    with WaveNetServer(model, **ENGINE) as s:
+    with _profiled(profiled), WaveNetServer(model, **ENGINE) as s:
         hs = [s.submit(**r) for r in reqs]
         got = [h.waveform() for h in hs]
         assert s.stats["batches"] == 1 and s.stats["padded_rows"] == 1
         alone = s.submit(**reqs[1]).waveform()
         primed = s.submit(num_samples=40, seed=5, mel=rs.randn(4, 8),
                           prime=np.linspace(-0.5, 0.5, 9)).waveform()
+        assert s.stats["upsampled_rows"] == 5
     np.testing.assert_array_equal(alone, got[1])
     assert primed.shape == (40,)
     for r, g in zip(reqs, got):

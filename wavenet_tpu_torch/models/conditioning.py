@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from wavenet_tpu_torch.config import MelConfig, WaveNetConfig
+from wavenet_tpu_torch.utils import profiling
 
 # f32 products here must stay f32 on a GPU, never TF32 (models/wavenet.py
 # sets the same flag)
@@ -84,6 +85,40 @@ def upsample_mel(params: Dict[str, torch.Tensor], mel_cfg: MelConfig,
         raise ValueError(
             f"upsampled mel length {y.shape[1]} < target {target_len}")
     return y[:, :target_len, :]
+
+
+def upsample_mel_train(params: Dict[str, torch.Tensor], mel_cfg: MelConfig,
+                       mel: torch.Tensor, target_len: int) -> torch.Tensor:
+    """upsample_mel in a step that takes gradients.  While a profiler runs
+    it is recorded as "train.upsample" (utils/profiling): the forward
+    (numbers dir 0) around its launches, and the backward (dir 1) from the
+    arrival of the features' gradient (a hook on them) to the last tap's
+    (a multi-grad hook on views of the upsampler's params: autograd.grad
+    runs no hook of a leaf it returns), each with the device ms between
+    its two ends on the stream.  The hooks pass every gradient through
+    untouched; with no profiler running none is registered."""
+    if not profiling.enabled() or not torch.is_grad_enabled():
+        return upsample_mel(params, mel_cfg, mel, target_len)
+    dev = mel.device
+    taps = {k: v.view_as(v) for k, v in params.items() if v.requires_grad}
+    start = profiling.device_mark(dev)
+    y = upsample_mel(dict(params, **taps), mel_cfg, mel, target_len)
+    profiling.device_interval("train.upsample", start,
+                              profiling.device_mark(dev), dir=0)
+    if not (y.requires_grad and taps):
+        return y
+    marks = []
+
+    def arrived(grad):
+        marks.append(profiling.device_mark(dev))
+
+    def done(grads):
+        if marks:
+            profiling.device_interval("train.upsample", marks[0],
+                                      profiling.device_mark(dev), dir=1)
+    y.register_hook(arrived)
+    torch.autograd.graph.register_multi_grad_hook(list(taps.values()), done)
+    return y
 
 
 def project_cond(params, y: torch.Tensor,

@@ -367,7 +367,8 @@ def _mel_features(params: Params, cfg: WaveNetConfig, T: int, mel,
         return upsampled_cond
     if mel is None:
         raise ValueError("cfg.mel set but no mel features passed")
-    return conditioning.upsample_mel(params["upsampler"], cfg.mel, mel, T)
+    return conditioning.upsample_mel_train(params["upsampler"], cfg.mel, mel,
+                                           T)
 
 
 def _speaker_offsets(params: Params, cfg: WaveNetConfig,

@@ -38,7 +38,10 @@ receives its own waveform chunks as they are produced.
     the hand-off of its end; id the group's serial, numbers lane, rows,
     real).  Each request records "serve.queue_wait", from submit to the
     start of the group that takes it (id the request's serial, parent the
-    group's).
+    group's).  A mel group's per-row upsampling records "serve.upsample"
+    inside its "serve.group" (parent the group's serial; numbers lane,
+    rows upsampled, frames in), as stats "upsampled_rows" and
+    "upsampled_frames" count it.
 
   * Over a (data, model) mesh of ranks (mesh=, one process per rank under
     torchrun) every microbatch decodes through the distributed decoder
@@ -203,7 +206,8 @@ class WaveNetServer:
         self.length_quantum = max(
             1, int(length_quantum_seconds * self.cfg.sample_rate))
         self.stats = {"requests": 0, "batches": 0, "padded_rows": 0,
-                      "samples_out": 0, "decode_seconds": 0.0}
+                      "samples_out": 0, "decode_seconds": 0.0,
+                      "upsampled_rows": 0, "upsampled_frames": 0}
         self._stats_lock = threading.Lock()
         self._group_serials = itertools.count(1)
         # two decode lanes: unconditioned batchable traffic, and mel
@@ -460,7 +464,7 @@ class WaveNetServer:
                                                id=r.serial, parent=serial)
                 t0 = time.monotonic()
                 try:
-                    self._decode_group(group)
+                    self._decode_group(group, serial)
                 except Exception as e:  # surface to every waiting client
                     for r in group:
                         r.error = e
@@ -487,7 +491,10 @@ class WaveNetServer:
             B = -(-max(B, self._dp) // self._dp) * self._dp
         return B
 
-    def _decode_group(self, group):
+    def _decode_group(self, group, serial=None):
+        """Decode one microbatch group and hand each request its chunks;
+        serial: the group's "serve.group" id, the parent of its
+        "serve.upsample"."""
         n_real = len(group)
         scan_len = _bucket(max(r.num_samples for r in group),
                            self.length_quantum)
@@ -528,7 +535,7 @@ class WaveNetServer:
         if group[0].mel is not None:
             y = self._features([r.mel for r in group],
                                [r.num_samples for r in group], range(B),
-                               max(P - 1, 0), scan_len)
+                               max(P - 1, 0), scan_len, serial)
 
         emitted = [0] * n_real
         for chunk in self._model_for(y is not None).stream(
@@ -555,25 +562,33 @@ class WaveNetServer:
             self._unconditioned = unconditioned(self.model)
         return self._unconditioned
 
-    def _features(self, mels, nums, rows, span: int, scan_len: int):
+    def _features(self, mels, nums, rows, span: int, scan_len: int,
+                  parent=None):
         """[len(rows), span + scan_len, M] upsampled features on the
         model's device for the batch rows `rows`: row i from mels[i]
         ([frames, M]) upsampled alone at its own timeline length,
         span + nums[i] (one conv per row, so its bits cannot depend on the
         rows batched with it), zero-padded to the group's; rows past the
-        requests (pad rows) are zeros."""
+        requests (pad rows) are zeros.  The upsampling is the span
+        "serve.upsample" (parent: the group's serial) and the stats'
+        upsampled rows and frames."""
         from wavenet_tpu_torch.models import conditioning
         dev, M = self.model.device, self.cfg.mel.num_mels
         y = torch.zeros(len(rows), span + scan_len, M, device=dev)
         ups = self.model.params["upsampler"]
-        with torch.no_grad():
-            for j, i in enumerate(rows):
-                if i >= len(mels):
-                    continue
+        real = [(j, i) for j, i in enumerate(rows) if i < len(mels)]
+        frames = sum(len(mels[i]) for _, i in real)
+        # mel groups always decode on lane 1
+        with profiling.span("serve.upsample", parent=parent, lane=1,
+                            rows=len(real), frames=frames), \
+                torch.no_grad():
+            for j, i in real:
                 n = span + nums[i]
                 mel = torch.as_tensor(mels[i][None], device=dev)
                 y[j, :n] = conditioning.upsample_mel(ups, self.cfg.mel, mel,
                                                      n)[0]
+        self._bump("upsampled_rows", len(real))
+        self._bump("upsampled_frames", frames)
         return y
 
     # ---- mesh ----

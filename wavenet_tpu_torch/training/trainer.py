@@ -65,7 +65,10 @@ While a torch.profiler runs, each step records its phases as spans
 (utils/profiling.span, id the step): "train.sample" and "train.h2d" (the
 batch drawn on the host and copied to the device, in `run`),
 "train.forward", "train.backward" (the gradients and their sum over the
-ranks) and "train.optimizer" (the update, the EMA and the new state).
+ranks) and "train.optimizer" (the update, the EMA and the new state); a
+mel model's upsampler records "train.upsample" inside the first two, its
+forward and its backward with their device time
+(conditioning.upsample_mel_train).
 The state holds params, optimizer moments and EMA as flat
 leaves under '/'-joined names ("upsampler/w0"), the model's nested params
 rebuilt for each loss call; JAX's optax walks the same leaves in the same

@@ -34,6 +34,11 @@ its trace but not from `records()`.  Each record is
 (name, start_ns, end_ns, id, parent, numbers), stamped with
 time.time_ns(), the clock of the profiler's host and device events.  With
 no profiler running, `span` returns one shared object that does nothing.
+`device_mark` / `device_interval` record the same way and, on a CUDA
+device, also time the device work between their two ends with CUDA events
+recorded on the current stream: the record's numbers gain "device_ms"
+(the events' elapsed time) when `records()` is next read, so no step waits
+on them.  With no profiler running they create no event.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ _STACK = ("fwd_layer_kernel", "bwd_layer_kernel", "wgrad_kernel",
 
 CAPACITY = 1 << 20          # records kept; the oldest go first
 _RECORDS: "collections.deque" = collections.deque(maxlen=CAPACITY)
+# (numbers of a record, its start and end CUDA events) not yet resolved
+_PENDING: "collections.deque" = collections.deque()
 
 
 class _Off:
@@ -110,6 +117,11 @@ def span(name: str, id=None, parent=None, **numbers):
     return _Span(name, id, parent, numbers)
 
 
+def enabled() -> bool:
+    """Whether a profiler runs (in this process, on any thread)."""
+    return bool(_autograd_profiler._is_profiler_enabled)
+
+
 def stamp() -> Optional[int]:
     """time.time_ns() while a profiler runs, else None: the start of an
     interval that another thread ends."""
@@ -125,8 +137,45 @@ def interval(name: str, start_ns: int, end_ns: int, id=None, parent=None,
         _RECORDS.append((name, start_ns, end_ns, id, parent, numbers))
 
 
+def _event(device: torch.device):
+    """A timing CUDA event recorded now on device's current stream, or
+    None off a CUDA device."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def device_mark(device) -> Optional[tuple]:
+    """One end of a device_interval, on any thread: (time.time_ns(), a
+    CUDA event recorded on device's current stream or None) while a
+    profiler runs, else None."""
+    if not enabled():
+        return None
+    return time.time_ns(), _event(torch.device(device))
+
+
+def device_interval(name: str, start: Optional[tuple], end: Optional[tuple],
+                    id=None, parent=None, **numbers) -> None:
+    """Record the span between two device_marks, with "device_ms" between
+    their events (see the module doc); nothing if either mark is None."""
+    if start is not None and end is not None:
+        _RECORDS.append((name, start[0], end[0], id, parent, numbers))
+        if start[1] is not None and end[1] is not None:
+            _PENDING.append((numbers, start[1], end[1]))
+
+
 def records() -> List[tuple]:
-    """The records kept (at most CAPACITY, the newest), oldest first."""
+    """The records kept (at most CAPACITY, the newest), oldest first; the
+    device spans' "device_ms" resolved first (waiting for their events)."""
+    while True:
+        try:
+            numbers, a, b = _PENDING.popleft()
+        except IndexError:
+            break
+        b.synchronize()
+        numbers["device_ms"] = a.elapsed_time(b)
     return list(_RECORDS)
 
 
